@@ -1,0 +1,27 @@
+"""plass_tpu_torch — the `plass assemble` protein path in PyTorch and CUDA.
+
+A port of `plass_tpu` (JAX/Pallas) to PyTorch on an NVIDIA Hopper GPU. The
+JAX package stays beside it as the reference the port is held against.
+
+ - the device k-mer matcher (ops/device_kmer.py) is plain torch around a
+   hand-written CUDA segmented-scan kernel (csrc/seg_scan.cu)
+ - the END_TO_END diagonal rescore runs in a hand-written CUDA kernel
+   (csrc/rescore.cu) on the device-resident hits
+ - host layers (data/, the greedy extender, the workflow engine) are
+   copies of the JAX package's numpy/ctypes code
+
+Nothing here imports jax or plass_tpu: `import plass_tpu` turns on jax at
+import time, and the GPU machine has no jax. The port reads two kinds of
+file from the JAX package by path only: the constant tables under
+`constants/data/` and the C++ sources of the host kernels under `native/`.
+"""
+import os
+
+# The reference package's directory, read by path only (never imported).
+REFERENCE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "plass_tpu")
+
+# Build outputs of the CUDA kernels and the host C++ library.
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+
+__version__ = "0.1.0"

@@ -1,0 +1,74 @@
+"""Host C++ kernels of the assemble slice, built on demand with g++ and
+loaded via ctypes.
+
+The sources are the reference package's own (`plass_tpu/native/`), read by
+path: `extend.cpp` (greedy extender), `finish.cpp` (rescore post-processing)
+and `gather.cpp` (record padding and gathers). The library is built into the
+port's build directory; the reference package's tracked `_native.so` is
+never written.
+"""
+import ctypes
+import os
+import subprocess
+import tempfile
+import threading
+
+from .. import BUILD_DIR, REFERENCE_DIR
+
+SOURCE_DIR = os.path.join(REFERENCE_DIR, "native")
+_SOURCES = ["extend.cpp", "finish.cpp", "gather.cpp"]
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def _build(so_path):
+    """Compile into a temporary file and rename it into place, so that
+    processes building at the same time never load a half-written file."""
+    srcs = [os.path.join(SOURCE_DIR, s) for s in _SOURCES]
+    os.makedirs(os.path.dirname(so_path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so_path))
+    os.close(fd)
+    try:
+        cmd = ["g++", "-O3", "-std=c++14", "-fopenmp", "-shared", "-fPIC",
+               *srcs, "-o", tmp]
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def lib():
+    """Load (building if needed) the host kernel library."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        so_path = os.path.join(BUILD_DIR, "libplass_host.so")
+        srcs = [os.path.join(SOURCE_DIR, s) for s in _SOURCES]
+        if (not os.path.exists(so_path)
+                or any(os.path.getmtime(so_path) < os.path.getmtime(s)
+                       for s in srcs)):
+            _build(so_path)
+        _LIB = ctypes.CDLL(so_path)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i16p = ctypes.POINTER(ctypes.c_int16)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        f64p = ctypes.POINTER(ctypes.c_double)
+        _LIB.assemble_greedy.argtypes = [
+            u8p, i64p, i32p, u32p, ctypes.c_int32,
+            i64p, u32p, i32p, i32p, f64p, i32p, i32p, i32p, i32p, i32p,
+            i32p, i32p, i16p, ctypes.c_double, ctypes.c_int64,
+            u8p, u8p, ctypes.c_int64, i64p, i64p, u8p]
+        _LIB.assemble_greedy.restype = ctypes.c_int
+        _LIB.gather_records.argtypes = [u8p, i64p, i64p, i64p,
+                                        ctypes.c_int64, u8p]
+        _LIB.pad_records.argtypes = [u8p, i64p, i32p, ctypes.c_int64, u8p,
+                                     u8p, ctypes.c_int64]
+        _LIB.rescore_finish.argtypes = [
+            ctypes.c_int64, i64p, i32p, i32p, i32p, i32p, u8p, i64p, i32p,
+            i32p, i32p, i64p, f64p, f64p, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int64, u8p, u8p]
+        return _LIB

@@ -1,0 +1,298 @@
+"""Host <-> device glue of the assemble slice: run the device k-mer matcher
+and the device rescore on a SeqDB and return host-format results.
+
+The hits stay on the device between the two steps: the matcher keeps
+(rep, tgt, diag) as tensors, and the rescore addresses them by index (the
+JAX package's _rescore_from_dev_pallas). Only (qk, tk, score, diag) go to
+the host, for the self rows and the native finish.
+"""
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import constants, native
+from ..data import seqdb
+from . import device_kmer
+from .device_kmer import KmerParams, ksel_capacity
+from .rescore_kernel import rescore_e2e
+
+
+def db_to_padded(db, alphabet="kmer", min_width=1):
+    """(codes uint8[N, W], lengths int32[N]) of a protein SeqDB, W the
+    longest sequence (at least min_width), padded with the alphabet's X.
+
+    alphabet: 'kmer' (reduced-13 codes), 'score' (blosum62 codes) or
+    'char' (raw bytes, padded with 0)."""
+    mat = constants.reduced(13) if alphabet == "kmer" else constants.blosum62()
+    lengths = db.seq_lens().astype(np.int32)
+    n = db.size
+    width = max(int(lengths.max()) if n else 0, min_width)
+    fill = mat.alphabet_size - 1 if alphabet != "char" else 0
+    out = np.full((n, width), fill, dtype=np.uint8)
+    if n:
+        if alphabet == "char":
+            lut8 = np.arange(256, dtype=np.uint8)
+        else:
+            lut8 = np.ascontiguousarray(mat.aa2num.astype(np.uint8))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        native.lib().pad_records(
+            np.asarray(db.data).ctypes.data_as(u8p),
+            np.ascontiguousarray(db.offsets, dtype=np.int64).ctypes.data_as(
+                ctypes.POINTER(ctypes.c_int64)),
+            lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            np.int64(n), lut8.ctypes.data_as(u8p), out.ctypes.data_as(u8p),
+            np.int64(width))
+    return out, lengths
+
+
+def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
+                      kmers_per_sequence_scale=None, hash_shift=67,
+                      ignore_multi_kmer=False, include_only_extendable=False,
+                      cov_thr=0.0):
+    """Device k-mer matcher (monolithic) on `device`.
+
+    Returns the flat KmerHits (the JAX package's return_arrays format),
+    whose raw hits stay on the device for rescore_diagonal_torch."""
+    if db.dbtype == seqdb.NUCLEOTIDES:
+        raise NotImplementedError("the nucleotide k-mer matcher is not "
+                                  "ported yet")
+    if kmers_per_sequence_scale is None:
+        kmers_per_sequence_scale = 0.0
+    codes, lengths = db_to_padded(db, "kmer", min_width=k)
+    if db.size and int(lengths.max()) >= device_kmer.MAX_LEN:
+        raise ValueError(f"sequences of {device_kmer.MAX_LEN} residues or "
+                         "more are not supported by the k-mer matcher")
+    if db.size and int(db.keys.max()) >= device_kmer.MAX_KEY:
+        raise ValueError("sequence keys must be below 2^31")
+    params = KmerParams(
+        k=k, alphabet_size=constants.reduced(13).alphabet_size,
+        kmers_per_sequence=kmers_per_sequence,
+        kmers_per_sequence_scale=kmers_per_sequence_scale,
+        ignore_multi_kmer=ignore_multi_kmer,
+        include_only_extendable=include_only_extendable, cov_thr=cov_thr,
+        ksel=ksel_capacity(kmers_per_sequence, kmers_per_sequence_scale,
+                           codes.shape[1]))
+    rep, tgt, score, diag, table_entries = device_kmer.kmermatch_device(
+        torch.from_numpy(codes).to(device), torch.from_numpy(lengths).to(device),
+        torch.from_numpy(db.keys.astype(np.int32)).to(device), hash_shift,
+        params)
+    out = _insert_self_hits(db, rep.cpu().numpy().astype(np.uint32),
+                            tgt.cpu().numpy().astype(np.uint32),
+                            score.cpu().numpy(), diag.cpu().numpy())
+    out.dev = (rep, tgt, diag)
+    out.table_entries = table_entries
+    return out
+
+
+class KmerHits(tuple):
+    """(qk, tk, score, diag) flat host arrays, self rows interleaved; also
+    carries the device-resident raw hits (rep, tgt, diag) and the slots the
+    raw hits occupy, so the rescore addresses hits by index."""
+    dev = None
+    hit_slots = None
+    table_entries = 0
+
+
+def _insert_self_hits(db, rep, tgt, score, diag):
+    """Flat (q, t, score, diag) arrays with a (k, k, 0, 0) self row at each
+    query-group start — the array equivalent of the hits dict (device hit
+    arrays arrive grouped by ascending representative)."""
+    keys = db.keys.astype(np.int64)
+    n = len(keys)
+    counts = np.zeros(n, dtype=np.int64)
+    pos = np.searchsorted(keys, rep.astype(np.int64))
+    np.add.at(counts, pos, 1)
+    m = len(rep) + n
+    group_starts = np.concatenate([[0], np.cumsum(counts + 1)[:-1]])
+    qk = np.empty(m, dtype=np.int64)
+    tk = np.empty(m, dtype=np.int64)
+    sc = np.zeros(m, dtype=np.int64)
+    dg = np.zeros(m, dtype=np.int32)
+    qk[group_starts] = keys
+    tk[group_starts] = keys
+    mask = np.ones(m, dtype=bool)
+    mask[group_starts] = False
+    hit_slots = np.nonzero(mask)[0]
+    qk[hit_slots] = rep
+    tk[hit_slots] = tgt
+    sc[hit_slots] = score
+    dg[hit_slots] = diag
+    out = KmerHits((qk, tk, sc, dg))
+    out.hit_slots = hit_slots
+    return out
+
+
+def _self_rescore_host(db):
+    """END_TO_END rescoring of the (k, k, diag 0) self rows, analytic on
+    the host: first/last from the '*'-skip on the raw chars, score = clipped
+    sum of diagonal substitution scores over the window, idents = window
+    size."""
+    lens = db.seq_lens().astype(np.int64)
+    ov = lens.astype(np.int32)
+    sub = constants.blosum62().sub.astype(np.int64)
+    offsets = db.offsets.astype(np.int64)
+    data = db.data
+    nonempty = lens > 0
+    safe_off = np.minimum(offsets, max(len(data) - 1, 0))
+    first_char = np.where(nonempty, data[safe_off], 0)
+    last_char = np.where(nonempty,
+                         data[np.minimum(offsets + np.maximum(lens, 1) - 1,
+                                         max(len(data) - 1, 0))], 0)
+    star = np.uint8(ord("*"))
+    first = (first_char == star).astype(np.int32)
+    last_idx = np.maximum(ov - 1, 0)
+    strip = (last_idx > 0) & (last_char == star)
+    last = (last_idx - strip).astype(np.int32)
+    codes = constants.blosum62().aa2num[data].astype(np.int64)
+    cs = np.concatenate([[0], np.cumsum(sub[codes, codes])])
+    lo = offsets + first
+    hi = offsets + np.minimum(last.astype(np.int64), lens - 1) + 1
+    hi = np.maximum(hi, lo)
+    score = np.maximum(cs[hi] - cs[lo], 0)
+    idents = np.maximum(0, np.minimum(last, ov - 1) - first + 1)
+    score[~nonempty] = 0
+    idents[~nonempty] = 0
+    return score, first, last, ov, idents.astype(np.int64)
+
+
+def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
+                           return_flat=False):
+    """END_TO_END rescorediagonal of kmermatcher_torch's KmerHits.
+
+    The self rows are analytic on the host; every other hit is rescored on
+    the device that holds the hits (kernel K2), addressed by index into the
+    matcher's device-resident arrays. Returns {key: RESULT_DTYPE records},
+    or with return_flat {"qk": int64[M], "rec": RESULT_DTYPE[M]} of the
+    surviving records grouped by query — the native extender's input."""
+    from .evalue import EvalueComputer
+    from .rescore import RESCORE_END_TO_END, RESULT_DTYPE, RescoreParams
+
+    params = params or RescoreParams()
+    if params.rescore_mode != RESCORE_END_TO_END:
+        raise NotImplementedError("only the END_TO_END rescore is ported")
+    if not isinstance(hits, KmerHits) or hits.dev is None:
+        raise TypeError("rescore_diagonal_torch takes the KmerHits of "
+                        "kmermatcher_torch")
+    if evaluer is None:
+        evaluer = EvalueComputer.for_matrix("blosum62_ungapped",
+                                            db.total_residues())
+    qk, tk, pref, dg = hits
+    m = len(qk)
+    if m == 0:
+        return {int(k): np.zeros(0, dtype=RESULT_DTYPE) for k in db.keys}
+    lut = db.id_lookup_array()
+    lengths = db.seq_lens().astype(np.int32)
+    qrow = lut[qk].astype(np.int32)
+    trow = lut[tk].astype(np.int32)
+    qrev = np.zeros(m, dtype=bool)
+
+    dist = np.abs(dg).astype(np.int64)
+    score = np.zeros(m, dtype=np.int64)
+    first = np.zeros(m, dtype=np.int32)
+    last = np.zeros(m, dtype=np.int32)
+    ov = np.zeros(m, dtype=np.int32)
+    idents = np.zeros(m, dtype=np.float64)
+
+    self_mask = (qk == tk) & (dg == 0) & (pref == 0)
+    if self_mask.any():
+        s_sc, s_f, s_l, s_ov, s_id = _self_rescore_host(db)
+        rows = qrow[self_mask]
+        score[self_mask] = s_sc[rows]
+        first[self_mask] = s_f[rows]
+        last[self_mask] = s_l[rows]
+        ov[self_mask] = s_ov[rows]
+        idents[self_mask] = s_id[rows]
+
+    idxs = np.nonzero(~self_mask)[0]
+    if len(idxs):
+        dev_rep, dev_tgt, dev_diag = hits.dev
+        device = dev_rep.device
+        codes = torch.from_numpy(db_to_padded(db, "score")[0]).to(device)
+        chars = torch.from_numpy(db_to_padded(db, "char")[0]).to(device)
+        dlen = torch.from_numpy(lengths).to(device)
+        dlut = torch.from_numpy(lut.astype(np.int64)).to(device)
+        sub = torch.from_numpy(
+            constants.blosum62().sub.astype(np.int32)).to(device)
+        didx = torch.from_numpy(
+            np.searchsorted(hits.hit_slots, idxs)).to(device)
+        q = dlut[dev_rep[didx].long()].to(torch.int32)
+        t = dlut[dev_tgt[didx].long()].to(torch.int32)
+        d = dev_diag[didx].contiguous()
+        sc, f, la, idn = rescore_e2e(codes, chars, dlen, q, t, d, sub)
+        score[idxs] = sc.cpu().numpy()
+        first[idxs] = f.cpu().numpy()
+        last[idxs] = la.cpu().numpy()
+        idents[idxs] = idn.cpu().numpy()
+        # the overlap is host-derivable from the lengths and the diagonal
+        qlen = lengths[qrow[idxs]].astype(np.int64)
+        tlen = lengths[trow[idxs]].astype(np.int64)
+        di = dist[idxs]
+        ov_h = np.where(dg[idxs] >= 0, np.minimum(tlen, qlen - di),
+                        np.minimum(tlen - di, qlen))
+        ov[idxs] = np.maximum(ov_h, 0)
+    rec, keep = _rescore_finish(params, evaluer, tk, dg, m, lengths, qrow,
+                                trow, qrev, score, first, last, ov, dist,
+                                idents)
+    return _rescore_group(db, qk, m, rec, keep, return_flat)
+
+
+def _rescore_finish(params, evaluer, tk, dg, m, lengths, qrow, trow, qrev,
+                    score, first, last, ov, dist, idents):
+    """One OpenMP pass over all hit rows (native/finish.cpp): E-values,
+    coordinates, filters and packed RESULT_DTYPE records."""
+    from .rescore import RESULT_DTYPE
+
+    lib = native.lib()
+    e = evaluer
+    dparams = np.array([
+        e.lam, e.K, e.log_K, e.a_I, e.b_I, e.a_J, e.b_J,
+        e.alpha_I, e.beta_I, e.alpha_J, e.beta_J, e.sigma, e.tau,
+        e.vi_y_thr, e.vj_y_thr, e.c_y_thr, e.db_res_count,
+        params.eval_thr, params.seq_id_thr, params.cov_thr],
+        dtype=np.float64)
+    rec = np.zeros(m, dtype=RESULT_DTYPE)
+    keep = np.zeros(m, dtype=np.uint8)
+
+    def p(a, ct):
+        a = np.ascontiguousarray(a)
+        return a, a.ctypes.data_as(ctypes.POINTER(ct))
+
+    tk_a, tk_p = p(tk.astype(np.int64), ctypes.c_int64)
+    dg_a, dg_p = p(dg.astype(np.int32), ctypes.c_int32)
+    qr_a, qr_p = p(qrow.astype(np.int32), ctypes.c_int32)
+    tr_a, tr_p = p(trow.astype(np.int32), ctypes.c_int32)
+    ln_a, ln_p = p(lengths.astype(np.int32), ctypes.c_int32)
+    rv_a, rv_p = p(qrev.astype(np.uint8), ctypes.c_uint8)
+    sc_a, sc_p = p(score.astype(np.int64), ctypes.c_int64)
+    f_a, f_p = p(first.astype(np.int32), ctypes.c_int32)
+    l_a, l_p = p(last.astype(np.int32), ctypes.c_int32)
+    ov_a, ov_p = p(ov.astype(np.int32), ctypes.c_int32)
+    di_a, di_p = p(dist.astype(np.int64), ctypes.c_int64)
+    id_a, id_p = p(idents.astype(np.float64), ctypes.c_double)
+    lib.rescore_finish(
+        m, tk_p, dg_p, qr_p, tr_p, ln_p, rv_p, sc_p, f_p, l_p, ov_p,
+        di_p, id_p,
+        dparams.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        np.int32(params.seq_id_mode), np.int32(params.cov_mode),
+        np.int64(params.aln_len_thr),
+        rec.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return rec, keep.astype(bool)
+
+
+def _rescore_group(db, qk, m, rec, keep, return_flat):
+    """Flat format, or per-query dict preserving input order."""
+    from .rescore import RESULT_DTYPE
+
+    if return_flat:
+        return {"qk": qk[keep], "rec": rec[keep]}
+    out = {}
+    boundaries = np.nonzero(np.diff(qk))[0] + 1
+    starts = np.concatenate([[0], boundaries])
+    ends = np.concatenate([boundaries, [m]])
+    for s0, e0 in zip(starts, ends):
+        out[int(qk[s0])] = rec[s0:e0][keep[s0:e0]]
+    for k in db.keys:
+        out.setdefault(int(k), np.zeros(0, dtype=RESULT_DTYPE))
+    return out

@@ -1,0 +1,136 @@
+"""END_TO_END ungapped diagonal rescore of device-resident hits (kernel K2).
+
+`rescore_e2e(codes, chars, lengths, qrow, trow, diag, sub)` scores each
+hit (qrow[h], trow[h], diag[h]) along its diagonal (reference:
+DistanceCalculator.h:115-220; the JAX package's
+ops/pallas_rescore.py:_kernel_gathered_body on the protein path):
+
+  codes   uint8[N, W]  substitution-alphabet codes of each row
+  chars   uint8[N, W]  raw sequence bytes ('*' detection, case-folded
+                       identity)
+  lengths int32[N]     row lengths (<= W)
+  qrow, trow, diag     int32[H]
+  sub     int32[A, A]  substitution matrix (A <= 32)
+
+Returns (score, first, last, idents) int32[H], relative to the overlap
+window; a hit with no overlap gives (0, -1, -1, 0). The overlap length and
+|diag| are host-derivable from the lengths and are not returned.
+
+On a CUDA tensor the call launches the CUDA kernel (csrc/rescore.cu) or
+raises; on a CPU tensor it runs `rescore_e2e_plain`.
+"""
+import torch
+
+from ..kernels import build
+
+STAR = ord("*")
+FOLD = ~0x20 & 0xFF
+
+# launches of the CUDA kernel in this process (one per rescore_e2e call on
+# a CUDA tensor)
+LAUNCHES = 0
+
+
+def _overlap(lengths, qrow, trow, diag):
+    qlen = lengths[qrow]
+    tlen = lengths[trow]
+    dist = diag.abs()
+    fwd = diag >= 0
+    pos_ok = torch.where(fwd, dist < qlen, dist < tlen)
+    ov = torch.where(fwd, torch.minimum(tlen, qlen - dist),
+                     torch.minimum(tlen - dist, qlen))
+    ov = torch.where(pos_ok, ov, 0)
+    qoff = torch.where(fwd, dist, 0)
+    toff = torch.where(fwd, 0, dist)
+    return ov, qoff, toff
+
+
+def rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
+                      budget=1 << 24):
+    """Plain PyTorch version: the JAX package's device_rescore.rescore_pairs
+    (mode 3, has_rev=False) as [hits, window] gathers, in chunks of at most
+    `budget` window cells."""
+    _check(codes, chars, lengths, qrow, trow, diag, sub)
+    h = qrow.numel()
+    dev = codes.device
+    outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
+    if h == 0:
+        return tuple(outs)
+    lmax = codes.shape[1]
+    alpha = sub.shape[0]
+    sub_flat = sub.reshape(-1).to(torch.int64)
+    ov_all, _, _ = _overlap(lengths, qrow.long(), trow.long(), diag)
+    width = max(int(ov_all.max()), 1)
+    chunk = max(budget // width, 1)
+    j = torch.arange(width, device=dev)
+    for lo in range(0, h, chunk):
+        hi = min(lo + chunk, h)
+        q = qrow[lo:hi].long()
+        t = trow[lo:hi].long()
+        ov, qoff, toff = _overlap(lengths, q, t, diag[lo:hi])
+        qidx = (qoff[:, None] + j).clamp(max=lmax - 1)
+        tidx = (toff[:, None] + j).clamp(max=lmax - 1)
+        qc = codes[q[:, None], qidx].long()
+        tc = codes[t[:, None], tidx].long()
+        qch = chars[q[:, None], qidx]
+        tch = chars[t[:, None], tidx]
+        s = sub_flat[qc * alpha + tc]
+        first = ((qch[:, 0] == STAR) | (tch[:, 0] == STAR)).int()
+        last_idx = (ov - 1).clamp(min=0)
+        cl = last_idx.clamp(max=width - 1)[:, None]
+        star_last = (qch.gather(1, cl) == STAR) | (tch.gather(1, cl) == STAR)
+        last = last_idx - ((last_idx > 0) & star_last[:, 0]).int()
+        first = torch.where(ov > 0, first, -1)
+        last = torch.where(ov > 0, last, -1)
+        in_range = ((j < ov[:, None]) & (j >= first[:, None])
+                    & (j <= last[:, None]))
+        score = torch.where(in_range, s, 0).sum(dim=1).clamp(min=0)
+        idents = (((qch & FOLD) == (tch & FOLD)) & in_range).sum(dim=1)
+        for out, val in zip(outs, (score, first, last, idents)):
+            out[lo:hi] = val
+    return tuple(outs)
+
+
+def _check(codes, chars, lengths, qrow, trow, diag, sub):
+    if codes.dtype != torch.uint8 or chars.dtype != torch.uint8:
+        raise TypeError("codes and chars must be uint8")
+    if codes.dim() != 2 or chars.shape != codes.shape:
+        raise ValueError("codes and chars must be [N, W] of one shape")
+    if lengths.dtype != torch.int32 or lengths.shape != codes.shape[:1]:
+        raise TypeError("lengths must be int32[N]")
+    for name, x in (("qrow", qrow), ("trow", trow), ("diag", diag)):
+        if x.dtype != torch.int32 or x.dim() != 1 or x.shape != qrow.shape:
+            raise TypeError(f"{name} must be int32[H] like qrow")
+    if (sub.dtype != torch.int32 or sub.dim() != 2
+            or sub.shape[0] != sub.shape[1] or not 1 <= sub.shape[0] <= 32):
+        raise TypeError("sub must be int32[A, A] with A <= 32")
+    tensors = (codes, chars, lengths, qrow, trow, diag, sub)
+    if any(x.device != codes.device for x in tensors):
+        raise ValueError("all operands must be on one device")
+
+
+def rescore_e2e(codes, chars, lengths, qrow, trow, diag, sub):
+    """END_TO_END rescore; see the module docstring."""
+    if codes.device.type == "cpu":
+        return rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub)
+    if codes.device.type != "cuda":
+        raise ValueError(f"rescore_e2e: unsupported device {codes.device}")
+    _check(codes, chars, lengths, qrow, trow, diag, sub)
+    tensors = (codes, chars, lengths, qrow, trow, diag, sub)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("rescore_e2e: tensors must be contiguous")
+    global LAUNCHES
+    h = qrow.numel()
+    outs = [torch.empty(h, dtype=torch.int32, device=codes.device)
+            for _ in range(4)]
+    with torch.cuda.device(codes.device):
+        rc = build.load("rescore").rescore_e2e(
+            build.ptr(codes), build.ptr(chars), codes.shape[1],
+            build.ptr(lengths), build.ptr(qrow), build.ptr(trow),
+            build.ptr(diag), build.ptr(sub), sub.shape[0], h,
+            *[build.ptr(o) for o in outs], build.stream_of(codes.device))
+    if rc != 0:
+        raise RuntimeError(f"rescore_e2e kernel launch failed "
+                           f"(CUDA error {rc})")
+    LAUNCHES += 1
+    return tuple(outs)

@@ -1,0 +1,29 @@
+"""Device selection: the device runs the k-mer matcher, the rescore and
+the coding filter; everything else stays on the host.
+
+The choice is explicit. `cuda` without a visible card is an error, never a
+quiet run on the CPU; `cpu` runs every kernel's plain PyTorch version.
+"""
+import torch
+
+
+def pick_device(name="cuda"):
+    """torch.device for `name` ("cuda", "cuda:<i>" or "cpu"), or raise."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {name!r} requested but no CUDA device is available "
+                "(pass --device cpu to run the plain PyTorch versions)")
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"device {name!r}: only "
+                               f"{torch.cuda.device_count()} CUDA device(s)")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
+    return dev
+
+
+def synchronize(device):
+    """Wait for the device's queued work (no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,99 @@
+"""PyTorch port: rescore_diagonal_torch (kernel K2 as its plain version on
+the CPU, the native finish) against the JAX package's rescore_diagonal_jax
+on the hits each side's matcher produced — the records must be equal, in
+the flat format the extender reads and in the per-query dict format of
+iteration 0."""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from plass_tpu.data import seqdb
+from plass_tpu.data.createdb import merge_reads
+from plass_tpu.ops import orf as orf_mod
+from plass_tpu.ops import translate as tr
+from plass_tpu.ops.backend import kmermatcher_jax, rescore_diagonal_jax
+from plass_tpu.ops.evalue import EvalueComputer
+from plass_tpu.ops.rescore import RescoreParams
+from plass_tpu_torch.data.seqdb import SeqDB as PortSeqDB
+from plass_tpu_torch.ops.backend import (kmermatcher_torch,
+                                         rescore_diagonal_torch)
+from plass_tpu_torch.ops.rescore import RescoreParams as PortRescoreParams
+
+FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+READS = [os.path.join(FIX, "mini_1.fastq.gz"),
+         os.path.join(FIX, "mini_2.fastq.gz")]
+LETTERS = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
+
+
+def _mini_orfs():
+    reads, _ = merge_reads(READS)
+    odb, ohdb = orf_mod.extract_orfs(reads, min_length=20, max_length=32734,
+                                     max_gaps=0, start_mode=0)
+    return tr.translate_nucs(odb, ohdb, 1, add_orf_stop=True)
+
+
+def _synthetic_db(seed=31, n=600):
+    rng = np.random.default_rng(seed)
+    genome = LETTERS[rng.integers(0, 20, 3000)]
+    recs = []
+    for _ in range(n):
+        ln = int(rng.integers(20, 140))
+        s = int(rng.integers(0, len(genome) - ln))
+        seq = genome[s:s + ln].copy()
+        mut = rng.random(ln) < 0.03
+        seq[mut] = LETTERS[rng.integers(0, 20, int(mut.sum()))]
+        if rng.random() < 0.3:
+            seq[0] = ord("*")
+        if rng.random() < 0.3:
+            seq[-1] = ord("*")
+        recs.append(seq.tobytes())
+    keys = np.sort(rng.choice(3 * n, n, replace=False))
+    return seqdb.SeqDB.from_records(recs, keys=keys, dbtype=seqdb.AMINO_ACIDS)
+
+
+DBS = {"mini_orfs": _mini_orfs, "synthetic": _synthetic_db}
+
+
+def _both(which, only_ext, flat):
+    db = DBS[which]()
+    pdb = PortSeqDB(db.data, db.keys, db.offsets, db.lengths, db.dbtype)
+    kw = dict(kmers_per_sequence=60, hash_shift=67, ignore_multi_kmer=True,
+              include_only_extendable=only_ext)
+    rp = dict(rescore_mode=3, seq_id_thr=0.9, eval_thr=1e-5)
+    ev = EvalueComputer.for_matrix("blosum62_ungapped", db.total_residues())
+    want = rescore_diagonal_jax(
+        db, kmermatcher_jax(db, 14, return_arrays=True, **kw),
+        RescoreParams(**rp), ev, return_flat=flat)
+    got = rescore_diagonal_torch(
+        pdb, kmermatcher_torch(pdb, 14, torch.device("cpu"), **kw),
+        PortRescoreParams(**rp), return_flat=flat)
+    return got, want
+
+
+@pytest.mark.parametrize("only_ext", [True, False])
+@pytest.mark.parametrize("which", list(DBS))
+def test_rescore_flat_matches_jax(which, only_ext):
+    got, want = _both(which, only_ext, flat=True)
+    np.testing.assert_array_equal(got["qk"], want["qk"])
+    np.testing.assert_array_equal(got["rec"], want["rec"])
+    assert len(got["rec"]) > len(np.unique(got["qk"]))  # beyond self rows
+
+
+@pytest.mark.parametrize("which", list(DBS))
+def test_rescore_dict_matches_jax(which):
+    got, want = _both(which, False, flat=False)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
+    assert sum(len(v) for v in got.values()) > len(got)
+
+
+def test_rescore_takes_only_device_hits():
+    db = _synthetic_db(n=20)
+    pdb = PortSeqDB(db.data, db.keys, db.offsets, db.lengths, db.dbtype)
+    with pytest.raises(TypeError):
+        rescore_diagonal_torch(pdb, {int(k): [] for k in db.keys})
+    with pytest.raises(NotImplementedError):
+        rescore_diagonal_torch(pdb, None, PortRescoreParams(rescore_mode=0))

@@ -1,0 +1,34 @@
+"""The PyTorch port imports neither jax nor the JAX package: the machine
+with the GPU has no jax, and importing plass_tpu turns jax on."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import plass_tpu_torch
+names = ["chip_smoke"]
+for m in pkgutil.walk_packages(plass_tpu_torch.__path__, "plass_tpu_torch."):
+    names.append(m.name)
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.") or m == "plass_tpu"
+             or m.startswith("plass_tpu."))
+print(len(names), "modules")
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert int(lines[0].split()[0]) >= 20, lines
+    assert lines[1] == "BAD []", lines
