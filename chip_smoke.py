@@ -7,22 +7,37 @@ Phases, each printing its own lines; any failure exits non-zero:
      builds (nvcc, from csrc/ in this checkout) and the host C++ build;
   2. kernel K1 (segmented scan) against its plain PyTorch version on the
      card, exact, at 1,031 and 24M elements;
-  4. the fixture assembly through the CLI, byte for byte against the
-     committed golden, then with default parameters;
-  5. a default assembly of 409,600 reads (the 512 fixture reads x800 with
-     1.5% seeded substitutions), with per-stage seconds;
-  3. both kernels at the shapes of phase 5's iteration 0: the matcher
-     with K1 equals the matcher with K1's plain version, and K2 equals its
-     plain version on the real hits and on synthetic edge cases (exact);
-     the table's first-carry scan and the real rescore are timed.
-The kernels' launch counters are set to 0 just before phase 5 and read
-just after; both kernels must have run there. The last lines are a JSON
-summary of the kernels, the card's name and power limit, and
-{"ok": true, "device": {...}}.
+  3. the protein fixture assembly through the CLI, byte for byte against
+     the committed golden, then with default parameters;
+  4. a default protein assembly of 204,800 reads (the 512 fixture reads
+     x400 with 1.5% seeded substitutions), with per-stage seconds;
+  5. K1 and K2 at the shapes of phase 4's iteration 0: the matcher with K1
+     equals the matcher with K1's plain version, and K2 equals its plain
+     version on the real hits and on synthetic edge cases (exact); the
+     table's first-carry scan and the real rescore are timed;
+  6. nucl-fixture: `penguin nuclassemble` on the fixture through the CLI,
+     byte for byte against the committed golden, then with default
+     parameters on the card and on the CPU, byte for byte against each
+     other;
+  7. nucl-scale: a default nuclassemble of a seeded simulated metagenome
+     (50 random genomes of 20,000 nt, 100,000 single-end 150-nt reads from
+     both strands with 0.2% substitutions, 15x coverage), with per-stage
+     seconds;
+  8. nucl-main: at phase 7's iteration-0 shapes, the nucleotide matcher
+     with K1 equals it with K1's plain version, and K2's reverse-strand
+     variants (uniform matrix and generic matrix) equal the plain version
+     on the real hits and on synthetic edge cases (exact); both timed.
+     Both variants also equal it on the hits of phase 7's last iteration,
+     whose rows hold contigs of up to 20,000 nt.
+The kernels' launch counters are set to 0 just before phases 4 and 7 and
+read just after; every kernel of each path must have run there. The last
+lines are a JSON summary of the kernels, the card's name and power limit,
+and {"ok": true, "device": {...}}.
 
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
-plain versions against themselves) to check the script itself; it never
-prints a result and exits with code 2.
+plain versions against themselves) to check the script itself;
+--cpu-reference runs phases 4 and 7 at full size on the CPU, for the
+sha256 of their outputs. Neither prints a result; both exit with code 2.
 """
 import argparse
 import gzip
@@ -33,6 +48,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -41,6 +57,7 @@ FIX = os.path.join(ROOT, "tests", "fixtures")
 READS = [os.path.join(FIX, "mini_1.fastq.gz"),
          os.path.join(FIX, "mini_2.fastq.gz")]
 GOLDEN = os.path.join(FIX, "mini_golden_protein.fas")
+GOLDEN_NUCL = os.path.join(FIX, "mini_golden_nucl.fasta")
 
 
 def say(*parts):
@@ -99,8 +116,11 @@ def phase_env(device, rehearsal):
         f"cuda {torch.version.cuda}")
     say(f"[env] card: {smi()}")
     if not rehearsal:
-        for name in ("seg_scan", "rescore"):
-            info = build.build(name)
+        # one nvcc per source, all started together
+        names = ("seg_scan", "rescore")
+        with ThreadPoolExecutor(len(names)) as pool:
+            infos = list(pool.map(build.build, names))
+        for name, info in zip(names, infos):
             say(f"[env] built {os.path.relpath(info.path, ROOT)} in "
                 f"{info.seconds:.1f} s")
             for line in info.log.splitlines():
@@ -313,7 +333,7 @@ def _edge_case_rows(device):
 
 
 def phase_main_shapes(device, db_path, reps):
-    """K1 and K2 at the shapes of phase 5's iteration 0 (its first match
+    """K1 and K2 at the shapes of phase 4's iteration 0 (its first match
     and rescore): the matcher with every scan in the kernel equals the
     matcher with every scan in the plain version; the table's first-carry
     scan and the rescore of the real hits are timed against their plain
@@ -350,7 +370,9 @@ def phase_main_shapes(device, db_path, reps):
         torch.from_numpy(db.keys.astype(np.int32)).to(device),
         device_kmer.KmerParams(k=14, alphabet_size=13, kmers_per_sequence=60,
                                kmers_per_sequence_scale=0.0, ksel=60), 67)
-    cols = device_kmer.sort_table(*table)
+    new_group, sid_s, pos_s, len_s, fwd_s = device_kmer.sort_table(
+        *table, False)
+    cols = (new_group, sid_s, (pos_s << 1) | fwd_s, len_s)
     k1_ms = cuda_ms(lambda: seg_scan("first", *cols), reps, device)
     k1_pms = cuda_ms(lambda: seg_scan_plain("first", *cols), reps, device)
     say(f"[main] K1 first-carry, 3 columns, T={cols[0].numel()}: kernel "
@@ -358,7 +380,7 @@ def phase_main_shapes(device, db_path, reps):
 
     sub = torch.from_numpy(constants.blosum62().sub.astype(np.int32)) \
         .to(device)
-    rep, tgt, diag = hits.dev
+    rep, tgt, diag, _ = hits.dev
     lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
     codes, _ = db_to_padded(db, "score")
     chars, _ = db_to_padded(db, "char")
@@ -388,14 +410,315 @@ def phase_main_shapes(device, db_path, reps):
     return (k1_err, (k1_ms, k1_pms)), (max(err, e2), (k2_ms, k2_pms))
 
 
+# ---------------------------------------------------------------------------
+# nucleotide: penguin nuclassemble
+
+def _rescore_launches():
+    from plass_tpu_torch.ops import rescore_kernel as rk
+    return {"rescore_e2e": rk.LAUNCHES, "rescore_e2e_rev": rk.LAUNCHES_REV,
+            "rescore_e2e_rev_uniform": rk.LAUNCHES_REV_UNIFORM}
+
+
+def _reset_launches():
+    from plass_tpu_torch.ops import rescore_kernel as rk
+    from plass_tpu_torch.ops import seg_scan
+    seg_scan.LAUNCHES = 0
+    rk.LAUNCHES = rk.LAUNCHES_REV = rk.LAUNCHES_REV_UNIFORM = 0
+
+
+def nucl_cli(inputs, out_dir, extra, device, stats=None):
+    from plass_tpu_torch.cli.penguin import run
+    out = os.path.join(out_dir, "contigs.fasta")
+    rc = run(["nuclassemble", *inputs, out, os.path.join(out_dir, "tmp"),
+              "--device", str(device), *extra], stats=stats)
+    if rc != 0:
+        raise AssertionError(f"CLI exit code {rc}")
+    return out
+
+
+def phase_nucl_fixture(device, work):
+    from plass_tpu_torch.ops import seg_scan
+
+    before = (seg_scan.LAUNCHES, _rescore_launches()["rescore_e2e_rev_uniform"])
+    out = nucl_cli(READS, os.path.join(work, "nfix2"),
+                   ["--num-iterations", "2", "--min-contig-len", "150"],
+                   device)
+    if open(out, "rb").read() != open(GOLDEN_NUCL, "rb").read():
+        raise AssertionError("nucleotide fixture assembly differs from "
+                             "tests/fixtures/mini_golden_nucl.fasta")
+    say("[nucl-fixture] 2 iterations, min-contig-len 150: byte-identical to "
+        "the golden")
+    after = (seg_scan.LAUNCHES, _rescore_launches()["rescore_e2e_rev_uniform"])
+    if device.type == "cuda" and not (after[0] > before[0]
+                                      and after[1] > before[1]):
+        raise AssertionError(f"kernel launch counters did not rise: "
+                             f"{before} -> {after}")
+    t0 = time.perf_counter()
+    dev_out = nucl_cli(READS, os.path.join(work, "nfix8"),
+                       ["--min-contig-len", "150"], device)
+    secs = time.perf_counter() - t0
+    cpu_out = nucl_cli(READS, os.path.join(work, "nfix8cpu"),
+                       ["--min-contig-len", "150"], "cpu")
+    data = open(dev_out, "rb").read()
+    if not data or data != open(cpu_out, "rb").read():
+        raise AssertionError("default nuclassemble on the device differs "
+                             "from the CPU run (or is empty)")
+    say(f"[nucl-fixture] default parameters (8 iterations), min-contig-len "
+        f"150: {data.count(b'>')} contigs in {secs:.1f} s, byte-identical to "
+        f"the run with --device cpu")
+
+
+def make_metagenome(path, n_genomes, genome_len, reads_per_genome,
+                    read_len=150, sub_rate=0.002, seed=7):
+    """Single-end FASTA of a seeded simulated metagenome: n_genomes random
+    ACGT genomes, reads with uniform starts, half of them reverse
+    complemented, with seeded substitutions."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    genomes = acgt[rng.integers(0, 4, (n_genomes, genome_len))]
+    n = n_genomes * reads_per_genome
+    g = rng.integers(0, n_genomes, n)
+    start = rng.integers(0, genome_len - read_len + 1, n)
+    reads = genomes[g[:, None], start[:, None] + np.arange(read_len)]
+    mut = rng.random(reads.shape) < sub_rate
+    reads[mut] = acgt[rng.integers(0, 4, int(mut.sum()))]
+    rc = rng.random(n) < 0.5
+    reads[rc] = comp[reads[rc, ::-1]]
+    with open(path, "wb") as fh:
+        fh.write(b"".join(b">%d\n%s\n" % (i, r.tobytes())
+                          for i, r in enumerate(reads)))
+    return n
+
+
+def phase_nucl_scale(device, work, n_genomes, genome_len):
+    import torch
+
+    t0 = time.perf_counter()
+    fasta = os.path.join(work, "metagenome.fasta")
+    # 15x coverage of each genome by 150-nt reads
+    n_reads = make_metagenome(fasta, n_genomes, genome_len,
+                              genome_len * 15 // 150)
+    say(f"[nucl-scale] {n_reads} reads of {n_genomes} genomes x {genome_len} "
+        f"nt written in {time.perf_counter() - t0:.1f} s")
+    stats = {}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    from plass_tpu_torch.ops import seg_scan
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = nucl_cli([fasta], os.path.join(work, "nscale"), [], device,
+                   stats=stats)
+    wall = time.perf_counter() - t0
+    launches = {"seg_scan": seg_scan.LAUNCHES, **_rescore_launches()}
+    lines = open(out).read().splitlines()
+    heads, body = lines[0::2], lines[1::2]
+    for h, s in zip(heads, body):
+        if not h.startswith(">") or f" len:{len(s)} " not in h + " ":
+            raise AssertionError(f"malformed FASTA record {h!r}")
+        if set(s) - set("ACGTN"):
+            raise AssertionError(f"non-nucleotide contig {h!r}")
+    if not body:
+        raise AssertionError("the assembly produced no contigs")
+    digest = hashlib.sha256(open(out, "rb").read()).hexdigest()
+    say(f"[nucl-scale] reads {stats['reads']}, iteration-0 table entries "
+        f"{stats['table_entries']}, iteration-0 hits {stats['hits']}, "
+        f"reverse hits {stats['reverse_hits']}")
+    say("[nucl-scale] seconds per stage: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stats["seconds"].items()))
+    say(f"[nucl-scale] wall {wall:.1f} s, {stats['reads'] / wall:.0f} "
+        f"reads/s, {len(body)} contigs (longest "
+        f"{max(len(s) for s in body)} nt), sha256 {digest}")
+    say("[nucl-scale] launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    if stats["reverse_hits"] <= 0:
+        raise AssertionError("no reverse-strand hits at iteration 0")
+    if device.type == "cuda":
+        say(f"[nucl-scale] max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+        if not (launches["seg_scan"] and launches["rescore_e2e_rev_uniform"]):
+            raise AssertionError(f"a kernel of the nucleotide path never "
+                                 f"launched: {launches}")
+    tmp = os.path.join(work, "nscale", "tmp", "latest")
+    # the input of the last iteration (8 by default) is iteration 6's
+    # active set
+    return launches, (os.path.join(tmp, "nucl_reads"),
+                      os.path.join(tmp, "assembly_6_active"))
+
+
+def _nucl_edge_case_rows(device):
+    """Synthetic nucleotide K2 inputs: forward and reverse hits at both row
+    ends, no overlap (ov <= 0), N bases, lower case, '*' at a window end,
+    rows longer than 1,024, and a true reverse-complement match."""
+    import torch
+    from plass_tpu_torch import constants
+
+    rng = np.random.default_rng(11)
+    letters = np.frombuffer(b"ACGTNacgt", dtype=np.uint8)
+    lens = [40, 40, 3000, 2500, 1, 2, 1500, 300]
+    width = max(lens)
+    chars = np.zeros((len(lens), width), dtype=np.uint8)
+    for i, n in enumerate(lens):
+        chars[i, :n] = letters[rng.integers(0, len(letters), n)]
+    chars[0, 0] = chars[1, 39] = chars[2, 2999] = ord("*")
+    comp = np.arange(256, dtype=np.uint8)
+    comp[np.frombuffer(b"ACGTNacgt", np.uint8)] = np.frombuffer(
+        b"TGCANtgca", np.uint8)
+    chars[7, :300] = comp[chars[2, 400:700][::-1]]
+    codes = constants.nucleotide().aa2num[chars].astype(np.uint8)
+    codes[chars == 0] = 4
+    q, t, d, r = [], [], [], []
+    for a in range(len(lens)):
+        for b in range(len(lens)):
+            for dg in (0, 1, -1, 39, -39, 40, -400, 1499, -2499, 2999, -2999,
+                       3000, -3000):
+                for rv in (False, True):
+                    q.append(a)
+                    t.append(b)
+                    d.append(dg)
+                    r.append(rv)
+    i32 = lambda x: torch.tensor(np.asarray(x, dtype=np.int32), device=device)
+    return (torch.from_numpy(codes).to(device),
+            torch.from_numpy(chars).to(device), i32(lens), i32(q), i32(t),
+            i32(d), torch.tensor(r, device=device))
+
+
+NUCL_MATCH = dict(kmers_per_sequence=60, kmers_per_sequence_scale=0.1,
+                  hash_shift=67, ignore_multi_kmer=True,
+                  include_only_extendable=True)
+NUCL_K2 = ("rescore_e2e_rev_uniform", "rescore_e2e_rev")
+
+
+def _nucl_rescore_inputs(db, device):
+    """The nucleotide matcher's hits on `db` (default parameters) and K2's
+    operands for them: (hits, args, reverse operands, uniform pattern)."""
+    import torch
+    from plass_tpu_torch import constants
+    from plass_tpu_torch.ops.backend import db_to_padded, kmermatcher_torch
+    from plass_tpu_torch.ops.rescore_kernel import uniform_pattern
+
+    hits = kmermatcher_torch(db, 22, device, **NUCL_MATCH)
+    mat = constants.nucleotide()
+    uniform = uniform_pattern(mat.sub)
+    if uniform is None:
+        raise AssertionError("the nucleotide matrix is not uniform")
+    rep, tgt, diag, rev = hits.dev
+    lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
+    codes, lengths = db_to_padded(db, "score")
+    chars, _ = db_to_padded(db, "char")
+    args = (torch.from_numpy(codes).to(device),
+            torch.from_numpy(chars).to(device),
+            torch.from_numpy(lengths).to(device),
+            lut[rep.long()].to(torch.int32), lut[tgt.long()].to(torch.int32),
+            diag.contiguous(),
+            torch.from_numpy(mat.sub.astype(np.int32)).to(device))
+    rkw = dict(qrev=rev.contiguous(),
+               comp=torch.from_numpy(mat.reverse.astype(np.int32)).to(device),
+               code2char=torch.from_numpy(mat.num2aa.astype(np.uint8))
+               .to(device))
+    return hits, args, rkw, uniform
+
+
+def phase_nucl_main(device, first_db, last_db, reps):
+    """K1 and K2's reverse-strand variants at the shapes of phase 7: the
+    nucleotide matcher with every scan in the kernel equals it with every
+    scan in the plain version (iteration 0); the uniform and the generic
+    matrix variants of K2 equal the plain version on the real hits of the
+    first and of the last iteration and on edge cases, and are timed
+    against it at iteration 0."""
+    from plass_tpu_torch.data import seqdb
+    from plass_tpu_torch.ops import device_kmer
+    from plass_tpu_torch.ops.backend import kmermatcher_torch
+    from plass_tpu_torch.ops.rescore_kernel import (rescore_e2e,
+                                                    rescore_e2e_plain)
+    from plass_tpu_torch.ops.seg_scan import seg_scan, seg_scan_plain
+
+    db = seqdb.SeqDB.open(first_db)
+    hits, args, rkw, uniform = _nucl_rescore_inputs(db, device)
+    device_kmer.seg_scan = seg_scan_plain
+    try:
+        plain_hits = kmermatcher_torch(db, 22, device, **NUCL_MATCH)
+    finally:
+        device_kmer.seg_scan = seg_scan
+    k1_err = max(int(np.abs(np.asarray(g, np.int64)
+                            - np.asarray(w, np.int64)).max(initial=0))
+                 for g, w in zip(hits, plain_hits))
+    if k1_err or len(hits[0]) != len(plain_hits[0]):
+        raise AssertionError(f"K1 in the nucleotide matcher: max |err| "
+                             f"{k1_err}")
+    n_rev = int((hits[2] < 0).sum())
+    say(f"[nucl-main] matcher on {db.size} reads ({hits.table_entries} table "
+        f"entries, {len(hits.hit_slots)} hits, {n_rev} reverse): kernel scans "
+        f"equal plain")
+
+    want = rescore_e2e_plain(*args, **rkw)
+    errs = {}
+    times = {}
+    edge = _nucl_edge_case_rows(device)
+    edge_args, edge_rev = edge[:6] + (args[6],), edge[6]
+    edge_kw = dict(rkw, qrev=edge_rev)
+    edge_want = rescore_e2e_plain(*edge_args, **edge_kw)
+    for name in NUCL_K2:
+        uni = uniform if name == "rescore_e2e_rev_uniform" else None
+        err = max_abs_err(rescore_e2e(*args, uniform=uni, **rkw), want)
+        e2 = max_abs_err(rescore_e2e(*edge_args, uniform=uni, **edge_kw),
+                         edge_want)
+        if err or e2:
+            raise AssertionError(f"{name}: max |err| {err} on real hits, "
+                                 f"{e2} on edge cases")
+        errs[name] = max(err, e2)
+        ms = cuda_ms(lambda: rescore_e2e(*args, uniform=uni, **rkw), reps,
+                     device)
+        pms = cuda_ms(lambda: rescore_e2e_plain(*args, **rkw), reps, device)
+        times[name] = (ms, pms)
+        say(f"[nucl-main] K2 {name} on {args[3].numel()} iteration-0 hits "
+            f"(width {args[0].shape[1]}) and {edge[3].numel()} edge cases "
+            f"({int((edge_want[1] == -1).sum())} with no overlap, rows up to "
+            f"3000): equal to the plain version; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms")
+
+    # the last iteration: contigs up to max_seq_len beside the reads, so
+    # reverse hits index far into long rows
+    db = seqdb.SeqDB.open(last_db)
+    hits, args, rkw, uniform = _nucl_rescore_inputs(db, device)
+    del hits
+    want = rescore_e2e_plain(*args, **rkw)
+    n_rev = int(rkw["qrev"].sum())
+    for name in NUCL_K2:
+        uni = uniform if name == "rescore_e2e_rev_uniform" else None
+        err = max_abs_err(rescore_e2e(*args, uniform=uni, **rkw), want)
+        if err:
+            raise AssertionError(f"{name} on the last iteration's hits: max "
+                                 f"|err| {err}")
+    padded = 2 * args[0].numel()
+    say(f"[nucl-main] K2 {' and '.join(NUCL_K2)} on {args[3].numel()} "
+        f"last-iteration hits ({n_rev} reverse; {db.size} rows, longest "
+        f"{int(args[2].max())} nt, padded codes and chars "
+        f"{padded / 2**30:.2f} GiB): equal to the plain version")
+    return k1_err, errs, times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run every phase on the CPU at a tiny size; "
                          "prints no result, exits 2")
+    ap.add_argument("--cpu-reference", action="store_true",
+                    help="run the two scale assemblies (phases 4 and 7) at "
+                         "full size on the CPU and print their sha256; "
+                         "prints no result, exits 2")
     args = ap.parse_args()
 
     import torch
+    if args.cpu_reference:
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                         dir=ROOT) as work:
+            device = torch.device("cpu")
+            phase_scale(device, work, 400)
+            phase_nucl_scale(device, work, 50, 20000)
+        say("[cpu-reference] both scale runs made on the CPU; no result")
+        return 2
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -409,26 +732,41 @@ def main():
         device, [2**10 + 7, 3 * 2**12 if rehearsal else 24 * 2**20], reps)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as work:
         phase_fixture(device, work)
-        launches, db_path = phase_scale(device, work, 4 if rehearsal else 800)
+        launches, db_path = phase_scale(device, work, 4 if rehearsal else 400)
         (k1_main_err, k1_times), (k2_err, k2_times) = phase_main_shapes(
             device, db_path, reps)
-    k1_err = max(k1_err, k1_main_err)
+        phase_nucl_fixture(device, work)
+        nlaunches, ndb_paths = phase_nucl_scale(
+            device, work, *((3, 2000) if rehearsal else (50, 20000)))
+        k1_nucl_err, rev_errs, rev_times = phase_nucl_main(
+            device, *ndb_paths, reps)
+    k1_err = max(k1_err, k1_main_err, k1_nucl_err)
 
     if rehearsal:
         say("[rehearsal] all phases ran on the CPU; no result")
         return 2
+    k2 = {"route": "cuda", "source": "plass_tpu_torch/csrc/rescore.cu",
+          "replaces": "plass_tpu/ops/pallas_rescore.py:449"}
     kernels = [
         {"name": "seg_scan", "route": "cuda",
          "source": "plass_tpu_torch/csrc/seg_scan.cu",
          "replaces": "plass_tpu/ops/pallas_scan.py:168",
-         "launches": launches["seg_scan"], "max_abs_err": k1_err,
-         "ms": k1_times[0], "plain_ms": k1_times[1]},
-        {"name": "rescore_e2e", "route": "cuda",
-         "source": "plass_tpu_torch/csrc/rescore.cu",
-         "replaces": "plass_tpu/ops/pallas_rescore.py:449",
+         "launches": launches["seg_scan"] + nlaunches["seg_scan"],
+         "launches_by_path": {"assemble": launches["seg_scan"],
+                              "nuclassemble": nlaunches["seg_scan"]},
+         "max_abs_err": k1_err, "ms": k1_times[0], "plain_ms": k1_times[1]},
+        {"name": "rescore_e2e", **k2,
          "launches": launches["rescore_e2e"], "max_abs_err": k2_err,
          "ms": k2_times[0], "plain_ms": k2_times[1]},
     ]
+    for name in ("rescore_e2e_rev", "rescore_e2e_rev_uniform"):
+        kernels.append({
+            "name": name, **k2, "launches": nlaunches[name],
+            # the generic reverse variant serves non-uniform matrices; no
+            # workflow has one, so no main path launches it
+            "main_path": name == "rescore_e2e_rev_uniform",
+            "max_abs_err": rev_errs[name], "ms": rev_times[name][0],
+            "plain_ms": rev_times[name][1]})
     say(json.dumps({"kernels": kernels}))
     say(smi())
     say(json.dumps({"ok": True, "device": {

@@ -34,6 +34,8 @@ SIGNATURES = {
     "rescore": {
         "rescore_e2e": ([_P, _P, _L, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P,
                          _P, _P], _I),
+        "rescore_e2e_rev": ([_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _L, _P, _P, _P, _P, _P], _I),
     },
 }
 

@@ -1,13 +1,14 @@
-"""Host C++ kernels of the assemble slice, built on demand with g++ and
-loaded via ctypes.
+"""Host C++ kernels of the assemble and nuclassemble slices, built on demand
+with g++ and loaded via ctypes.
 
 The sources are the reference package's own (`plass_tpu/native/`), read by
-path: `extend.cpp` (greedy extender), `finish.cpp` (rescore post-processing)
-and `gather.cpp` (record padding and gathers). The library is built into the
-port's build directory; the reference package's tracked `_native.so` is
-never written.
+path: `extend.cpp` (protein greedy extender), `nucl_extend.cpp` (nucleotide
+greedy extender), `finish.cpp` (rescore post-processing) and `gather.cpp`
+(record padding and gathers). The library is built into the port's build
+directory; the reference package's tracked `_native.so` is never written.
 """
 import ctypes
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -16,7 +17,7 @@ import threading
 from .. import BUILD_DIR, REFERENCE_DIR
 
 SOURCE_DIR = os.path.join(REFERENCE_DIR, "native")
-_SOURCES = ["extend.cpp", "finish.cpp", "gather.cpp"]
+_SOURCES = ["extend.cpp", "nucl_extend.cpp", "finish.cpp", "gather.cpp"]
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -44,7 +45,10 @@ def lib():
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        so_path = os.path.join(BUILD_DIR, "libplass_host.so")
+        # the name follows the source list, so a library built from fewer
+        # sources is never taken for this one
+        tag = hashlib.sha1(" ".join(_SOURCES).encode()).hexdigest()[:8]
+        so_path = os.path.join(BUILD_DIR, f"libplass_host-{tag}.so")
         srcs = [os.path.join(SOURCE_DIR, s) for s in _SOURCES]
         if (not os.path.exists(so_path)
                 or any(os.path.getmtime(so_path) < os.path.getmtime(s)
@@ -63,6 +67,12 @@ def lib():
             i32p, i32p, i16p, ctypes.c_double, ctypes.c_int64,
             u8p, u8p, ctypes.c_int64, i64p, i64p, u8p]
         _LIB.assemble_greedy.restype = ctypes.c_int
+        _LIB.nucl_assemble_greedy.argtypes = [
+            u8p, i64p, i32p, u32p, ctypes.c_int32,
+            i64p, u32p, i32p, i32p, f64p, i32p, i32p, i32p, i32p, i32p,
+            i32p, i32p, i16p, u8p, ctypes.c_double, ctypes.c_int64,
+            u8p, u8p, ctypes.c_int64, i64p, i64p, u8p]
+        _LIB.nucl_assemble_greedy.restype = ctypes.c_int
         _LIB.gather_records.argtypes = [u8p, i64p, i64p, i64p,
                                         ctypes.c_int64, u8p]
         _LIB.pad_records.argtypes = [u8p, i64p, i32p, ctypes.c_int64, u8p,

@@ -1,10 +1,11 @@
-"""Host <-> device glue of the assemble slice: run the device k-mer matcher
-and the device rescore on a SeqDB and return host-format results.
+"""Host <-> device glue of the assemble and nuclassemble slices: run the
+device k-mer matcher and the device rescore on a SeqDB (protein or
+nucleotide) and return host-format results.
 
 The hits stay on the device between the two steps: the matcher keeps
-(rep, tgt, diag) as tensors, and the rescore addresses them by index (the
-JAX package's _rescore_from_dev_pallas). Only (qk, tk, score, diag) go to
-the host, for the self rows and the native finish.
+(rep, tgt, diag, reverse) as tensors, and the rescore addresses them by
+index (the JAX package's _rescore_from_dev_pallas). Only (qk, tk, score,
+diag) go to the host, for the self rows and the native finish.
 """
 import ctypes
 
@@ -15,16 +16,25 @@ from .. import constants, native
 from ..data import seqdb
 from . import device_kmer
 from .device_kmer import KmerParams, ksel_capacity
-from .rescore_kernel import rescore_e2e
+from .rescore_kernel import rescore_e2e, uniform_pattern
+
+
+def _matrix(db, alphabet):
+    """The DB's matrix for `alphabet`: the nucleotide matrix for both
+    'kmer' and 'score' on a nucleotide DB; reduced-13 or blosum62 on a
+    protein DB."""
+    if db.dbtype == seqdb.NUCLEOTIDES:
+        return constants.nucleotide()
+    return constants.reduced(13) if alphabet == "kmer" else constants.blosum62()
 
 
 def db_to_padded(db, alphabet="kmer", min_width=1):
-    """(codes uint8[N, W], lengths int32[N]) of a protein SeqDB, W the
-    longest sequence (at least min_width), padded with the alphabet's X.
+    """(codes uint8[N, W], lengths int32[N]) of a SeqDB, W the longest
+    sequence (at least min_width), padded with the alphabet's X.
 
-    alphabet: 'kmer' (reduced-13 codes), 'score' (blosum62 codes) or
-    'char' (raw bytes, padded with 0)."""
-    mat = constants.reduced(13) if alphabet == "kmer" else constants.blosum62()
+    alphabet: 'kmer' (reduced-13 or nucleotide codes), 'score' (blosum62
+    or nucleotide codes) or 'char' (raw bytes, padded with 0)."""
+    mat = _matrix(db, alphabet)
     lengths = db.seq_lens().astype(np.int32)
     n = db.size
     width = max(int(lengths.max()) if n else 0, min_width)
@@ -50,15 +60,13 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
                       kmers_per_sequence_scale=None, hash_shift=67,
                       ignore_multi_kmer=False, include_only_extendable=False,
                       cov_thr=0.0):
-    """Device k-mer matcher (monolithic) on `device`.
+    """Device k-mer matcher (monolithic) on `device`, protein or nucleotide.
 
     Returns the flat KmerHits (the JAX package's return_arrays format),
     whose raw hits stay on the device for rescore_diagonal_torch."""
-    if db.dbtype == seqdb.NUCLEOTIDES:
-        raise NotImplementedError("the nucleotide k-mer matcher is not "
-                                  "ported yet")
+    is_nucl = db.dbtype == seqdb.NUCLEOTIDES
     if kmers_per_sequence_scale is None:
-        kmers_per_sequence_scale = 0.0
+        kmers_per_sequence_scale = 0.2 if is_nucl else 0.0
     codes, lengths = db_to_padded(db, "kmer", min_width=k)
     if db.size and int(lengths.max()) >= device_kmer.MAX_LEN:
         raise ValueError(f"sequences of {device_kmer.MAX_LEN} residues or "
@@ -66,9 +74,9 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
     if db.size and int(db.keys.max()) >= device_kmer.MAX_KEY:
         raise ValueError("sequence keys must be below 2^31")
     params = KmerParams(
-        k=k, alphabet_size=constants.reduced(13).alphabet_size,
+        k=k, alphabet_size=_matrix(db, "kmer").alphabet_size,
         kmers_per_sequence=kmers_per_sequence,
-        kmers_per_sequence_scale=kmers_per_sequence_scale,
+        kmers_per_sequence_scale=kmers_per_sequence_scale, is_nucl=is_nucl,
         ignore_multi_kmer=ignore_multi_kmer,
         include_only_extendable=include_only_extendable, cov_thr=cov_thr,
         ksel=ksel_capacity(kmers_per_sequence, kmers_per_sequence_scale,
@@ -80,15 +88,16 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
     out = _insert_self_hits(db, rep.cpu().numpy().astype(np.uint32),
                             tgt.cpu().numpy().astype(np.uint32),
                             score.cpu().numpy(), diag.cpu().numpy())
-    out.dev = (rep, tgt, diag)
+    out.dev = (rep, tgt, diag, score < 0)
     out.table_entries = table_entries
     return out
 
 
 class KmerHits(tuple):
     """(qk, tk, score, diag) flat host arrays, self rows interleaved; also
-    carries the device-resident raw hits (rep, tgt, diag) and the slots the
-    raw hits occupy, so the rescore addresses hits by index."""
+    carries the device-resident raw hits (rep, tgt, diag, reverse flag) and
+    the slots the raw hits occupy, so the rescore addresses hits by
+    index."""
     dev = None
     hit_slots = None
     table_entries = 0
@@ -126,11 +135,12 @@ def _insert_self_hits(db, rep, tgt, score, diag):
 def _self_rescore_host(db):
     """END_TO_END rescoring of the (k, k, diag 0) self rows, analytic on
     the host: first/last from the '*'-skip on the raw chars, score = clipped
-    sum of diagonal substitution scores over the window, idents = window
-    size."""
+    sum of diagonal substitution scores over the window (the DB's own
+    matrix), idents = window size."""
+    mat = _matrix(db, "score")
     lens = db.seq_lens().astype(np.int64)
     ov = lens.astype(np.int32)
-    sub = constants.blosum62().sub.astype(np.int64)
+    sub = mat.sub.astype(np.int64)
     offsets = db.offsets.astype(np.int64)
     data = db.data
     nonempty = lens > 0
@@ -144,7 +154,7 @@ def _self_rescore_host(db):
     last_idx = np.maximum(ov - 1, 0)
     strip = (last_idx > 0) & (last_char == star)
     last = (last_idx - strip).astype(np.int32)
-    codes = constants.blosum62().aa2num[data].astype(np.int64)
+    codes = mat.aa2num[data].astype(np.int64)
     cs = np.concatenate([[0], np.cumsum(sub[codes, codes])])
     lo = offsets + first
     hi = offsets + np.minimum(last.astype(np.int64), lens - 1) + 1
@@ -162,9 +172,12 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
 
     The self rows are analytic on the host; every other hit is rescored on
     the device that holds the hits (kernel K2), addressed by index into the
-    matcher's device-resident arrays. Returns {key: RESULT_DTYPE records},
-    or with return_flat {"qk": int64[M], "rec": RESULT_DTYPE[M]} of the
-    surviving records grouped by query — the native extender's input."""
+    matcher's device-resident arrays. On a nucleotide DB a reverse-strand
+    hit reads the query reverse-complemented, and the nucleotide matrix's
+    uniform match/mismatch form selects K2's uniform variant. Returns
+    {key: RESULT_DTYPE records}, or with return_flat {"qk": int64[M],
+    "rec": RESULT_DTYPE[M]} of the surviving records grouped by query — the
+    native extenders' input."""
     from .evalue import EvalueComputer
     from .rescore import RESCORE_END_TO_END, RESULT_DTYPE, RescoreParams
 
@@ -174,9 +187,12 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
     if not isinstance(hits, KmerHits) or hits.dev is None:
         raise TypeError("rescore_diagonal_torch takes the KmerHits of "
                         "kmermatcher_torch")
+    is_nucl = db.dbtype == seqdb.NUCLEOTIDES
+    mat = _matrix(db, "score")
     if evaluer is None:
-        evaluer = EvalueComputer.for_matrix("blosum62_ungapped",
-                                            db.total_residues())
+        evaluer = EvalueComputer.for_matrix(
+            "nucleotide_ungapped" if is_nucl else "blosum62_ungapped",
+            db.total_residues())
     qk, tk, pref, dg = hits
     m = len(qk)
     if m == 0:
@@ -185,7 +201,7 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
     lengths = db.seq_lens().astype(np.int32)
     qrow = lut[qk].astype(np.int32)
     trow = lut[tk].astype(np.int32)
-    qrev = np.zeros(m, dtype=bool)
+    qrev = is_nucl & (pref < 0)
 
     dist = np.abs(dg).astype(np.int64)
     score = np.zeros(m, dtype=np.int64)
@@ -206,20 +222,30 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
 
     idxs = np.nonzero(~self_mask)[0]
     if len(idxs):
-        dev_rep, dev_tgt, dev_diag = hits.dev
+        dev_rep, dev_tgt, dev_diag, dev_rev = hits.dev
         device = dev_rep.device
         codes = torch.from_numpy(db_to_padded(db, "score")[0]).to(device)
         chars = torch.from_numpy(db_to_padded(db, "char")[0]).to(device)
         dlen = torch.from_numpy(lengths).to(device)
         dlut = torch.from_numpy(lut.astype(np.int64)).to(device)
-        sub = torch.from_numpy(
-            constants.blosum62().sub.astype(np.int32)).to(device)
+        sub = torch.from_numpy(mat.sub.astype(np.int32)).to(device)
         didx = torch.from_numpy(
             np.searchsorted(hits.hit_slots, idxs)).to(device)
         q = dlut[dev_rep[didx].long()].to(torch.int32)
         t = dlut[dev_tgt[didx].long()].to(torch.int32)
         d = dev_diag[didx].contiguous()
-        sc, f, la, idn = rescore_e2e(codes, chars, dlen, q, t, d, sub)
+        rev_kw = {}
+        if is_nucl:
+            # reverse hits: the query is read back to front through the
+            # complement (mat.reverse), its chars from the codes (num2aa)
+            rev_kw = dict(
+                qrev=dev_rev[didx].contiguous(),
+                comp=torch.from_numpy(mat.reverse.astype(np.int32)).to(device),
+                code2char=torch.from_numpy(
+                    mat.num2aa.astype(np.uint8)).to(device),
+                uniform=uniform_pattern(mat.sub))
+        sc, f, la, idn = rescore_e2e(codes, chars, dlen, q, t, d, sub,
+                                     **rev_kw)
         score[idxs] = sc.cpu().numpy()
         first[idxs] = f.cpu().numpy()
         last[idxs] = la.cpu().numpy()

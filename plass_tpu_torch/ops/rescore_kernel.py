@@ -3,7 +3,7 @@
 `rescore_e2e(codes, chars, lengths, qrow, trow, diag, sub)` scores each
 hit (qrow[h], trow[h], diag[h]) along its diagonal (reference:
 DistanceCalculator.h:115-220; the JAX package's
-ops/pallas_rescore.py:_kernel_gathered_body on the protein path):
+ops/pallas_rescore.py:_kernel_gathered_body):
 
   codes   uint8[N, W]  substitution-alphabet codes of each row
   chars   uint8[N, W]  raw sequence bytes ('*' detection, case-folded
@@ -12,13 +12,28 @@ ops/pallas_rescore.py:_kernel_gathered_body on the protein path):
   qrow, trow, diag     int32[H]
   sub     int32[A, A]  substitution matrix (A <= 32)
 
+Nucleotide hits add the reverse strand (the JAX package's has_rev path,
+rescorediagonal.cpp:173-179):
+
+  qrev      bool[H]   the hit's query is read reverse-complemented: index
+                      qlen-1-(qoff+j) instead of qoff+j, code comp[q]
+  comp      int32[A]  complement permutation of the codes
+  code2char uint8[A]  canonical char of a code: a reverse hit's query char
+                      is code2char[comp[q]], not the raw byte
+  uniform   (match, mismatch) when sub is the uniform matrix
+            (q == t and q != X ? match : mismatch; uniform_pattern):
+            selects the kernel variant that compares instead of looking
+            the score up (the TPU kernel's `fast` path)
+
 Returns (score, first, last, idents) int32[H], relative to the overlap
 window; a hit with no overlap gives (0, -1, -1, 0). The overlap length and
 |diag| are host-derivable from the lengths and are not returned.
 
 On a CUDA tensor the call launches the CUDA kernel (csrc/rescore.cu) or
-raises; on a CPU tensor it runs `rescore_e2e_plain`.
+raises; on a CPU tensor it runs `rescore_e2e_plain`, the oracle of every
+variant.
 """
+import numpy as np
 import torch
 
 from ..kernels import build
@@ -26,9 +41,27 @@ from ..kernels import build
 STAR = ord("*")
 FOLD = ~0x20 & 0xFF
 
-# launches of the CUDA kernel in this process (one per rescore_e2e call on
-# a CUDA tensor)
+# launches of the CUDA kernel in this process, one per rescore_e2e call on
+# a CUDA tensor, by variant: forward-only with the matrix (protein), with
+# reverse hits, and with reverse hits and the uniform matrix (nucleotide)
 LAUNCHES = 0
+LAUNCHES_REV = 0
+LAUNCHES_REV_UNIFORM = 0
+
+
+def uniform_pattern(sub):
+    """(match, mismatch) when the numpy matrix `sub` is uniform — every
+    diagonal entry but X's is `match`, every other entry `mismatch`, and
+    the two differ (the JAX package's backend._fast_sub_pattern) — else
+    None. The nucleotide matrix is 2/-3."""
+    sub = np.asarray(sub, dtype=np.int64)
+    alpha = sub.shape[0]
+    m, x = int(sub[0, 0]), int(sub[0, -1])
+    want = np.full((alpha, alpha), x, dtype=np.int64)
+    want[np.arange(alpha - 1), np.arange(alpha - 1)] = m
+    if m == x or not np.array_equal(sub, want):
+        return None
+    return m, x
 
 
 def _overlap(lengths, qrow, trow, diag):
@@ -42,15 +75,18 @@ def _overlap(lengths, qrow, trow, diag):
     ov = torch.where(pos_ok, ov, 0)
     qoff = torch.where(fwd, dist, 0)
     toff = torch.where(fwd, 0, dist)
-    return ov, qoff, toff
+    return ov, qoff, toff, qlen
 
 
 def rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
+                      qrev=None, comp=None, code2char=None, uniform=None,
                       budget=1 << 24):
     """Plain PyTorch version: the JAX package's device_rescore.rescore_pairs
-    (mode 3, has_rev=False) as [hits, window] gathers, in chunks of at most
-    `budget` window cells."""
-    _check(codes, chars, lengths, qrow, trow, diag, sub)
+    (mode 3; has_rev when qrev is given) as [hits, window] gathers, in
+    chunks of at most `budget` window cells. It scores through `sub` for
+    both matrix variants (`uniform` only picks the kernel's variant)."""
+    _check(codes, chars, lengths, qrow, trow, diag, sub, qrev, comp,
+           code2char, uniform)
     h = qrow.numel()
     dev = codes.device
     outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
@@ -59,7 +95,7 @@ def rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
     lmax = codes.shape[1]
     alpha = sub.shape[0]
     sub_flat = sub.reshape(-1).to(torch.int64)
-    ov_all, _, _ = _overlap(lengths, qrow.long(), trow.long(), diag)
+    ov_all = _overlap(lengths, qrow.long(), trow.long(), diag)[0]
     width = max(int(ov_all.max()), 1)
     chunk = max(budget // width, 1)
     j = torch.arange(width, device=dev)
@@ -67,13 +103,20 @@ def rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
         hi = min(lo + chunk, h)
         q = qrow[lo:hi].long()
         t = trow[lo:hi].long()
-        ov, qoff, toff = _overlap(lengths, q, t, diag[lo:hi])
-        qidx = (qoff[:, None] + j).clamp(max=lmax - 1)
+        ov, qoff, toff, qlen = _overlap(lengths, q, t, diag[lo:hi])
+        qpos = qoff[:, None] + j
+        if qrev is not None:
+            rv = qrev[lo:hi, None]
+            qpos = torch.where(rv, qlen[:, None] - 1 - qpos, qpos)
+        qidx = qpos.clamp(0, lmax - 1)
         tidx = (toff[:, None] + j).clamp(max=lmax - 1)
         qc = codes[q[:, None], qidx].long()
         tc = codes[t[:, None], tidx].long()
         qch = chars[q[:, None], qidx]
         tch = chars[t[:, None], tidx]
+        if qrev is not None:
+            qc = torch.where(rv, comp.long()[qc], qc)
+            qch = torch.where(rv, code2char[qc], qch)
         s = sub_flat[qc * alpha + tc]
         first = ((qch[:, 0] == STAR) | (tch[:, 0] == STAR)).int()
         last_idx = (ov - 1).clamp(min=0)
@@ -91,7 +134,8 @@ def rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
     return tuple(outs)
 
 
-def _check(codes, chars, lengths, qrow, trow, diag, sub):
+def _check(codes, chars, lengths, qrow, trow, diag, sub, qrev=None,
+           comp=None, code2char=None, uniform=None):
     if codes.dtype != torch.uint8 or chars.dtype != torch.uint8:
         raise TypeError("codes and chars must be uint8")
     if codes.dim() != 2 or chars.shape != codes.shape:
@@ -104,33 +148,66 @@ def _check(codes, chars, lengths, qrow, trow, diag, sub):
     if (sub.dtype != torch.int32 or sub.dim() != 2
             or sub.shape[0] != sub.shape[1] or not 1 <= sub.shape[0] <= 32):
         raise TypeError("sub must be int32[A, A] with A <= 32")
-    tensors = (codes, chars, lengths, qrow, trow, diag, sub)
+    tensors = [codes, chars, lengths, qrow, trow, diag, sub]
+    rev_ops = (qrev, comp, code2char)
+    if any(x is None for x in rev_ops) != all(x is None for x in rev_ops):
+        raise ValueError("qrev, comp and code2char come together")
+    if qrev is not None:
+        alpha = sub.shape[0]
+        if qrev.dtype != torch.bool or qrev.shape != qrow.shape:
+            raise TypeError("qrev must be bool[H] like qrow")
+        if comp.dtype != torch.int32 or comp.shape != (alpha,):
+            raise TypeError("comp must be int32[A]")
+        if code2char.dtype != torch.uint8 or code2char.shape != (alpha,):
+            raise TypeError("code2char must be uint8[A]")
+        tensors += [qrev, comp, code2char]
+    elif uniform is not None:
+        raise ValueError("the uniform-matrix variant takes reverse hits")
     if any(x.device != codes.device for x in tensors):
         raise ValueError("all operands must be on one device")
 
 
-def rescore_e2e(codes, chars, lengths, qrow, trow, diag, sub):
+def rescore_e2e(codes, chars, lengths, qrow, trow, diag, sub, qrev=None,
+                comp=None, code2char=None, uniform=None):
     """END_TO_END rescore; see the module docstring."""
     if codes.device.type == "cpu":
-        return rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub)
+        return rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
+                                 qrev, comp, code2char, uniform)
     if codes.device.type != "cuda":
         raise ValueError(f"rescore_e2e: unsupported device {codes.device}")
-    _check(codes, chars, lengths, qrow, trow, diag, sub)
-    tensors = (codes, chars, lengths, qrow, trow, diag, sub)
+    _check(codes, chars, lengths, qrow, trow, diag, sub, qrev, comp,
+           code2char, uniform)
+    tensors = [codes, chars, lengths, qrow, trow, diag, sub]
+    if qrev is not None:
+        tensors += [qrev, comp, code2char]
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("rescore_e2e: tensors must be contiguous")
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_REV, LAUNCHES_REV_UNIFORM
     h = qrow.numel()
     outs = [torch.empty(h, dtype=torch.int32, device=codes.device)
             for _ in range(4)]
+    lib = build.load("rescore")
     with torch.cuda.device(codes.device):
-        rc = build.load("rescore").rescore_e2e(
-            build.ptr(codes), build.ptr(chars), codes.shape[1],
-            build.ptr(lengths), build.ptr(qrow), build.ptr(trow),
-            build.ptr(diag), build.ptr(sub), sub.shape[0], h,
-            *[build.ptr(o) for o in outs], build.stream_of(codes.device))
+        head = (build.ptr(codes), build.ptr(chars), codes.shape[1],
+                build.ptr(lengths), build.ptr(qrow), build.ptr(trow),
+                build.ptr(diag))
+        tail = (h, *[build.ptr(o) for o in outs],
+                build.stream_of(codes.device))
+        if qrev is None:
+            rc = lib.rescore_e2e(*head, build.ptr(sub), sub.shape[0], *tail)
+        else:
+            match, mismatch = uniform if uniform is not None else (0, 0)
+            rc = lib.rescore_e2e_rev(
+                *head, build.ptr(qrev), build.ptr(sub), build.ptr(comp),
+                build.ptr(code2char), sub.shape[0], int(uniform is not None),
+                match, mismatch, *tail)
     if rc != 0:
         raise RuntimeError(f"rescore_e2e kernel launch failed "
                            f"(CUDA error {rc})")
-    LAUNCHES += 1
+    if qrev is None:
+        LAUNCHES += 1
+    elif uniform is None:
+        LAUNCHES_REV += 1
+    else:
+        LAUNCHES_REV_UNIFORM += 1
     return tuple(outs)

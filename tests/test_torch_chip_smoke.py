@@ -24,7 +24,10 @@ def test_cpu_rehearsal_runs_every_phase():
     for tag in ("[env]", "[k1]",
                 "[fixture] 2 iterations, filter 0: byte-identical",
                 "[scale] reads", "[main] matcher", "[main] K2 on",
-                "[rehearsal]"):
+                "[nucl-fixture] 2 iterations, min-contig-len 150: "
+                "byte-identical", "[nucl-scale] reads", "[nucl-main] matcher",
+                "[nucl-main] K2 rescore_e2e_rev_uniform",
+                "[nucl-main] K2 rescore_e2e_rev ", "[rehearsal]"):
         assert tag in out, out
     assert '"ok"' not in out
 

@@ -86,10 +86,11 @@ def test_kmermatcher_matches_jax(which, shift, only_ext):
     np.testing.assert_array_equal(got.hit_slots, want.hit_slots)
     assert len(got.hit_slots) > (5 if which == "mini_orfs" else 500)
     # the device-resident raw hits are the rows the flat arrays carry
-    rep, tgt, diag = got.dev
+    rep, tgt, diag, rev = got.dev
     np.testing.assert_array_equal(rep.numpy(), got[0][got.hit_slots])
     np.testing.assert_array_equal(tgt.numpy(), got[1][got.hit_slots])
     np.testing.assert_array_equal(diag.numpy(), got[3][got.hit_slots])
+    assert not rev.any()    # protein hits are forward
 
 
 @pytest.mark.parametrize("ignore_multi", [True, False])
