@@ -6,15 +6,23 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. environment: versions, the card's name and power limit, the kernel
      builds (nvcc, from csrc/ in this checkout) and the host C++ build;
   2. kernel K1 (segmented scan) against its plain PyTorch version on the
-     card, exact, at 1,031 and 24M elements;
+     card, exact: every kind, direction and column count at 1,031
+     elements, at the tile size and one either side of it, and at 24M, with
+     segment densities from one segment over the whole array (the look-back
+     crosses every tile) to a flag on every element; two 24M cases are
+     launched 50 times and every result compared;
   3. the protein fixture assembly through the CLI, byte for byte against
      the committed golden, then with default parameters;
   4. a default protein assembly of 204,800 reads (the 512 fixture reads
      x400 with 1.5% seeded substitutions), with per-stage seconds;
   5. K1 and K2 at the shapes of phase 4's iteration 0: the matcher with K1
      equals the matcher with K1's plain version, and K2 equals its plain
-     version on the real hits and on synthetic edge cases (exact); the
-     table's first-carry scan and the real rescore are timed;
+     version on the real hits and on synthetic edge cases (flat rows at
+     every alignment mod 16, windows on both sides of the kernel's
+     long-window threshold; exact); the table's first-carry scan and the
+     real rescore are timed beside their bounds, K1 also beside a device
+     copy of the same bytes; the sizes of the matcher's scans and the bytes
+     a rescore call uploads are printed;
   6. nucl-fixture: `penguin nuclassemble` on the fixture through the CLI,
      byte for byte against the committed golden, then with default
      parameters on the card and on the CPU, byte for byte against each
@@ -31,8 +39,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      whose rows hold contigs of up to 20,000 nt.
 The kernels' launch counters are set to 0 just before phases 4 and 7 and
 read just after; every kernel of each path must have run there. The last
-lines are a JSON summary of the kernels, the card's name and power limit,
-and {"ok": true, "device": {...}}.
+lines are a JSON summary of the kernels (times, launches by path, bytes
+counted and the bound they give at 3.35 TB/s), the card's name and power
+limit, and {"ok": true, "device": {...}}.
 
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
@@ -74,8 +83,15 @@ def smi():
         return f"nvidia-smi unavailable ({e})"
 
 
-def cuda_ms(fn, reps, device):
-    """Mean milliseconds of fn() over reps launches, by CUDA events."""
+KERNEL_REPS = 5   # a kernel is timed over this many times the plain reps
+
+
+def cuda_ms(fn, reps, device, queued=False):
+    """Mean milliseconds of fn() over reps launches, by CUDA events. With
+    queued=True the card is first kept busy (torch.cuda._sleep) while the
+    host enqueues every launch, so that the events bracket launches that
+    run back to back: a kernel of tens of microseconds is otherwise timed
+    at the rate the host can launch it, not at its own."""
     import torch
     fn()
     if device.type != "cuda":
@@ -86,6 +102,8 @@ def cuda_ms(fn, reps, device):
     torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(int(1e6 * reps))   # about 0.6 ms per launch
     start.record()
     for _ in range(reps):
         fn()
@@ -103,6 +121,100 @@ def max_abs_err(got, want):
         if g.numel():
             err = max(err, int((g.long() - w.long()).abs().max()))
     return err
+
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
+FP32_OPS_PER_S = 67e12      # H100 SXM, published, outside the tensor cores
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the operations over its float32 rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def scan_bytes(n, nvals):
+    """Bytes a segmented scan must move: a one-byte flag and nvals int32 in,
+    nvals int32 out, per element."""
+    return n * (1 + 8 * nvals)
+
+
+def copy_ms(n_bytes, reps, device):
+    """Milliseconds of a device copy that moves n_bytes in all (half read,
+    half written): what the card reaches on the same traffic."""
+    import torch
+    src = torch.empty(max(n_bytes // 2, 1), dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    return cuda_ms(lambda: dst.copy_(src), KERNEL_REPS * reps, device, queued=True)
+
+
+def rescore_traffic(args, qrev=None):
+    """(bytes, operations, residues) of one rescore call: every operand
+    read once, the four outputs written once; two operations (a score and
+    an identity) per window residue of these hits."""
+    from plass_tpu_torch.ops.rescore_kernel import _overlap
+    rows, offsets, lengths, code_lut, qrow, trow, diag, sub = args
+    n_bytes = sum(x.numel() * x.element_size() for x in args)
+    if qrev is not None:
+        n_bytes += qrev.numel()
+    n_bytes += 4 * 4 * qrow.numel()
+    residues = int(_overlap(lengths, qrow.long(), trow.long(), diag)[0]
+                   .clamp(min=0).sum())
+    return n_bytes, 2 * residues, residues
+
+
+def upload_bytes(db, device):
+    """(flat, padded): the bytes rescore_diagonal_torch uploads for the
+    rows of `db` (data, offsets, lengths, code table), and what the padded
+    [N, W] codes and chars of the earlier design took."""
+    from plass_tpu_torch.ops.backend import flat_rows as db_rows
+    flat = sum(x.numel() * x.element_size() for x in db_rows(db, device))
+    lens = db.seq_lens()
+    padded = 2 * db.size * (int(lens.max()) if db.size else 0)
+    return flat, padded
+
+
+def flat_rows(seqs, device):
+    """(rows, offsets, lengths) tensors of the byte strings `seqs` laid out
+    as a SeqDB's data: each followed by "\\n\\0" and preceded by 0-15
+    filler bytes so that row i starts at residue i mod 16."""
+    import torch
+    parts, offsets, pos = [], [], 0
+    for i, seq in enumerate(seqs):
+        gap = (i - pos) % 16
+        offsets.append(pos + gap)
+        parts += [b"Z" * gap, bytes(seq), b"\n\x00"]
+        pos += gap + len(seq) + 2
+    rows = np.frombuffer(b"".join(parts), dtype=np.uint8).copy()
+    return (torch.from_numpy(rows).to(device),
+            torch.tensor(offsets, dtype=torch.int64, device=device),
+            torch.tensor([len(x) for x in seqs], dtype=torch.int32,
+                         device=device))
+
+
+def recorded_scans(fn):
+    """fn() with every seg_scan call of the matcher recorded: returns
+    (fn's result, [(kind, elements, columns, reverse), ...])."""
+    from plass_tpu_torch.ops import device_kmer
+    from plass_tpu_torch.ops.seg_scan import seg_scan
+    calls = []
+
+    def spy(kind, flag, *vals, reverse=False):
+        calls.append((kind, flag.numel(), len(vals), reverse))
+        return seg_scan(kind, flag, *vals, reverse=reverse)
+
+    device_kmer.seg_scan = spy
+    try:
+        return fn(), calls
+    finally:
+        device_kmer.seg_scan = seg_scan
+
+
+def scans_text(calls):
+    return ", ".join(f"{kind}/{nv}{'r' if rev else ''} n={n}"
+                     for kind, n, nv, rev in calls)
 
 
 # ---------------------------------------------------------------------------
@@ -132,9 +244,17 @@ def phase_env(device, rehearsal):
     say(f"[env] host library ready in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_k1(device, sizes, reps):
+K1_REPEATS = 50
+
+
+def phase_k1(device, sizes, reps, timed_sizes=()):
     """K1 against its plain version: every kind, direction and column
-    count, three segment densities; times at the largest size."""
+    count, five segment densities from one segment over the whole array to
+    a flag on every element; times at the largest size, where two cases
+    whose look-back crosses every tile are also launched K1_REPEATS times
+    with every result compared (a look-back race shows only sometimes).
+    The 3-column first-carry is also compared and timed on seeded columns
+    of each of timed_sizes elements (the sizes of real tables)."""
     import torch
     from plass_tpu_torch.ops.seg_scan import seg_scan, seg_scan_plain
 
@@ -142,6 +262,7 @@ def phase_k1(device, sizes, reps):
         [("sfx2", 2), ("sfx2", 3)]
     worst = 0
     checked = 0
+    repeated = 0
     for t in sizes:
         rng = np.random.default_rng(t)
         vals = [torch.from_numpy(rng.integers(-2**31, 2**31, t, dtype=np.int64)
@@ -154,17 +275,21 @@ def phase_k1(device, sizes, reps):
                                      .astype(np.int32)).to(device))
         small = torch.from_numpy(rng.integers(-1, 50, t).astype(np.int32)) \
             .to(device)
-        for dens in (0.005, 0.05, 0.5):
+        for dens in (0.0, 0.005, 0.05, 0.5, 1.0):
             fl = rng.random(t) < dens
             for reverse in (False, True):
                 f = fl.copy()
                 f[-1 if reverse else 0] = True
                 flag = torch.from_numpy(f).to(device)
+                # no flag at all: the scan's first element starts a segment
+                # whatever its flag says ("first" asks for the flag)
+                bare = torch.from_numpy(fl).to(device)
                 for kind, nv in combos:
                     cols = ([small] + vals[1:nv]) if kind == "sfx2" \
                         else vals[:nv]
-                    got = seg_scan(kind, flag, *cols, reverse=reverse)
-                    want = seg_scan_plain(kind, flag, *cols, reverse=reverse)
+                    fg = bare if dens == 0.0 and kind != "first" else flag
+                    got = seg_scan(kind, fg, *cols, reverse=reverse)
+                    want = seg_scan_plain(kind, fg, *cols, reverse=reverse)
                     err = max_abs_err(got, want)
                     worst = max(worst, err)
                     checked += 1
@@ -172,19 +297,61 @@ def phase_k1(device, sizes, reps):
                         raise AssertionError(
                             f"K1 {kind} nv={nv} reverse={reverse} T={t} "
                             f"density={dens}: max |err| {err}")
-                    timed = (t == sizes[-1] and dens == 0.05 and
-                             (kind, nv, reverse) in (("first", 3, False),
-                                                     ("cummax", 1, True),
-                                                     ("sfx2", 3, True)))
-                    if timed:
+                    case = (kind, nv, reverse)
+                    if (t == sizes[-1] and dens == 0.0 and case in (
+                            ("first", 3, False), ("sfx2", 3, True))):
+                        for i in range(K1_REPEATS):
+                            again = seg_scan(kind, fg, *cols, reverse=reverse)
+                            if not all(torch.equal(g, w)
+                                       for g, w in zip(again, want)):
+                                raise AssertionError(
+                                    f"K1 {kind} nv={nv} reverse={reverse} "
+                                    f"T={t}, one segment: launch {i} differs")
+                        repeated += 1
+                        say(f"[k1] T={t} {kind} nvals={nv} "
+                            f"{'reverse' if reverse else 'forward'}, one "
+                            f"segment: {K1_REPEATS} of {K1_REPEATS} launches "
+                            f"equal to the plain version")
+                    if (t == sizes[-1] and dens == 0.05 and case in (
+                            ("first", 3, False), ("cummax", 1, True),
+                            ("sfx2", 3, True))):
                         ms = cuda_ms(lambda: seg_scan(
-                            kind, flag, *cols, reverse=reverse), reps, device)
+                            kind, fg, *cols, reverse=reverse),
+                            KERNEL_REPS * reps, device, queued=True)
                         pms = cuda_ms(lambda: seg_scan_plain(
-                            kind, flag, *cols, reverse=reverse), reps, device)
+                            kind, fg, *cols, reverse=reverse), reps, device)
+                        n_bytes = scan_bytes(t, nv)
+                        bms = bound(n_bytes, 0)[0]
                         say(f"[k1] T={t} {kind} nvals={nv} "
                             f"{'reverse' if reverse else 'forward'}: kernel "
-                            f"{ms:.4f} ms, plain {pms:.4f} ms")
+                            f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+                            f"{bms:.4f} ms ({n_bytes} bytes, "
+                            f"{100 * bms / ms:.0f}% of it reached), device "
+                            f"copy of the same bytes "
+                            f"{copy_ms(n_bytes, reps, device):.4f} ms")
         say(f"[k1] T={t}: all kinds/directions/densities equal")
+    for t in timed_sizes:
+        rng = np.random.default_rng(t)
+        f = rng.random(t) < 0.3
+        f[0] = True
+        flag = torch.from_numpy(f).to(device)
+        cols = [torch.from_numpy(rng.integers(0, 2**30, t).astype(np.int32))
+                .to(device) for _ in range(3)]
+        err = max_abs_err(seg_scan("first", flag, *cols),
+                          seg_scan_plain("first", flag, *cols))
+        if err:
+            raise AssertionError(f"K1 first nv=3 T={t}: max |err| {err}")
+        checked += 1
+        ms = cuda_ms(lambda: seg_scan("first", flag, *cols),
+                     KERNEL_REPS * reps, device, queued=True)
+        n_bytes = scan_bytes(t, 3)
+        bms = bound(n_bytes, 0)[0]
+        say(f"[k1] T={t} first nvals=3 forward, seeded columns: equal; "
+            f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({n_bytes} bytes, "
+            f"{100 * bms / ms:.0f}% of it reached), device copy of the same "
+            f"bytes {copy_ms(n_bytes, reps, device):.4f} ms")
+    if repeated != 2:
+        raise AssertionError("the K1 repeat check did not run")
     say(f"[k1] {checked} comparisons, max |err| {worst}")
     return worst
 
@@ -300,36 +467,75 @@ def phase_scale(device, work, copies):
     return launches, os.path.join(tmp, "latest", "aa_6f_start_long")
 
 
+# K2 sends windows of more than LONG_WINDOW residues to its second pass
+# (kLongWindow in csrc/rescore.cu); the edge cases sit on both sides of it
+LONG_WINDOW = 512
+EDGE_LENS = [40, 40, 3000, 2500, 1, 2, 1500, 64, LONG_WINDOW - 1, LONG_WINDOW,
+             LONG_WINDOW + 1, LONG_WINDOW + 16, 33, 17, 150, 151]
+EDGE_DIAGS = (0, 1, -1, 5, -5, 39, -39, 40, -40, 1499, -2499, 2999, -2999,
+              3000, -3000)
+
+
+def _edge_hits(n_rows, device, both_strands):
+    """Every (query row, target row, diagonal of EDGE_DIAGS) as int32
+    tensors (and the reverse flag, each hit on both strands)."""
+    import torch
+    q, t, d, r = [], [], [], []
+    for a in range(n_rows):
+        for b in range(n_rows):
+            for dg in EDGE_DIAGS:
+                for rv in ((False, True) if both_strands else (False,)):
+                    q.append(a)
+                    t.append(b)
+                    d.append(dg)
+                    r.append(rv)
+    i32 = lambda x: torch.tensor(np.asarray(x, dtype=np.int32), device=device)
+    return i32(q), i32(t), i32(d), torch.tensor(r, device=device)
+
+
 def _edge_case_rows(device):
-    """Synthetic K2 inputs: '*' at j=0 and at ov-1, no overlap (ov <= 0),
-    rows longer than 1024, lower-case letters."""
+    """Synthetic K2 inputs on flat rows whose starts take every residue
+    mod 16: '*' at j=0 and at ov-1, no overlap (ov <= 0), rows longer than
+    1024, windows of LONG_WINDOW - 1, LONG_WINDOW and LONG_WINDOW + 1
+    residues, lower-case letters. Returns (rows, offsets, lengths, code
+    table, qrow, trow, diag)."""
     import torch
     from plass_tpu_torch import constants
 
     rng = np.random.default_rng(7)
     letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX", dtype=np.uint8)
-    lens = [40, 40, 3000, 2500, 1, 2, 1500, 64]
-    width = max(lens)
-    chars = np.zeros((len(lens), width), dtype=np.uint8)
-    for i, n in enumerate(lens):
-        chars[i, :n] = letters[rng.integers(0, len(letters), n)]
-    chars[0, 0] = chars[1, 39] = chars[2, 0] = chars[2, 2999] = ord("*")
-    chars[3, 100] = chars[5, 0] = ord("*")
-    chars[7, :32] = np.char.lower(chars[7, :32].view("S1")).view(np.uint8)
-    codes = constants.blosum62().aa2num[chars].astype(np.uint8)
-    codes[chars == 0] = 20
-    q, t, d = [], [], []
-    for a in range(len(lens)):
-        for b in range(len(lens)):
-            for dg in (0, 1, -1, 5, -5, 39, -39, 40, -40, 1499, -2499, 2999,
-                       -2999, 3000, -3000):
-                q.append(a)
-                t.append(b)
-                d.append(dg)
-    i32 = lambda x: torch.tensor(np.asarray(x, dtype=np.int32), device=device)
-    return (torch.from_numpy(codes).to(device),
-            torch.from_numpy(chars).to(device), i32(lens), i32(q), i32(t),
-            i32(d))
+    seqs = [letters[rng.integers(0, len(letters), n)] for n in EDGE_LENS]
+    star = ord("*")
+    seqs[0][0] = seqs[1][39] = seqs[2][0] = seqs[2][2999] = star
+    seqs[3][100] = seqs[5][0] = seqs[9][0] = seqs[10][LONG_WINDOW] = star
+    seqs[7][:32] = np.char.lower(seqs[7][:32].view("S1")).view(np.uint8)
+    rows, offsets, lengths = flat_rows([x.tobytes() for x in seqs], device)
+    if len(set(int(o) % 16 for o in offsets)) != 16:
+        raise AssertionError("edge-case rows do not cover every alignment")
+    lut = torch.from_numpy(constants.blosum62().aa2num.astype(np.uint8)) \
+        .to(device)
+    q, t, d, _ = _edge_hits(len(seqs), device, False)
+    return rows, offsets, lengths, lut, q, t, d
+
+
+def _check_edge_windows(args, want, name):
+    """The edge cases must hold windows on both sides of LONG_WINDOW, hits
+    with no overlap and '*' at both window ends."""
+    from plass_tpu_torch.ops.rescore_kernel import _overlap
+    rows, offsets, lengths, _, q, t, d = args[:7]
+    ov = _overlap(lengths, q.long(), t.long(), d)[0]
+    sides = [int((ov == LONG_WINDOW + k).sum()) for k in (-1, 0, 1)]
+    n_none = int((want[1] == -1).sum())
+    n_first = int((want[1] == 1).sum())
+    n_last = int(((want[2] < ov - 1) & (ov > 0)).sum())
+    if not (all(sides) and int((ov > 2 * LONG_WINDOW).sum()) and n_none
+            and n_first and n_last):
+        raise AssertionError(f"{name}: the edge cases miss a case: windows "
+                             f"of {LONG_WINDOW}-1/+0/+1: {sides}, no overlap "
+                             f"{n_none}, '*' first {n_first}, last {n_last}")
+    return (f"{q.numel()} synthetic edge-case hits ({n_none} with no overlap, "
+            f"{int((ov > LONG_WINDOW).sum())} windows over {LONG_WINDOW}, "
+            f"rows up to {int(lengths.max())} at every alignment mod 16)")
 
 
 def phase_main_shapes(device, db_path, reps):
@@ -337,12 +543,13 @@ def phase_main_shapes(device, db_path, reps):
     and rescore): the matcher with every scan in the kernel equals the
     matcher with every scan in the plain version; the table's first-carry
     scan and the rescore of the real hits are timed against their plain
-    versions; K2 also runs on synthetic edge cases."""
+    versions and their bounds; K2 also runs on synthetic edge cases."""
     import torch
     from plass_tpu_torch import constants
     from plass_tpu_torch.data import seqdb
     from plass_tpu_torch.ops import device_kmer
-    from plass_tpu_torch.ops.backend import db_to_padded, kmermatcher_torch
+    from plass_tpu_torch.ops.backend import flat_rows as db_rows
+    from plass_tpu_torch.ops.backend import kmermatcher_torch
     from plass_tpu_torch.ops.rescore_kernel import (rescore_e2e,
                                                     rescore_e2e_plain)
     from plass_tpu_torch.ops.seg_scan import seg_scan, seg_scan_plain
@@ -350,7 +557,8 @@ def phase_main_shapes(device, db_path, reps):
     db = seqdb.SeqDB.open(db_path)
     kw = dict(kmers_per_sequence=60, hash_shift=67, ignore_multi_kmer=True,
               include_only_extendable=False)
-    hits = kmermatcher_torch(db, 14, device, **kw)
+    hits, scans = recorded_scans(lambda: kmermatcher_torch(db, 14, device,
+                                                           **kw))
     device_kmer.seg_scan = seg_scan_plain
     try:
         plain_hits = kmermatcher_torch(db, 14, device, **kw)
@@ -363,51 +571,61 @@ def phase_main_shapes(device, db_path, reps):
         raise AssertionError(f"K1 in the matcher: max |err| {k1_err}")
     say(f"[main] matcher on {db.size} ORFs ({hits.table_entries} table "
         f"entries, {len(hits.hit_slots)} hits): kernel scans equal plain")
-    codes_k, lengths = db_to_padded(db, "kmer", min_width=14)
+    say(f"[main] the matcher's scans (kind/columns, r = reverse): "
+        f"{scans_text(scans)}")
     table = device_kmer.build_table(
-        torch.from_numpy(codes_k).to(device),
-        torch.from_numpy(lengths).to(device),
+        *db_rows(db, device, "kmer"),
         torch.from_numpy(db.keys.astype(np.int32)).to(device),
         device_kmer.KmerParams(k=14, alphabet_size=13, kmers_per_sequence=60,
                                kmers_per_sequence_scale=0.0, ksel=60), 67)
     new_group, sid_s, pos_s, len_s, fwd_s = device_kmer.sort_table(
         *table, False)
     cols = (new_group, sid_s, (pos_s << 1) | fwd_s, len_s)
-    k1_ms = cuda_ms(lambda: seg_scan("first", *cols), reps, device)
-    k1_pms = cuda_ms(lambda: seg_scan_plain("first", *cols), reps, device)
+    k1 = {"ms": cuda_ms(lambda: seg_scan("first", *cols), KERNEL_REPS * reps,
+                        device),
+          "plain_ms": cuda_ms(lambda: seg_scan_plain("first", *cols), reps,
+                              device),
+          "bytes": scan_bytes(cols[0].numel(), 3), "elements": cols[0].numel()}
+    k1["bound_ms"], k1["bound_by"] = bound(k1["bytes"], 0)
+    k1["copy_ms"] = copy_ms(k1["bytes"], reps, device)
     say(f"[main] K1 first-carry, 3 columns, T={cols[0].numel()}: kernel "
-        f"{k1_ms:.4f} ms, plain {k1_pms:.4f} ms")
+        f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound "
+        f"{k1['bound_ms']:.4f} ms ({k1['bytes']} bytes), device copy of the "
+        f"same bytes {k1['copy_ms']:.4f} ms")
 
     sub = torch.from_numpy(constants.blosum62().sub.astype(np.int32)) \
         .to(device)
     rep, tgt, diag, _ = hits.dev
     lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
-    codes, _ = db_to_padded(db, "score")
-    chars, _ = db_to_padded(db, "char")
-    args = (torch.from_numpy(codes).to(device),
-            torch.from_numpy(chars).to(device),
-            torch.from_numpy(lengths).to(device),
-            lut[rep.long()].to(torch.int32), lut[tgt.long()].to(torch.int32),
-            diag.contiguous(), sub)
+    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
+            lut[tgt.long()].to(torch.int32), diag.contiguous(), sub)
     err = max_abs_err(rescore_e2e(*args), rescore_e2e_plain(*args))
     if err:
         raise AssertionError(f"K2 on real hits: max |err| {err}")
-    n_hits = args[3].numel()
-    say(f"[main] K2 on {n_hits} iteration-0 hits (width {codes.shape[1]}): "
-        f"equal to the plain version")
-    k2_ms = cuda_ms(lambda: rescore_e2e(*args), reps, device)
-    k2_pms = cuda_ms(lambda: rescore_e2e_plain(*args), reps, device)
-    say(f"[main] K2 {n_hits} hits: kernel {k2_ms:.4f} ms, plain "
-        f"{k2_pms:.4f} ms")
+    n_hits = args[4].numel()
+    flat, padded = upload_bytes(db, device)
+    say(f"[main] K2 on {n_hits} iteration-0 hits ({db.size} flat rows, "
+        f"{args[0].numel()} bytes): equal to the plain version")
+    say(f"[main] rescore upload per call at iteration 0: {flat} bytes (flat "
+        f"rows, offsets, lengths, code table); the padded codes and chars "
+        f"took {padded} bytes")
+    k2 = {"ms": cuda_ms(lambda: rescore_e2e(*args), KERNEL_REPS * reps,
+                        device),
+          "plain_ms": cuda_ms(lambda: rescore_e2e_plain(*args), reps, device)}
+    k2["bytes"], n_ops, residues = rescore_traffic(args)
+    k2["bound_ms"], k2["bound_by"] = bound(k2["bytes"], n_ops)
+    say(f"[main] K2 {n_hits} hits, {residues} window residues: kernel "
+        f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms by {k2['bound_by']} ({k2['bytes']} bytes)")
     edge = _edge_case_rows(device) + (sub,)
     want = rescore_e2e_plain(*edge)
     e2 = max_abs_err(rescore_e2e(*edge), want)
     if e2:
         raise AssertionError(f"K2 on edge cases: max |err| {e2}")
-    say(f"[main] K2 on {edge[3].numel()} synthetic edge-case hits "
-        f"({int((want[1] == -1).sum())} with no overlap, rows up to 3000): "
-        f"equal to the plain version")
-    return (k1_err, (k1_ms, k1_pms)), (max(err, e2), (k2_ms, k2_pms))
+    say(f"[main] K2 on {_check_edge_windows(edge, want, 'K2')}: equal to the "
+        f"plain version")
+    k2["max_abs_err"] = max(err, e2)
+    return (k1_err, k1), k2
 
 
 # ---------------------------------------------------------------------------
@@ -548,40 +766,32 @@ def phase_nucl_scale(device, work, n_genomes, genome_len):
 
 
 def _nucl_edge_case_rows(device):
-    """Synthetic nucleotide K2 inputs: forward and reverse hits at both row
-    ends, no overlap (ov <= 0), N bases, lower case, '*' at a window end,
-    rows longer than 1,024, and a true reverse-complement match."""
+    """Synthetic nucleotide K2 inputs on flat rows whose starts take every
+    residue mod 16: forward and reverse hits at both row ends, no overlap
+    (ov <= 0), N bases, lower case, '*' at a window end, rows longer than
+    1,024, windows of LONG_WINDOW - 1, LONG_WINDOW and LONG_WINDOW + 1 nt,
+    and a true reverse-complement match. Returns (rows, offsets, lengths,
+    code table, qrow, trow, diag, qrev)."""
     import torch
     from plass_tpu_torch import constants
 
     rng = np.random.default_rng(11)
     letters = np.frombuffer(b"ACGTNacgt", dtype=np.uint8)
-    lens = [40, 40, 3000, 2500, 1, 2, 1500, 300]
-    width = max(lens)
-    chars = np.zeros((len(lens), width), dtype=np.uint8)
-    for i, n in enumerate(lens):
-        chars[i, :n] = letters[rng.integers(0, len(letters), n)]
-    chars[0, 0] = chars[1, 39] = chars[2, 2999] = ord("*")
+    seqs = [letters[rng.integers(0, len(letters), n)] for n in EDGE_LENS]
+    star = ord("*")
+    seqs[0][0] = seqs[1][39] = seqs[2][2999] = star
+    seqs[9][0] = seqs[10][LONG_WINDOW] = star
     comp = np.arange(256, dtype=np.uint8)
     comp[np.frombuffer(b"ACGTNacgt", np.uint8)] = np.frombuffer(
         b"TGCANtgca", np.uint8)
-    chars[7, :300] = comp[chars[2, 400:700][::-1]]
-    codes = constants.nucleotide().aa2num[chars].astype(np.uint8)
-    codes[chars == 0] = 4
-    q, t, d, r = [], [], [], []
-    for a in range(len(lens)):
-        for b in range(len(lens)):
-            for dg in (0, 1, -1, 39, -39, 40, -400, 1499, -2499, 2999, -2999,
-                       3000, -3000):
-                for rv in (False, True):
-                    q.append(a)
-                    t.append(b)
-                    d.append(dg)
-                    r.append(rv)
-    i32 = lambda x: torch.tensor(np.asarray(x, dtype=np.int32), device=device)
-    return (torch.from_numpy(codes).to(device),
-            torch.from_numpy(chars).to(device), i32(lens), i32(q), i32(t),
-            i32(d), torch.tensor(r, device=device))
+    seqs[6][:300] = comp[seqs[2][400:700][::-1]]
+    rows, offsets, lengths = flat_rows([x.tobytes() for x in seqs], device)
+    if len(set(int(o) % 16 for o in offsets)) != 16:
+        raise AssertionError("edge-case rows do not cover every alignment")
+    lut = torch.from_numpy(constants.nucleotide().aa2num.astype(np.uint8)) \
+        .to(device)
+    return (rows, offsets, lengths, lut,
+            *_edge_hits(len(seqs), device, True))
 
 
 NUCL_MATCH = dict(kmers_per_sequence=60, kmers_per_sequence_scale=0.1,
@@ -591,33 +801,31 @@ NUCL_K2 = ("rescore_e2e_rev_uniform", "rescore_e2e_rev")
 
 
 def _nucl_rescore_inputs(db, device):
-    """The nucleotide matcher's hits on `db` (default parameters) and K2's
-    operands for them: (hits, args, reverse operands, uniform pattern)."""
+    """The nucleotide matcher's hits on `db` (default parameters), K2's
+    operands for them and the matcher's scans: (hits, args, reverse
+    operands, uniform pattern, scans)."""
     import torch
     from plass_tpu_torch import constants
-    from plass_tpu_torch.ops.backend import db_to_padded, kmermatcher_torch
+    from plass_tpu_torch.ops.backend import flat_rows as db_rows
+    from plass_tpu_torch.ops.backend import kmermatcher_torch
     from plass_tpu_torch.ops.rescore_kernel import uniform_pattern
 
-    hits = kmermatcher_torch(db, 22, device, **NUCL_MATCH)
+    hits, scans = recorded_scans(lambda: kmermatcher_torch(db, 22, device,
+                                                           **NUCL_MATCH))
     mat = constants.nucleotide()
     uniform = uniform_pattern(mat.sub)
     if uniform is None:
         raise AssertionError("the nucleotide matrix is not uniform")
     rep, tgt, diag, rev = hits.dev
     lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
-    codes, lengths = db_to_padded(db, "score")
-    chars, _ = db_to_padded(db, "char")
-    args = (torch.from_numpy(codes).to(device),
-            torch.from_numpy(chars).to(device),
-            torch.from_numpy(lengths).to(device),
-            lut[rep.long()].to(torch.int32), lut[tgt.long()].to(torch.int32),
-            diag.contiguous(),
+    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
+            lut[tgt.long()].to(torch.int32), diag.contiguous(),
             torch.from_numpy(mat.sub.astype(np.int32)).to(device))
     rkw = dict(qrev=rev.contiguous(),
                comp=torch.from_numpy(mat.reverse.astype(np.int32)).to(device),
                code2char=torch.from_numpy(mat.num2aa.astype(np.uint8))
                .to(device))
-    return hits, args, rkw, uniform
+    return hits, args, rkw, uniform, scans
 
 
 def phase_nucl_main(device, first_db, last_db, reps):
@@ -626,7 +834,8 @@ def phase_nucl_main(device, first_db, last_db, reps):
     scan in the plain version (iteration 0); the uniform and the generic
     matrix variants of K2 equal the plain version on the real hits of the
     first and of the last iteration and on edge cases, and are timed
-    against it at iteration 0."""
+    against it and their bound at iteration 0 and, the kernel alone, at the
+    last iteration."""
     from plass_tpu_torch.data import seqdb
     from plass_tpu_torch.ops import device_kmer
     from plass_tpu_torch.ops.backend import kmermatcher_torch
@@ -635,7 +844,7 @@ def phase_nucl_main(device, first_db, last_db, reps):
     from plass_tpu_torch.ops.seg_scan import seg_scan, seg_scan_plain
 
     db = seqdb.SeqDB.open(first_db)
-    hits, args, rkw, uniform = _nucl_rescore_inputs(db, device)
+    hits, args, rkw, uniform, scans = _nucl_rescore_inputs(db, device)
     device_kmer.seg_scan = seg_scan_plain
     try:
         plain_hits = kmermatcher_torch(db, 22, device, **NUCL_MATCH)
@@ -651,14 +860,22 @@ def phase_nucl_main(device, first_db, last_db, reps):
     say(f"[nucl-main] matcher on {db.size} reads ({hits.table_entries} table "
         f"entries, {len(hits.hit_slots)} hits, {n_rev} reverse): kernel scans "
         f"equal plain")
+    say(f"[nucl-main] the matcher's scans at iteration 0 (kind/columns, r = "
+        f"reverse): {scans_text(scans)}")
+    flat, padded = upload_bytes(db, device)
+    say(f"[nucl-main] rescore upload per call at iteration 0: {flat} bytes "
+        f"(flat rows, offsets, lengths, code table); the padded codes and "
+        f"chars took {padded} bytes")
 
     want = rescore_e2e_plain(*args, **rkw)
-    errs = {}
-    times = {}
+    n_bytes, n_ops, residues = rescore_traffic(args, rkw["qrev"])
+    bms, bby = bound(n_bytes, n_ops)
+    out = {}
     edge = _nucl_edge_case_rows(device)
-    edge_args, edge_rev = edge[:6] + (args[6],), edge[6]
+    edge_args, edge_rev = edge[:7] + (args[7],), edge[7]
     edge_kw = dict(rkw, qrev=edge_rev)
     edge_want = rescore_e2e_plain(*edge_args, **edge_kw)
+    edge_text = _check_edge_windows(edge_args, edge_want, "K2 rev")
     for name in NUCL_K2:
         uni = uniform if name == "rescore_e2e_rev_uniform" else None
         err = max_abs_err(rescore_e2e(*args, uniform=uni, **rkw), want)
@@ -667,36 +884,49 @@ def phase_nucl_main(device, first_db, last_db, reps):
         if err or e2:
             raise AssertionError(f"{name}: max |err| {err} on real hits, "
                                  f"{e2} on edge cases")
-        errs[name] = max(err, e2)
-        ms = cuda_ms(lambda: rescore_e2e(*args, uniform=uni, **rkw), reps,
-                     device)
+        ms = cuda_ms(lambda: rescore_e2e(*args, uniform=uni, **rkw),
+                     KERNEL_REPS * reps, device, queued=True)
         pms = cuda_ms(lambda: rescore_e2e_plain(*args, **rkw), reps, device)
-        times[name] = (ms, pms)
-        say(f"[nucl-main] K2 {name} on {args[3].numel()} iteration-0 hits "
-            f"(width {args[0].shape[1]}) and {edge[3].numel()} edge cases "
-            f"({int((edge_want[1] == -1).sum())} with no overlap, rows up to "
-            f"3000): equal to the plain version; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms")
+        out[name] = {"max_abs_err": max(err, e2), "ms": ms, "plain_ms": pms,
+                     "bytes": n_bytes, "bound_ms": bms, "bound_by": bby}
+        say(f"[nucl-main] K2 {name} on {args[4].numel()} iteration-0 hits "
+            f"({db.size} flat rows, {args[0].numel()} bytes, {residues} "
+            f"window residues) and {edge_text}: equal to the plain version; "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms by "
+            f"{bby} ({n_bytes} bytes)")
 
     # the last iteration: contigs up to max_seq_len beside the reads, so
-    # reverse hits index far into long rows
+    # reverse hits index far into long rows and most windows are long
     db = seqdb.SeqDB.open(last_db)
-    hits, args, rkw, uniform = _nucl_rescore_inputs(db, device)
+    hits, args, rkw, uniform, scans = _nucl_rescore_inputs(db, device)
     del hits
+    say(f"[nucl-main] the matcher's scans at the last iteration: "
+        f"{scans_text(scans)}")
     want = rescore_e2e_plain(*args, **rkw)
     n_rev = int(rkw["qrev"].sum())
+    n_bytes, n_ops, residues = rescore_traffic(args, rkw["qrev"])
+    bms, bby = bound(n_bytes, n_ops)
+    last_ms = {}
     for name in NUCL_K2:
         uni = uniform if name == "rescore_e2e_rev_uniform" else None
         err = max_abs_err(rescore_e2e(*args, uniform=uni, **rkw), want)
         if err:
             raise AssertionError(f"{name} on the last iteration's hits: max "
                                  f"|err| {err}")
-    padded = 2 * args[0].numel()
-    say(f"[nucl-main] K2 {' and '.join(NUCL_K2)} on {args[3].numel()} "
+        last_ms[name] = cuda_ms(
+            lambda: rescore_e2e(*args, uniform=uni, **rkw),
+            KERNEL_REPS * reps, device, queued=True)
+    flat, padded = upload_bytes(db, device)
+    say(f"[nucl-main] K2 {' and '.join(NUCL_K2)} on {args[4].numel()} "
         f"last-iteration hits ({n_rev} reverse; {db.size} rows, longest "
-        f"{int(args[2].max())} nt, padded codes and chars "
-        f"{padded / 2**30:.2f} GiB): equal to the plain version")
-    return k1_err, errs, times
+        f"{int(args[2].max())} nt, {residues} window residues): equal to the "
+        f"plain version; kernel "
+        + ", ".join(f"{last_ms[k]:.4f} ms" for k in NUCL_K2)
+        + f", bound {bms:.4f} ms by {bby} ({n_bytes} bytes)")
+    say(f"[nucl-main] rescore upload per call at the last iteration: {flat} "
+        f"bytes (flat rows, offsets, lengths, code table); the padded codes "
+        f"and chars took {padded} bytes ({padded / 2**30:.2f} GiB)")
+    return k1_err, out
 
 
 def main():
@@ -728,45 +958,55 @@ def main():
 
     phase_env(device, rehearsal)
     reps = 2 if rehearsal else 20
+    # 4,096 is K1's tile: one either side of it, then the full size
     k1_err = phase_k1(
-        device, [2**10 + 7, 3 * 2**12 if rehearsal else 24 * 2**20], reps)
+        device, [2**10 + 7, 4095, 4096, 4097,
+                 3 * 2**12 + 5 if rehearsal else 24 * 2**20], reps,
+        # the protein table of 409,600 reads (x800) in an earlier run
+        timed_sizes=(5000,) if rehearsal else (14725883,))
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as work:
         phase_fixture(device, work)
         launches, db_path = phase_scale(device, work, 4 if rehearsal else 400)
-        (k1_main_err, k1_times), (k2_err, k2_times) = phase_main_shapes(
-            device, db_path, reps)
+        (k1_main_err, k1), k2 = phase_main_shapes(device, db_path, reps)
         phase_nucl_fixture(device, work)
         nlaunches, ndb_paths = phase_nucl_scale(
             device, work, *((3, 2000) if rehearsal else (50, 20000)))
-        k1_nucl_err, rev_errs, rev_times = phase_nucl_main(
-            device, *ndb_paths, reps)
+        k1_nucl_err, rev = phase_nucl_main(device, *ndb_paths, reps)
     k1_err = max(k1_err, k1_main_err, k1_nucl_err)
 
     if rehearsal:
         say("[rehearsal] all phases ran on the CPU; no result")
         return 2
-    k2 = {"route": "cuda", "source": "plass_tpu_torch/csrc/rescore.cu",
-          "replaces": "plass_tpu/ops/pallas_rescore.py:449"}
+
+    def by_path(name):
+        return {"assemble": launches.get(name, 0),
+                "nuclassemble": nlaunches.get(name, 0)}
+
+    def entry(name, source, replaces, m, **extra):
+        paths = by_path(name)
+        # library_ms: no single PyTorch call computes a segmented scan with
+        # these combine functions (torch.cummax is unsegmented) or a
+        # gathered diagonal rescore
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(paths.values()),
+                "launches_by_path": paths, "max_abs_err": m["max_abs_err"],
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": None, "bytes": m["bytes"], **extra}
+
+    k2_src = ("plass_tpu_torch/csrc/rescore.cu",
+              "plass_tpu/ops/pallas_rescore.py:449")
     kernels = [
-        {"name": "seg_scan", "route": "cuda",
-         "source": "plass_tpu_torch/csrc/seg_scan.cu",
-         "replaces": "plass_tpu/ops/pallas_scan.py:168",
-         "launches": launches["seg_scan"] + nlaunches["seg_scan"],
-         "launches_by_path": {"assemble": launches["seg_scan"],
-                              "nuclassemble": nlaunches["seg_scan"]},
-         "max_abs_err": k1_err, "ms": k1_times[0], "plain_ms": k1_times[1]},
-        {"name": "rescore_e2e", **k2,
-         "launches": launches["rescore_e2e"], "max_abs_err": k2_err,
-         "ms": k2_times[0], "plain_ms": k2_times[1]},
-    ]
+        entry("seg_scan", "plass_tpu_torch/csrc/seg_scan.cu",
+              "plass_tpu/ops/pallas_scan.py:168",
+              dict(k1, max_abs_err=k1_err), copy_ms=k1["copy_ms"],
+              elements=k1["elements"]),
+        entry("rescore_e2e", *k2_src, k2)]
     for name in ("rescore_e2e_rev", "rescore_e2e_rev_uniform"):
-        kernels.append({
-            "name": name, **k2, "launches": nlaunches[name],
-            # the generic reverse variant serves non-uniform matrices; no
-            # workflow has one, so no main path launches it
-            "main_path": name == "rescore_e2e_rev_uniform",
-            "max_abs_err": rev_errs[name], "ms": rev_times[name][0],
-            "plain_ms": rev_times[name][1]})
+        # the generic reverse variant serves non-uniform matrices; no
+        # workflow has one, so no main path launches it
+        kernels.append(entry(name, *k2_src, rev[name],
+                             main_path=name == "rescore_e2e_rev_uniform"))
     say(json.dumps({"kernels": kernels}))
     say(smi())
     say(json.dumps({"ok": True, "device": {

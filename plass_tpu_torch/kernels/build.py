@@ -30,12 +30,13 @@ SIGNATURES = {
     "seg_scan": {
         "seg_scan": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P],
                      _I),
+        "seg_scan_scratch_ints": ([_L], _L),
     },
     "rescore": {
-        "rescore_e2e": ([_P, _P, _L, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P,
-                         _P, _P], _I),
-        "rescore_e2e_rev": ([_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _L, _P, _P, _P, _P, _P], _I),
+        "rescore_e2e": ([_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _L, _P, _P,
+                         _P, _P, _P, _P], _I),
+        "rescore_e2e_rev": ([_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P], _I),
     },
 }
 

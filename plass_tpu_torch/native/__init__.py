@@ -75,8 +75,6 @@ def lib():
         _LIB.nucl_assemble_greedy.restype = ctypes.c_int
         _LIB.gather_records.argtypes = [u8p, i64p, i64p, i64p,
                                         ctypes.c_int64, u8p]
-        _LIB.pad_records.argtypes = [u8p, i64p, i32p, ctypes.c_int64, u8p,
-                                     u8p, ctypes.c_int64]
         _LIB.rescore_finish.argtypes = [
             ctypes.c_int64, i64p, i32p, i32p, i32p, i32p, u8p, i64p, i32p,
             i32p, i32p, i64p, f64p, f64p, ctypes.c_int32, ctypes.c_int32,

@@ -8,6 +8,7 @@ index (the JAX package's _rescore_from_dev_pallas). Only (qk, tk, score,
 diag) go to the host, for the self rows and the native finish.
 """
 import ctypes
+import warnings
 
 import numpy as np
 import torch
@@ -28,32 +29,24 @@ def _matrix(db, alphabet):
     return constants.reduced(13) if alphabet == "kmer" else constants.blosum62()
 
 
-def db_to_padded(db, alphabet="kmer", min_width=1):
-    """(codes uint8[N, W], lengths int32[N]) of a SeqDB, W the longest
-    sequence (at least min_width), padded with the alphabet's X.
-
-    alphabet: 'kmer' (reduced-13 or nucleotide codes), 'score' (blosum62
-    or nucleotide codes) or 'char' (raw bytes, padded with 0)."""
+def flat_rows(db, device, alphabet="score"):
+    """The sequences of a SeqDB on `device` as the matcher and K2 read
+    them: (rows uint8[T], offsets int64[N], lengths int32[N], code_lut
+    uint8[256]). rows is the DB's data as it is, terminators included, so
+    a call uploads the DB's own bytes and no padded [N, W] copy exists on
+    either side; code_lut maps a byte to its code in `alphabet` ('kmer':
+    reduced-13 or nucleotide, 'score': blosum62 or nucleotide)."""
     mat = _matrix(db, alphabet)
-    lengths = db.seq_lens().astype(np.int32)
-    n = db.size
-    width = max(int(lengths.max()) if n else 0, min_width)
-    fill = mat.alphabet_size - 1 if alphabet != "char" else 0
-    out = np.full((n, width), fill, dtype=np.uint8)
-    if n:
-        if alphabet == "char":
-            lut8 = np.arange(256, dtype=np.uint8)
-        else:
-            lut8 = np.ascontiguousarray(mat.aa2num.astype(np.uint8))
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        native.lib().pad_records(
-            np.asarray(db.data).ctypes.data_as(u8p),
-            np.ascontiguousarray(db.offsets, dtype=np.int64).ctypes.data_as(
-                ctypes.POINTER(ctypes.c_int64)),
-            lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            np.int64(n), lut8.ctypes.data_as(u8p), out.ctypes.data_as(u8p),
-            np.int64(width))
-    return out, lengths
+    with warnings.catch_warnings():
+        # a DB opened from disk is a read-only map; it is only read here
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        rows = torch.from_numpy(np.asarray(db.data))
+    return (rows.to(device),
+            torch.from_numpy(np.ascontiguousarray(
+                db.offsets, dtype=np.int64)).to(device),
+            torch.from_numpy(db.seq_lens().astype(np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(
+                mat.aa2num.astype(np.uint8))).to(device))
 
 
 def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
@@ -67,8 +60,8 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
     is_nucl = db.dbtype == seqdb.NUCLEOTIDES
     if kmers_per_sequence_scale is None:
         kmers_per_sequence_scale = 0.2 if is_nucl else 0.0
-    codes, lengths = db_to_padded(db, "kmer", min_width=k)
-    if db.size and int(lengths.max()) >= device_kmer.MAX_LEN:
+    longest = int(db.seq_lens().max()) if db.size else 0
+    if longest >= device_kmer.MAX_LEN:
         raise ValueError(f"sequences of {device_kmer.MAX_LEN} residues or "
                          "more are not supported by the k-mer matcher")
     if db.size and int(db.keys.max()) >= device_kmer.MAX_KEY:
@@ -80,9 +73,9 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
         ignore_multi_kmer=ignore_multi_kmer,
         include_only_extendable=include_only_extendable, cov_thr=cov_thr,
         ksel=ksel_capacity(kmers_per_sequence, kmers_per_sequence_scale,
-                           codes.shape[1]))
+                           max(longest, k)))
     rep, tgt, score, diag, table_entries = device_kmer.kmermatch_device(
-        torch.from_numpy(codes).to(device), torch.from_numpy(lengths).to(device),
+        *flat_rows(db, device, "kmer"),
         torch.from_numpy(db.keys.astype(np.int32)).to(device), hash_shift,
         params)
     out = _insert_self_hits(db, rep.cpu().numpy().astype(np.uint32),
@@ -224,9 +217,7 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
     if len(idxs):
         dev_rep, dev_tgt, dev_diag, dev_rev = hits.dev
         device = dev_rep.device
-        codes = torch.from_numpy(db_to_padded(db, "score")[0]).to(device)
-        chars = torch.from_numpy(db_to_padded(db, "char")[0]).to(device)
-        dlen = torch.from_numpy(lengths).to(device)
+        rows = flat_rows(db, device)
         dlut = torch.from_numpy(lut.astype(np.int64)).to(device)
         sub = torch.from_numpy(mat.sub.astype(np.int32)).to(device)
         didx = torch.from_numpy(
@@ -244,8 +235,7 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
                 code2char=torch.from_numpy(
                     mat.num2aa.astype(np.uint8)).to(device),
                 uniform=uniform_pattern(mat.sub))
-        sc, f, la, idn = rescore_e2e(codes, chars, dlen, q, t, d, sub,
-                                     **rev_kw)
+        sc, f, la, idn = rescore_e2e(*rows, q, t, d, sub, **rev_kw)
         score[idxs] = sc.cpu().numpy()
         first[idxs] = f.cpu().numpy()
         last[idxs] = la.cpu().numpy()

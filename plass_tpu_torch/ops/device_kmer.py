@@ -220,36 +220,51 @@ def select_kmers(seqs, lengths, params: KmerParams, hash_shift):
             seq_hash)
 
 
-def build_table(seqs, lengths, keys, params: KmerParams, hash_shift):
+def gather_rows(rows, offsets, lengths, code_lut, idx, width, x_code):
+    """uint8[len(idx), width]: the alphabet codes of rows `idx`, read from
+    the flat bytes through code_lut, X from each row's length on."""
+    j = torch.arange(width, device=rows.device)
+    pos = (offsets[idx][:, None] + j).clamp(max=rows.numel() - 1)
+    codes = code_lut[rows[pos].int()]
+    return codes.masked_fill_(j >= lengths[idx][:, None], x_code)
+
+
+def build_table(rows, offsets, lengths, code_lut, keys, params: KmerParams,
+                hash_shift):
     """Selected k-mers + one whole-sequence hash entry per non-empty
     sequence -> flat table (kmer int64, sid int32, pos int32, len int32),
-    valid entries only. Rows are selected longest first, in blocks of at
-    most SELECT_CELLS cells, each block only as wide as its longest row:
-    the reads a nucleotide DB keeps beside its long contigs are not padded
-    to the contigs' width. Entry order does not matter: sort_table orders
-    the table totally."""
-    n, width = seqs.shape
+    valid entries only. The sequences come as the database holds them:
+    rows uint8[T] back to back, row r the lengths[r] bytes from
+    rows[offsets[r]], a residue's code code_lut[byte]. Rows are selected
+    longest first, in blocks of at most SELECT_CELLS cells; each block is
+    gathered on the device to [rows, w] codes, only as wide as its longest
+    row (at least k): the reads a nucleotide DB keeps beside its long
+    contigs are never padded to the contigs' width, on either side. Entry
+    order does not matter: sort_table orders the table totally."""
+    n = lengths.numel()
     lens_h = lengths.cpu()
     order = torch.argsort(lens_h, descending=True, stable=True)
     lens_h = lens_h[order]
     parts = []
     lo = 0
     while lo < n:
-        w = min(max(int(lens_h[lo]), params.k), width)
+        w = max(int(lens_h[lo]), params.k)
         hi = min(lo + max(SELECT_CELLS // w, 1), n)
-        idx = order[lo:hi].to(seqs.device)
+        idx = order[lo:hi].to(rows.device)
         blk_len = lengths[idx]
-        rows, kmer, pos, seq_hash = select_kmers(
-            seqs[idx, :w], blk_len, params, hash_shift)
-        rows = idx[rows]
-        parts.append((kmer, keys[rows], pos, lengths[rows]))
+        sel_rows, kmer, pos, seq_hash = select_kmers(
+            gather_rows(rows, offsets, lengths, code_lut, idx, w,
+                        params.alphabet_size - 1),
+            blk_len, params, hash_shift)
+        sel_rows = idx[sel_rows]
+        parts.append((kmer, keys[sel_rows], pos, lengths[sel_rows]))
         nonempty = blk_len > 0
         sids = keys[idx][nonempty]
         parts.append((seq_hash[nonempty], sids, torch.zeros_like(sids),
                       blk_len[nonempty]))
         lo = hi
     if not parts:
-        empty = torch.zeros(0, dtype=torch.int32, device=seqs.device)
+        empty = torch.zeros(0, dtype=torch.int32, device=rows.device)
         return empty.long(), empty, empty, empty
     return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
 
@@ -397,14 +412,16 @@ def best_diagonal_hits(rep, tgt, diag, rev):
     return rep[hit], tgt[hit], score[hit], best_diag[hit]
 
 
-def kmermatch_device(seqs, lengths, keys, hash_shift, params: KmerParams):
+def kmermatch_device(rows, offsets, lengths, code_lut, keys, hash_shift,
+                     params: KmerParams):
     """Full device k-mer matcher on one device.
 
-    seqs uint8[N, L] (L >= k), lengths int32[N] (< MAX_LEN), keys int32[N]
+    rows uint8[T], offsets int64[N], lengths int32[N] (< MAX_LEN), code_lut
+    uint8[256] (the flat sequences of build_table), keys int32[N]
     (ascending, < MAX_KEY). Returns (rep, tgt, score, diag) int32[H] — hits
     grouped by ascending rep key — and the number of table entries."""
-    kmer, sid, pos, slen = build_table(seqs, lengths, keys, params,
-                                       hash_shift)
+    kmer, sid, pos, slen = build_table(rows, offsets, lengths, code_lut, keys,
+                                       params, hash_shift)
     rep, tgt, diag, rev = sort_pairs(*pairs_from_table(kmer, sid, pos, slen,
                                                        params))
     if rep.numel() == 0:

@@ -1,16 +1,20 @@
 """END_TO_END ungapped diagonal rescore of device-resident hits (kernel K2).
 
-`rescore_e2e(codes, chars, lengths, qrow, trow, diag, sub)` scores each
-hit (qrow[h], trow[h], diag[h]) along its diagonal (reference:
+`rescore_e2e(rows, offsets, lengths, code_lut, qrow, trow, diag, sub)`
+scores each hit (qrow[h], trow[h], diag[h]) along its diagonal (reference:
 DistanceCalculator.h:115-220; the JAX package's
-ops/pallas_rescore.py:_kernel_gathered_body):
+ops/pallas_rescore.py:_kernel_gathered_body), reading the sequence
+database's own flat bytes — there is no padded [N, W] copy of the rows:
 
-  codes   uint8[N, W]  substitution-alphabet codes of each row
-  chars   uint8[N, W]  raw sequence bytes ('*' detection, case-folded
-                       identity)
-  lengths int32[N]     row lengths (<= W)
+  rows     uint8[T]    every sequence back to back, as SeqDB.data holds
+                       them (record terminators included, never scored)
+  offsets  int64[N]    row r starts at rows[offsets[r]]
+  lengths  int32[N]    row r is lengths[r] residues long
+  code_lut uint8[256]  byte -> substitution-alphabet code (values < A);
+                       a residue's char is the byte itself ('*' detection,
+                       case-folded identity)
   qrow, trow, diag     int32[H]
-  sub     int32[A, A]  substitution matrix (A <= 32)
+  sub      int32[A, A] substitution matrix (A <= 32)
 
 Nucleotide hits add the reverse strand (the JAX package's has_rev path,
 rescorediagonal.cpp:173-179):
@@ -78,23 +82,25 @@ def _overlap(lengths, qrow, trow, diag):
     return ov, qoff, toff, qlen
 
 
-def rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
-                      qrev=None, comp=None, code2char=None, uniform=None,
+def rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
+                      sub, qrev=None, comp=None, code2char=None, uniform=None,
                       budget=1 << 24):
     """Plain PyTorch version: the JAX package's device_rescore.rescore_pairs
-    (mode 3; has_rev when qrev is given) as [hits, window] gathers, in
-    chunks of at most `budget` window cells. It scores through `sub` for
-    both matrix variants (`uniform` only picks the kernel's variant)."""
-    _check(codes, chars, lengths, qrow, trow, diag, sub, qrev, comp,
-           code2char, uniform)
+    (mode 3; has_rev when qrev is given) as [hits, window] gathers from the
+    flat rows, in chunks of at most `budget` window cells. It scores through
+    `sub` for both matrix variants (`uniform` only picks the kernel's
+    variant)."""
+    _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub, qrev,
+           comp, code2char, uniform)
     h = qrow.numel()
-    dev = codes.device
+    dev = rows.device
     outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
     if h == 0:
         return tuple(outs)
-    lmax = codes.shape[1]
+    top = max(rows.numel() - 1, 0)
     alpha = sub.shape[0]
     sub_flat = sub.reshape(-1).to(torch.int64)
+    lut = code_lut.long()
     ov_all = _overlap(lengths, qrow.long(), trow.long(), diag)[0]
     width = max(int(ov_all.max()), 1)
     chunk = max(budget // width, 1)
@@ -108,12 +114,12 @@ def rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
         if qrev is not None:
             rv = qrev[lo:hi, None]
             qpos = torch.where(rv, qlen[:, None] - 1 - qpos, qpos)
-        qidx = qpos.clamp(0, lmax - 1)
-        tidx = (toff[:, None] + j).clamp(max=lmax - 1)
-        qc = codes[q[:, None], qidx].long()
-        tc = codes[t[:, None], tidx].long()
-        qch = chars[q[:, None], qidx]
-        tch = chars[t[:, None], tidx]
+        # cells past the window are masked below; their index only has to
+        # stay inside the array
+        qch = rows[(offsets[q][:, None] + qpos).clamp(0, top)]
+        tch = rows[(offsets[t][:, None] + toff[:, None] + j).clamp(0, top)]
+        qc = lut[qch.long()]
+        tc = lut[tch.long()]
         if qrev is not None:
             qc = torch.where(rv, comp.long()[qc], qc)
             qch = torch.where(rv, code2char[qc], qch)
@@ -134,21 +140,23 @@ def rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
     return tuple(outs)
 
 
-def _check(codes, chars, lengths, qrow, trow, diag, sub, qrev=None,
-           comp=None, code2char=None, uniform=None):
-    if codes.dtype != torch.uint8 or chars.dtype != torch.uint8:
-        raise TypeError("codes and chars must be uint8")
-    if codes.dim() != 2 or chars.shape != codes.shape:
-        raise ValueError("codes and chars must be [N, W] of one shape")
-    if lengths.dtype != torch.int32 or lengths.shape != codes.shape[:1]:
-        raise TypeError("lengths must be int32[N]")
+def _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
+           qrev=None, comp=None, code2char=None, uniform=None):
+    if rows.dtype != torch.uint8 or rows.dim() != 1:
+        raise TypeError("rows must be uint8[T], the flat sequence bytes")
+    if offsets.dtype != torch.int64 or offsets.dim() != 1:
+        raise TypeError("offsets must be int64[N]")
+    if lengths.dtype != torch.int32 or lengths.shape != offsets.shape:
+        raise TypeError("lengths must be int32[N] like offsets")
+    if code_lut.dtype != torch.uint8 or code_lut.shape != (256,):
+        raise TypeError("code_lut must be uint8[256]")
     for name, x in (("qrow", qrow), ("trow", trow), ("diag", diag)):
         if x.dtype != torch.int32 or x.dim() != 1 or x.shape != qrow.shape:
             raise TypeError(f"{name} must be int32[H] like qrow")
     if (sub.dtype != torch.int32 or sub.dim() != 2
             or sub.shape[0] != sub.shape[1] or not 1 <= sub.shape[0] <= 32):
         raise TypeError("sub must be int32[A, A] with A <= 32")
-    tensors = [codes, chars, lengths, qrow, trow, diag, sub]
+    tensors = [rows, offsets, lengths, code_lut, qrow, trow, diag, sub]
     rev_ops = (qrev, comp, code2char)
     if any(x is None for x in rev_ops) != all(x is None for x in rev_ops):
         raise ValueError("qrev, comp and code2char come together")
@@ -163,36 +171,38 @@ def _check(codes, chars, lengths, qrow, trow, diag, sub, qrev=None,
         tensors += [qrev, comp, code2char]
     elif uniform is not None:
         raise ValueError("the uniform-matrix variant takes reverse hits")
-    if any(x.device != codes.device for x in tensors):
+    if any(x.device != rows.device for x in tensors):
         raise ValueError("all operands must be on one device")
+    return tensors
 
 
-def rescore_e2e(codes, chars, lengths, qrow, trow, diag, sub, qrev=None,
-                comp=None, code2char=None, uniform=None):
+def rescore_e2e(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
+                qrev=None, comp=None, code2char=None, uniform=None):
     """END_TO_END rescore; see the module docstring."""
-    if codes.device.type == "cpu":
-        return rescore_e2e_plain(codes, chars, lengths, qrow, trow, diag, sub,
-                                 qrev, comp, code2char, uniform)
-    if codes.device.type != "cuda":
-        raise ValueError(f"rescore_e2e: unsupported device {codes.device}")
-    _check(codes, chars, lengths, qrow, trow, diag, sub, qrev, comp,
-           code2char, uniform)
-    tensors = [codes, chars, lengths, qrow, trow, diag, sub]
-    if qrev is not None:
-        tensors += [qrev, comp, code2char]
+    if rows.device.type == "cpu":
+        return rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow,
+                                 diag, sub, qrev, comp, code2char, uniform)
+    if rows.device.type != "cuda":
+        raise ValueError(f"rescore_e2e: unsupported device {rows.device}")
+    tensors = _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
+                     qrev, comp, code2char, uniform)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("rescore_e2e: tensors must be contiguous")
+    if rows.data_ptr() % 4:
+        raise ValueError("rescore_e2e: rows must be 4-byte aligned")
     global LAUNCHES, LAUNCHES_REV, LAUNCHES_REV_UNIFORM
     h = qrow.numel()
-    outs = [torch.empty(h, dtype=torch.int32, device=codes.device)
-            for _ in range(4)]
+    dev = rows.device
+    outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
+    # the kernel's queue of long-window hits: a count, then up to h indices
+    queue = torch.empty(h + 1, dtype=torch.int32, device=dev)
     lib = build.load("rescore")
-    with torch.cuda.device(codes.device):
-        head = (build.ptr(codes), build.ptr(chars), codes.shape[1],
-                build.ptr(lengths), build.ptr(qrow), build.ptr(trow),
-                build.ptr(diag))
-        tail = (h, *[build.ptr(o) for o in outs],
-                build.stream_of(codes.device))
+    with torch.cuda.device(dev):
+        head = (build.ptr(rows), rows.numel(), build.ptr(offsets),
+                build.ptr(lengths), build.ptr(code_lut), build.ptr(qrow),
+                build.ptr(trow), build.ptr(diag))
+        tail = (h, *[build.ptr(o) for o in outs], build.ptr(queue),
+                build.stream_of(dev))
         if qrev is None:
             rc = lib.rescore_e2e(*head, build.ptr(sub), sub.shape[0], *tail)
         else:
@@ -204,6 +214,8 @@ def rescore_e2e(codes, chars, lengths, qrow, trow, diag, sub, qrev=None,
     if rc != 0:
         raise RuntimeError(f"rescore_e2e kernel launch failed "
                            f"(CUDA error {rc})")
+    if h == 0:
+        return tuple(outs)
     if qrev is None:
         LAUNCHES += 1
     elif uniform is None:

@@ -16,7 +16,8 @@ then marks the first element of a segment in that order, i.e. a segment's
 LAST index, and "earlier" means the higher index. This is the JAX
 package's flip / scan / flip without the copies.
 
-On a CUDA tensor the call launches the CUDA kernel (csrc/seg_scan.cu) or
+On a CUDA tensor the call launches the CUDA kernel (csrc/seg_scan.cu: one
+single-pass launch per call, after the reset of its tile descriptors) or
 raises; on a CPU tensor it runs `seg_scan_plain`.
 """
 import torch
@@ -96,13 +97,18 @@ def seg_scan(kind, flag, *vals, reverse=False):
     n = flag.numel()
     nv = len(vals)
     outs = [torch.empty_like(v) for v in vals]
-    n_tiles = max((n + 1023) // 1024, 1)
-    scratch = torch.empty((1 + nv) * n_tiles, dtype=torch.int32,
+    if n == 0:
+        return tuple(outs)
+    lib = build.load("seg_scan")
+    # the tile descriptors of the single-pass scan: a tile counter, a status
+    # word and two value slots per tile; the kernel's entry point resets
+    # the counter and the status words on the stream
+    scratch = torch.empty(lib.seg_scan_scratch_ints(n), dtype=torch.int32,
                           device=flag.device)
     ins = [build.ptr(v) for v in vals] + [None] * (3 - nv)
     ops = [build.ptr(o) for o in outs] + [None] * (3 - nv)
     with torch.cuda.device(flag.device):
-        rc = build.load("seg_scan").seg_scan(
+        rc = lib.seg_scan(
             KINDS[kind], nv, int(reverse), build.ptr(flag), *ins, *ops, n,
             build.ptr(scratch), build.stream_of(flag.device))
     if rc != 0:

@@ -2,7 +2,8 @@
 the CPU, the native finish) against the JAX package's rescore_diagonal_jax
 on the hits each side's matcher produced — the records must be equal, in
 the flat format the extender reads and in the per-query dict format of
-iteration 0."""
+iteration 0; the rescore reads the DB's flat bytes and makes no padded copy
+of the rows."""
 import os
 
 import numpy as np
@@ -16,7 +17,9 @@ from plass_tpu.ops import translate as tr
 from plass_tpu.ops.backend import kmermatcher_jax, rescore_diagonal_jax
 from plass_tpu.ops.evalue import EvalueComputer
 from plass_tpu.ops.rescore import RescoreParams
+from plass_tpu_torch.data.createdb import merge_reads as port_merge_reads
 from plass_tpu_torch.data.seqdb import SeqDB as PortSeqDB
+from plass_tpu_torch.ops import backend as port_backend
 from plass_tpu_torch.ops.backend import (kmermatcher_torch,
                                          rescore_diagonal_torch)
 from plass_tpu_torch.ops.rescore import RescoreParams as PortRescoreParams
@@ -88,6 +91,86 @@ def test_rescore_dict_matches_jax(which):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
     assert sum(len(v) for v in got.values()) > len(got)
+
+
+@pytest.mark.parametrize("kind", ["protein", "nucleotide"])
+def test_rescore_makes_no_padded_copy(monkeypatch, kind):
+    """The matcher and rescore_diagonal_torch read the DB's own bytes: the
+    port has no db_to_padded, the row operand both hand on is the data
+    array itself (one dimension, the DB's size), and the records still
+    equal rescore_diagonal_jax's on the mini fixture's DBs."""
+    if kind == "protein":
+        db = _mini_orfs()
+        pdb = PortSeqDB(db.data, db.keys, db.offsets, db.lengths, db.dbtype)
+        k, matrix = 14, "blosum62_ungapped"
+        kw = dict(kmers_per_sequence=60, hash_shift=67,
+                  ignore_multi_kmer=True, include_only_extendable=False)
+        rp = dict(rescore_mode=3, seq_id_thr=0.9, eval_thr=1e-5)
+    else:
+        db, _ = merge_reads(READS)
+        pdb, _ = port_merge_reads(READS)
+        k, matrix = 22, "nucleotide_ungapped"
+        kw = dict(kmers_per_sequence=60, kmers_per_sequence_scale=0.1,
+                  hash_shift=67, ignore_multi_kmer=True,
+                  include_only_extendable=False)
+        rp = dict(rescore_mode=3, seq_id_thr=0.99, eval_thr=1e-5)
+    want = rescore_diagonal_jax(
+        db, kmermatcher_jax(db, k, return_arrays=True, **kw),
+        RescoreParams(**rp),
+        EvalueComputer.for_matrix(matrix, db.total_residues()),
+        return_flat=True)
+
+    assert not hasattr(port_backend, "db_to_padded")
+    seen = []
+
+    def spy_on(module, name):
+        real = getattr(module, name)
+
+        def spy(rows, *rest, **kws):
+            seen.append(rows)
+            return real(rows, *rest, **kws)
+
+        monkeypatch.setattr(module, name, spy)
+
+    spy_on(port_backend.device_kmer, "kmermatch_device")
+    spy_on(port_backend, "rescore_e2e")
+    hits = kmermatcher_torch(pdb, k, torch.device("cpu"), **kw)
+    got = rescore_diagonal_torch(pdb, hits, PortRescoreParams(**rp),
+                                 return_flat=True)
+    np.testing.assert_array_equal(got["qk"], want["qk"])
+    np.testing.assert_array_equal(got["rec"], want["rec"])
+    assert len(seen) == 2
+    for rows in seen:
+        assert rows.dim() == 1 and rows.numel() == len(pdb.data)
+        assert rows.numel() == pdb.total_residues() + 2 * pdb.size
+
+
+@pytest.mark.parametrize("alphabet", ["kmer", "score"])
+@pytest.mark.parametrize("kind", ["protein", "nucleotide"])
+def test_gathered_rows_equal_padded_codes(kind, alphabet):
+    """The matcher's device gather of a block of rows from the flat bytes
+    (flat_rows + gather_rows) equals the JAX package's padded codes: the
+    alphabet's code of every residue, X from each row's length on."""
+    from plass_tpu.ops.backend import db_to_padded
+
+    if kind == "protein":
+        db = _synthetic_db(n=80)
+        pdb = PortSeqDB(db.data, db.keys, db.offsets, db.lengths, db.dbtype)
+    else:
+        db, _ = merge_reads(READS)
+        pdb, _ = port_merge_reads(READS)
+    codes, lengths, _ = db_to_padded(db, alphabet)
+    n, width = db.size, int(db.seq_lens().max())
+    rows, offsets, lens, lut = port_backend.flat_rows(
+        pdb, torch.device("cpu"), alphabet)
+    np.testing.assert_array_equal(lens.numpy(), lengths[:n])
+    x_code = int(codes.max())
+    idx = torch.from_numpy(np.random.default_rng(1).permutation(n))
+    got = port_backend.device_kmer.gather_rows(rows, offsets, lens, lut, idx,
+                                               width + 3, x_code)
+    np.testing.assert_array_equal(got[:, :width].numpy(),
+                                  codes[:n, :width][idx.numpy()])
+    assert (got[:, width:] == x_code).all()
 
 
 def test_rescore_takes_only_device_hits():

@@ -1,6 +1,6 @@
 """PyTorch port, kernel K2 on nucleotide hits: rescore_e2e_plain with
 reverse-strand hits (the CPU path of rescore_e2e, the oracle of its
-reverse and uniform-matrix variants) against the JAX package's XLA
+reverse and uniform-matrix variants), on the database's flat rows, against the JAX package's XLA
 formulation device_rescore.rescore_pairs(has_rev=True) and its Pallas
 kernel in interpret mode, with the generic and the uniform (`fast`)
 matrix path; the Pallas kernel's streamed (K3) and per-hit (K4) variants
@@ -34,6 +34,7 @@ from plass_tpu_torch.ops.rescore_kernel import (rescore_e2e,
                                                 rescore_e2e_plain,
                                                 uniform_pattern)
 from test_torch_nucl_kmer import ACGT, RC, sample_reads
+from test_torch_rescore import flat_rows, port_args
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 READS = [os.path.join(FIX, "mini_1.fastq.gz"),
@@ -65,7 +66,8 @@ def _synthetic(seed=17, n=500):
 
 def _db_hits(dbs):
     """(codes, chars, lengths, qrow, trow, diag, qrev) of the JAX matcher's
-    hits on the DB, self rows included; qrev from the score's sign."""
+    hits on the DB, self rows included; qrev from the score's sign; and
+    the DB's own (rows, offsets)."""
     jdb, _ = dbs
     qk, tk, score, dg = kmermatcher_jax(jdb, 22, return_arrays=True, **KW)
     codes, lengths, _ = db_to_padded(jdb, "score")
@@ -74,7 +76,8 @@ def _db_hits(dbs):
     lut = jdb.id_lookup_array()
     i32 = lambda x: np.asarray(x, dtype=np.int32)
     return (codes[:n], chars[:n], lengths[:n], i32(lut[qk]), i32(lut[tk]),
-            i32(dg), np.asarray(score) < 0)
+            i32(dg), np.asarray(score) < 0, (np.asarray(jdb.data),
+                                             jdb.offsets))
 
 
 def _edge_cases():
@@ -105,7 +108,52 @@ def _edge_cases():
                     d.append(dg)
                     r.append(rv)
     i32 = lambda x: np.asarray(x, dtype=np.int32)
-    return codes, chars, i32(lens), i32(q), i32(t), i32(d), np.asarray(r)
+    return (codes, chars, i32(lens), i32(q), i32(t), i32(d), np.asarray(r),
+            flat_rows(chars, lens))
+
+
+def _unaligned_windows():
+    """70 reads, one of each length 1-70, whose starts take every residue
+    mod 16, beside one contig of 20,500 nt; '*' at row starts and ends, so
+    at both window ends of forward and reverse hits; windows of 1-70 and of
+    over 20,000 nt, hits with no overlap (ov <= 0), every hit on both
+    strands."""
+    rng = np.random.default_rng(41)
+    lens = [int(x) for x in rng.permutation(np.arange(1, 71))] + [20500]
+    big = len(lens) - 1
+    whole = lens.index(70)
+    letters = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    chars = np.zeros((len(lens), max(lens)), dtype=np.uint8)
+    for i, n in enumerate(lens):
+        chars[i, :n] = letters[rng.integers(0, 5, n)]
+        if i % 3 == 0:
+            chars[i, 0] = ord("*")
+        if i % 4 == 0:
+            chars[i, n - 1] = ord("*")
+    chars[big, 5000:5070] = chars[whole, :70]            # a forward match
+    chars[big, 9000:9070] = RC[chars[whole, :70][::-1]]  # a reverse one
+    codes = NUCL.aa2num[chars].astype(np.uint8)
+    codes[chars == 0] = 4
+    q = rng.integers(0, big + 1, 500)
+    t = rng.integers(0, big + 1, 500)
+    d = rng.integers(-75, 76, 500)
+    long_q = q == big
+    d[long_q] = rng.integers(-75, 20500, int(long_q.sum()))
+    long_t = (t == big) & ~long_q
+    d[long_t] = -rng.integers(0, 20500, int(long_t.sum()))
+    # the long row as target of every read: windows of 1-70, far into it;
+    # the long row against itself: windows of over 20,000
+    q = np.concatenate([q, np.arange(big), [whole, big, big]])
+    t = np.concatenate([t, np.full(big + 1, big), [big, big]])
+    d = np.concatenate([d, -rng.integers(0, 20000, big), [-9000, 300, -7]])
+    d[500 + whole] = -5000
+    q, t, d = (np.concatenate([x, x]) for x in (q, t, d))
+    r = np.arange(len(q)) >= len(q) // 2
+    i32 = lambda x: np.asarray(x, dtype=np.int32)
+    rows, offsets = flat_rows(chars, lens, shift=5)
+    assert len(set(int(o) % 16 for o in offsets)) == 16
+    return (codes, chars, i32(lens), i32(q), i32(t), i32(d), r,
+            (rows, offsets))
 
 
 def _pow2(codes, chars):
@@ -116,7 +164,8 @@ def _pow2(codes, chars):
 
 INPUTS = {"mini_reads": lambda: _db_hits(_mini_reads()),
           "synthetic": lambda: _db_hits(_synthetic()),
-          "edge_cases": _edge_cases}
+          "edge_cases": _edge_cases,
+          "unaligned_windows": _unaligned_windows}
 
 
 def _port_rev_kw(uniform):
@@ -136,11 +185,10 @@ def test_uniform_pattern_matches_jax_fast_pattern():
 
 @pytest.mark.parametrize("which", list(INPUTS))
 def test_rescore_rev_plain_matches_xla_and_pallas(which):
-    codes, chars, lengths, q, t, d, rv = INPUTS[which]()
+    codes, chars, lengths, q, t, d, rv, (rows, offsets) = INPUTS[which]()
     assert rv.sum() >= 5 and (~rv).sum() >= 5
     sub = NUCL.sub.astype(np.int32)
-    args = [torch.from_numpy(np.ascontiguousarray(a))
-            for a in (codes, chars, lengths, q, t, d, sub)]
+    args = port_args(rows, offsets, lengths, q, t, d, NUCL)
     got = rescore_e2e(*args, qrev=torch.from_numpy(rv),
                       **_port_rev_kw(uniform_pattern(sub)))
     got = [x.numpy() for x in got]
@@ -173,10 +221,14 @@ def test_rescore_rev_plain_matches_xla_and_pallas(which):
         # the XLA formulation leaves first/last of ov <= 0 hits unset
         m = ov > 0 if name in ("first", "last") else slice(None)
         np.testing.assert_array_equal(g[m], np.asarray(x)[m], err_msg=name)
-    if which == "edge_cases":
+    if which == "unaligned_windows":
+        assert set(range(1, 71)) <= set(ov[rv].tolist()) and ov.max() > 20000
+        assert (got[1][rv] == 1).sum() > 0 and (got[2] < ov - 1)[rv].any()
+    if which in ("edge_cases", "unaligned_windows"):
         assert (ov <= 0).sum() > 10 and (got[1] == -1).sum() == (ov <= 0).sum()
         assert (got[1] == 1).sum() > 0 and (got[2] < ov - 1)[ov > 1].any()
-        assert (got[0][rv] > 100).any() and (got[0][~rv] > 100).any()
+        high = 100 if which == "edge_cases" else 50   # N never matches
+        assert (got[0][rv] > high).any() and (got[0][~rv] > high).any()
 
 
 def _protein_edge_hits():
@@ -211,12 +263,12 @@ def test_streamed_and_per_hit_pallas_variants_equal_plain(monkeypatch, env):
             NUCL.sub.astype(np.int32))
     rv = edge[6][sel]
     assert rv.sum() > 50
-    cases = ((_protein_edge_hits(), 20, {}, {}),
+    cases = ((_protein_edge_hits(), 20, {}, {}, constants.blosum62()),
              (nucl, 4,
               dict(qrev=jnp.asarray(rv.astype(np.int32)),
                    comp_perm=jnp.asarray(NUCL.reverse.astype(np.int32)),
                    code2char=jnp.asarray(NUCL.num2aa.astype(np.uint8))),
-              dict(qrev=torch.from_numpy(rv), **_port_rev_kw(None))))
+              dict(qrev=torch.from_numpy(rv), **_port_rev_kw(None)), NUCL))
     monkeypatch.setenv(*env)
     # the variant is chosen when the kernel traces; count its traces
     kernel = {"PLASS_PALLAS_GATHER": "_kernel_blocked",
@@ -227,7 +279,7 @@ def test_streamed_and_per_hit_pallas_variants_equal_plain(monkeypatch, env):
                         lambda *a, **k: traced.append(1) or body(*a, **k))
     jax.clear_caches()
     try:
-        for (codes, chars, lengths, q, t, d, sub), x_code, kw, pkw in cases:
+        for (codes, chars, lengths, q, t, d, sub), x_code, kw, pkw, mat in cases:
             w = 1 << (codes.shape[1] - 1).bit_length()
             pad = ((0, 0), (0, w - codes.shape[1]))
             pal = rescore_pairs_pallas(
@@ -236,9 +288,9 @@ def test_streamed_and_per_hit_pallas_variants_equal_plain(monkeypatch, env):
                 jnp.asarray(q), jnp.asarray(t), jnp.asarray(d),
                 jnp.asarray(sub), sub.shape[0], width=w, interpret=True,
                 **kw)
-            want = rescore_e2e_plain(*[torch.from_numpy(np.ascontiguousarray(a))
-                                       for a in (codes, chars, lengths, q, t,
-                                                 d, sub)], **pkw)
+            want = rescore_e2e_plain(
+                *port_args(*flat_rows(chars, lengths), lengths, q, t, d, mat),
+                **pkw)
             for name, p, g in zip(("score", "first", "last", "idents"),
                                   (pal[0], pal[1], pal[2], pal[5]), want):
                 np.testing.assert_array_equal(np.asarray(p), g.numpy(),
@@ -283,19 +335,20 @@ def test_nucl_rescore_records_match_jax(which, flat):
 
 
 def test_rev_operands_rejected():
-    codes = torch.zeros((2, 4), dtype=torch.uint8)
+    rows = torch.zeros(12, dtype=torch.uint8)
+    offs = torch.tensor([0, 6], dtype=torch.int64)
     lens = torch.tensor([4, 4], dtype=torch.int32)
+    lut = torch.zeros(256, dtype=torch.uint8)
     h = torch.zeros(3, dtype=torch.int32)
     sub = torch.from_numpy(NUCL.sub.astype(np.int32))
     rv = torch.zeros(3, dtype=torch.bool)
+    head = (rows, offs, lens, lut, h, h, h, sub)
     with pytest.raises(ValueError):
-        rescore_e2e(codes, codes, lens, h, h, h, sub, qrev=rv)
+        rescore_e2e(*head, qrev=rv)
     with pytest.raises(TypeError):
-        rescore_e2e(codes, codes, lens, h, h, h, sub, qrev=rv.int(),
-                    **_port_rev_kw(None))
+        rescore_e2e(*head, qrev=rv.int(), **_port_rev_kw(None))
     with pytest.raises(TypeError):
-        rescore_e2e(codes, codes, lens, h, h, h, sub, qrev=rv,
-                    comp=torch.zeros(4, dtype=torch.int32),
+        rescore_e2e(*head, qrev=rv, comp=torch.zeros(4, dtype=torch.int32),
                     code2char=torch.zeros(5, dtype=torch.uint8))
     with pytest.raises(ValueError):
-        rescore_e2e(codes, codes, lens, h, h, h, sub, uniform=(2, -3))
+        rescore_e2e(*head, uniform=(2, -3))

@@ -1,9 +1,11 @@
 """PyTorch port, kernel K2: rescore_e2e_plain (the CPU path of
-rescore_e2e) against the JAX package's Pallas END_TO_END rescore in
+rescore_e2e) on the database's flat rows (bytes, offsets, lengths and the
+byte -> code table) against the JAX package's Pallas END_TO_END rescore in
 interpret mode (rows padded to a power of two, as on the TPU) and its XLA
 formulation device_rescore.rescore_pairs — real hits of the mini fixture's
-ORFs and of a seeded synthetic protein DB, plus synthetic edge cases.
-Exact."""
+ORFs and of a seeded synthetic protein DB, synthetic edge cases, and rows
+at every alignment mod 16 beside one of over 20,000 residues. Exact
+(integer outputs, tolerance 0)."""
 import os
 
 import jax.numpy as jnp
@@ -53,9 +55,35 @@ def _synthetic_db(seed=11, n=400):
     return seqdb.SeqDB.from_records(recs, dbtype=seqdb.AMINO_ACIDS)
 
 
+def flat_rows(chars, lengths, shift=0):
+    """The rows of a padded char matrix laid out as a SeqDB's data: each
+    followed by its "\\n\\0" terminator, and preceded by 0-15 filler bytes
+    so that row i starts at an offset of residue (i + shift) mod 16.
+    Returns (rows uint8[T], offsets int64[N])."""
+    parts, offsets, pos = [], [], 0
+    for i, n in enumerate(lengths):
+        gap = (i + shift - pos) % 16
+        offsets.append(pos + gap)
+        parts += [b"Z" * gap, chars[i, :n].tobytes(), b"\n\x00"]
+        pos += gap + int(n) + 2
+    return (np.frombuffer(b"".join(parts), dtype=np.uint8).copy(),
+            np.asarray(offsets, dtype=np.int64))
+
+
+def port_args(rows, offsets, lengths, q, t, d, mat):
+    """rescore_e2e's operands as CPU tensors: flat rows, the matrix's
+    byte -> code table, the hits and the substitution matrix. `lengths` may
+    carry the JAX package's padding rows past the DB's own."""
+    arrs = (np.array(rows), np.asarray(offsets, dtype=np.int64),
+            np.asarray(lengths[:len(offsets)], dtype=np.int32),
+            mat.aa2num.astype(np.uint8),
+            q, t, d, mat.sub.astype(np.int32))
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+
+
 def _db_hits(db):
     """(codes, chars, lengths, qrow, trow, diag) of the host matcher's
-    hits on db (self rows included)."""
+    hits on db (self rows included), and the DB's own (rows, offsets)."""
     hits = kmermatcher(db, 14, kmers_per_sequence=60, hash_shift=67,
                        ignore_multi_kmer=True, include_only_extendable=False)
     codes, lengths, _ = db_to_padded(db, "score")
@@ -68,7 +96,8 @@ def _db_hits(db):
             t.append(int(lut[tk]))
             d.append(dg)
     i32 = lambda x: np.asarray(x, dtype=np.int32)
-    return codes, chars, lengths, i32(q), i32(t), i32(d)
+    return (codes, chars, lengths, i32(q), i32(t), i32(d),
+            (np.asarray(db.data), db.offsets))
 
 
 def _edge_cases():
@@ -93,7 +122,46 @@ def _edge_cases():
                 t.append(b)
                 d.append(dg)
     i32 = lambda x: np.asarray(x, dtype=np.int32)
-    return codes, chars, i32(lens), i32(q), i32(t), i32(d)
+    return (codes, chars, i32(lens), i32(q), i32(t), i32(d),
+            flat_rows(chars, lens))
+
+
+def _unaligned_windows():
+    """70 short rows, one of each length 1-70, whose starts take every
+    residue mod 16, beside one row of 20,500 residues; '*' at row starts and ends, so at both window ends;
+    hits with windows of 1-70 residues, with no overlap (ov <= 0), and far
+    into the long row on both sides of its diagonal range."""
+    rng = np.random.default_rng(23)
+    lens = [int(x) for x in rng.permutation(np.arange(1, 71))] + [20500]
+    big = len(lens) - 1
+    chars = np.zeros((len(lens), max(lens)), dtype=np.uint8)
+    for i, n in enumerate(lens):
+        chars[i, :n] = LETTERS[rng.integers(0, 20, n)]
+        if i % 3 == 0:
+            chars[i, 0] = ord("*")
+        if i % 4 == 0:
+            chars[i, n - 1] = ord("*")
+    whole = lens.index(70)
+    chars[big, 5000:5070] = chars[whole, :70]     # a window that scores
+    codes = constants.blosum62().aa2num[chars].astype(np.uint8)
+    codes[chars == 0] = 20
+    q = rng.integers(0, big + 1, 900)
+    t = rng.integers(0, big + 1, 900)
+    d = rng.integers(-75, 76, 900)
+    long_q = q == big
+    d[long_q] = rng.integers(-75, 20500, int(long_q.sum()))
+    long_t = (t == big) & ~long_q
+    d[long_t] = -rng.integers(0, 20500, int(long_t.sum()))
+    # every short row whole against the long one: windows of 1-70
+    # and the long row against itself: windows of over 20,000
+    q = np.concatenate([q, np.full(big + 2, big)])
+    t = np.concatenate([t, np.arange(big), [big, big]])
+    d = np.concatenate([d, rng.integers(0, 20000, big), [300, -7]])
+    d[900 + whole] = 5000
+    i32 = lambda x: np.asarray(x, dtype=np.int32)
+    rows, offsets = flat_rows(chars, lens, shift=3)
+    assert len(set(int(o) % 16 for o in offsets)) == 16
+    return codes, chars, i32(lens), i32(q), i32(t), i32(d), (rows, offsets)
 
 
 def _pow2(codes, chars):
@@ -104,17 +172,17 @@ def _pow2(codes, chars):
 
 INPUTS = {"mini_orfs": lambda: _db_hits(_mini_orfs()),
           "synthetic_db": lambda: _db_hits(_synthetic_db()),
-          "edge_cases": _edge_cases}
+          "edge_cases": _edge_cases,
+          "unaligned_windows": _unaligned_windows}
 
 
 @pytest.mark.parametrize("which", list(INPUTS))
 def test_rescore_plain_matches_pallas_and_xla(which):
-    codes, chars, lengths, q, t, d = INPUTS[which]()
+    codes, chars, lengths, q, t, d, (rows, offsets) = INPUTS[which]()
     assert len(q) > 50
     sub = constants.blosum62().sub.astype(np.int32)
-    got = [x.numpy() for x in rescore_e2e(
-        *[torch.from_numpy(np.ascontiguousarray(a))
-          for a in (codes, chars, lengths, q, t, d, sub)])]
+    got = [x.numpy() for x in rescore_e2e(*port_args(
+        rows, offsets, lengths, q, t, d, constants.blosum62()))]
 
     pc, pch, w = _pow2(codes, chars)
     pal = rescore_pairs_pallas(
@@ -137,24 +205,34 @@ def test_rescore_plain_matches_pallas_and_xla(which):
         # the XLA formulation leaves first/last of ov <= 0 hits unset
         m = ov > 0 if name in ("first", "last") else slice(None)
         np.testing.assert_array_equal(g[m], np.asarray(x)[m], err_msg=name)
-    if which == "edge_cases":
+    if which == "unaligned_windows":
+        assert set(range(1, 71)) <= set(ov.tolist()) and ov.max() > 70
+    if which in ("edge_cases", "unaligned_windows"):
         assert (ov <= 0).sum() > 10 and (got[1] == -1).sum() == (ov <= 0).sum()
         assert (got[1] == 1).sum() > 0 and (got[2] < ov - 1)[ov > 1].any()
 
 
 def test_rescore_rejects_bad_operands():
-    codes = torch.zeros((2, 4), dtype=torch.uint8)
+    rows = torch.zeros(12, dtype=torch.uint8)
+    offs = torch.tensor([0, 6], dtype=torch.int64)
     lens = torch.tensor([4, 4], dtype=torch.int32)
+    lut = torch.zeros(256, dtype=torch.uint8)
     h = torch.zeros(3, dtype=torch.int32)
     sub = torch.zeros((21, 21), dtype=torch.int32)
     with pytest.raises(TypeError):
-        rescore_e2e(codes.int(), codes, lens, h, h, h, sub)
+        rescore_e2e(rows.int(), offs, lens, lut, h, h, h, sub)
     with pytest.raises(TypeError):
-        rescore_e2e(codes, codes, lens.long(), h, h, h, sub)
+        rescore_e2e(rows.reshape(2, 6), offs, lens, lut, h, h, h, sub)
     with pytest.raises(TypeError):
-        rescore_e2e(codes, codes, lens, h, h[:2], h, sub)
+        rescore_e2e(rows, offs.int(), lens, lut, h, h, h, sub)
     with pytest.raises(TypeError):
-        rescore_e2e(codes, codes, lens, h, h, h, torch.zeros((40, 40),
-                                                             dtype=torch.int32))
-    out = rescore_e2e_plain(codes, codes, lens, h[:0], h[:0], h[:0], sub)
+        rescore_e2e(rows, offs, lens.long(), lut, h, h, h, sub)
+    with pytest.raises(TypeError):
+        rescore_e2e(rows, offs, lens, lut[:100], h, h, h, sub)
+    with pytest.raises(TypeError):
+        rescore_e2e(rows, offs, lens, lut, h, h[:2], h, sub)
+    with pytest.raises(TypeError):
+        rescore_e2e(rows, offs, lens, lut, h, h, h,
+                    torch.zeros((40, 40), dtype=torch.int32))
+    out = rescore_e2e_plain(rows, offs, lens, lut, h[:0], h[:0], h[:0], sub)
     assert all(o.numel() == 0 for o in out)
