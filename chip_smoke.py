@@ -36,8 +36,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      variants (uniform matrix and generic matrix) equal the plain version
      on the real hits and on synthetic edge cases (exact); both timed.
      Both variants also equal it on the hits of phase 7's last iteration,
-     whose rows hold contigs of up to 20,000 nt.
-The kernels' launch counters are set to 0 just before phases 4 and 7 and
+     whose rows hold contigs of up to 20,000 nt;
+  9. guided-fixture: `penguin guided_nuclassemble` on the fixture through
+     the CLI with default parameters (5 + 5 iterations) and min-contig-len
+     150, on the card and on the CPU, byte for byte against each other;
+ 10. guided-scale: a default guided_nuclassemble of a seeded simulated
+     metagenome of coding genomes (104 genomes of 5,000 nt, genes on both
+     strands between short spacers; 52,000 single-end 150-nt reads from
+     both strands with 0.2% substitutions, 15x coverage), with the seconds
+     of every stage, of the nested nuclassemble and of the linclust tail;
+ 11. guided-main: at phase 10's shapes, the amino-acid matcher (k 14, the
+     nucleotide k-mer scale, only extendable hits) with K1 equals it with
+     K1's plain version at iteration 0, and K2 equals its plain version on
+     the hits of the last amino-acid iteration, whose rows are the longest
+     and begin and end with the '*' of --add-orf-stop (exact; timed beside
+     its bound).
+The kernels' launch counters are set to 0 just before phases 4, 7 and 10 and
 read just after; every kernel of each path must have run there. The last
 lines are a JSON summary of the kernels (times, launches by path, bytes
 counted and the bound they give at 3.35 TB/s), the card's name and power
@@ -45,8 +59,9 @@ limit, and {"ok": true, "device": {...}}.
 
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
---cpu-reference runs phases 4 and 7 at full size on the CPU, for the
-sha256 of their outputs. Neither prints a result; both exit with code 2.
+--cpu-reference runs phases 4, 7 and 10 (or, with a value, those of
+assemble, nuclassemble, guided_nuclassemble it names) at full size on the
+CPU, for the sha256 of their outputs. Neither prints a result; both exit with code 2.
 """
 import argparse
 import gzip
@@ -245,6 +260,10 @@ def phase_env(device, rehearsal):
 
 
 K1_REPEATS = 50
+# guided-scale: 104 coding genomes of 5,000 nt (small viral genomes, what
+# PenguiN is made for) at 15x, 52,000 reads
+GUIDED_GENOMES = (104, 5000)
+SCALE_RUNS = ("assemble", "nuclassemble", "guided_nuclassemble")
 
 
 def phase_k1(device, sizes, reps, timed_sizes=()):
@@ -471,7 +490,10 @@ def phase_scale(device, work, copies):
 # (kLongWindow in csrc/rescore.cu); the edge cases sit on both sides of it
 LONG_WINDOW = 512
 EDGE_LENS = [40, 40, 3000, 2500, 1, 2, 1500, 64, LONG_WINDOW - 1, LONG_WINDOW,
-             LONG_WINDOW + 1, LONG_WINDOW + 16, 33, 17, 150, 151]
+             LONG_WINDOW + 1, LONG_WINDOW + 16, 33, 17, 150, 151,
+             # the protein cases make these two begin and end with '*', as
+             # the rows of guided_nuclassemble's amino-acid DB do
+             700, 47]
 EDGE_DIAGS = (0, 1, -1, 5, -5, 39, -39, 40, -40, 1499, -2499, 2999, -2999,
               3000, -3000)
 
@@ -508,6 +530,7 @@ def _edge_case_rows(device):
     star = ord("*")
     seqs[0][0] = seqs[1][39] = seqs[2][0] = seqs[2][2999] = star
     seqs[3][100] = seqs[5][0] = seqs[9][0] = seqs[10][LONG_WINDOW] = star
+    seqs[16][0] = seqs[16][-1] = seqs[17][0] = seqs[17][-1] = star
     seqs[7][:32] = np.char.lower(seqs[7][:32].view("S1")).view(np.uint8)
     rows, offsets, lengths = flat_rows([x.tobytes() for x in seqs], device)
     if len(set(int(o) % 16 for o in offsets)) != 16:
@@ -516,6 +539,19 @@ def _edge_case_rows(device):
         .to(device)
     q, t, d, _ = _edge_hits(len(seqs), device, False)
     return rows, offsets, lengths, lut, q, t, d
+
+
+def _check_star_windows(args, want):
+    """The protein edge cases must hold hits whose window begins and ends
+    with '*' on rows that begin and end with it (the last two rows)."""
+    from plass_tpu_torch.ops.rescore_kernel import _overlap
+    lengths, q, t, d = args[2], args[4], args[5], args[6]
+    ov = _overlap(lengths, q.long(), t.long(), d)[0]
+    both = int(((q >= 16) & (t >= 16) & (want[1] == 1) & (ov > 1)
+                & (want[2] == ov - 2)).sum())
+    if not both:
+        raise AssertionError("no edge-case window begins and ends with '*'")
+    return both
 
 
 def _check_edge_windows(args, want, name):
@@ -582,7 +618,7 @@ def phase_main_shapes(device, db_path, reps):
         *table, False)
     cols = (new_group, sid_s, (pos_s << 1) | fwd_s, len_s)
     k1 = {"ms": cuda_ms(lambda: seg_scan("first", *cols), KERNEL_REPS * reps,
-                        device),
+                        device, queued=True),
           "plain_ms": cuda_ms(lambda: seg_scan_plain("first", *cols), reps,
                               device),
           "bytes": scan_bytes(cols[0].numel(), 3), "elements": cols[0].numel()}
@@ -610,7 +646,7 @@ def phase_main_shapes(device, db_path, reps):
         f"rows, offsets, lengths, code table); the padded codes and chars "
         f"took {padded} bytes")
     k2 = {"ms": cuda_ms(lambda: rescore_e2e(*args), KERNEL_REPS * reps,
-                        device),
+                        device, queued=True),
           "plain_ms": cuda_ms(lambda: rescore_e2e_plain(*args), reps, device)}
     k2["bytes"], n_ops, residues = rescore_traffic(args)
     k2["bound_ms"], k2["bound_by"] = bound(k2["bytes"], n_ops)
@@ -622,8 +658,9 @@ def phase_main_shapes(device, db_path, reps):
     e2 = max_abs_err(rescore_e2e(*edge), want)
     if e2:
         raise AssertionError(f"K2 on edge cases: max |err| {e2}")
-    say(f"[main] K2 on {_check_edge_windows(edge, want, 'K2')}: equal to the "
-        f"plain version")
+    say(f"[main] K2 on {_check_edge_windows(edge, want, 'K2')}, "
+        f"{_check_star_windows(edge, want)} windows with '*' at both ends: "
+        f"equal to the plain version")
     k2["max_abs_err"] = max(err, e2)
     return (k1_err, k1), k2
 
@@ -635,6 +672,11 @@ def _rescore_launches():
     from plass_tpu_torch.ops import rescore_kernel as rk
     return {"rescore_e2e": rk.LAUNCHES, "rescore_e2e_rev": rk.LAUNCHES_REV,
             "rescore_e2e_rev_uniform": rk.LAUNCHES_REV_UNIFORM}
+
+
+def _launches():
+    from plass_tpu_torch.ops import seg_scan
+    return {"seg_scan": seg_scan.LAUNCHES, **_rescore_launches()}
 
 
 def _reset_launches():
@@ -723,22 +765,13 @@ def phase_nucl_scale(device, work, n_genomes, genome_len):
     stats = {}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    from plass_tpu_torch.ops import seg_scan
     _reset_launches()
     t0 = time.perf_counter()
     out = nucl_cli([fasta], os.path.join(work, "nscale"), [], device,
                    stats=stats)
     wall = time.perf_counter() - t0
-    launches = {"seg_scan": seg_scan.LAUNCHES, **_rescore_launches()}
-    lines = open(out).read().splitlines()
-    heads, body = lines[0::2], lines[1::2]
-    for h, s in zip(heads, body):
-        if not h.startswith(">") or f" len:{len(s)} " not in h + " ":
-            raise AssertionError(f"malformed FASTA record {h!r}")
-        if set(s) - set("ACGTN"):
-            raise AssertionError(f"non-nucleotide contig {h!r}")
-    if not body:
-        raise AssertionError("the assembly produced no contigs")
+    launches = _launches()
+    _, body = check_nucl_fasta(out, "nucl-scale")
     digest = hashlib.sha256(open(out, "rb").read()).hexdigest()
     say(f"[nucl-scale] reads {stats['reads']}, iteration-0 table entries "
         f"{stats['table_entries']}, iteration-0 hits {stats['hits']}, "
@@ -929,25 +962,310 @@ def phase_nucl_main(device, first_db, last_db, reps):
     return k1_err, out
 
 
+# ---------------------------------------------------------------------------
+# protein-guided nucleotide: penguin guided_nuclassemble
+
+def guided_cli(inputs, out_dir, extra, device, stats=None):
+    from plass_tpu_torch.cli.penguin import run
+    out = os.path.join(out_dir, "contigs.fasta")
+    rc = run(["guided_nuclassemble", *inputs, out,
+              os.path.join(out_dir, "tmp"), "--device", str(device), *extra],
+             stats=stats)
+    if rc != 0:
+        raise AssertionError(f"CLI exit code {rc}")
+    return out
+
+
+def guided_seconds_text(stats):
+    """The seconds of every stage of a guided run, the nested nuclassemble's
+    and the linclust tail's own stages in brackets."""
+    def fmt(d):
+        return ", ".join(f"{k} {v:.2f}" for k, v in d.items())
+    return (fmt(stats["seconds"])
+            + f"; nuclassemble [{fmt(stats['nuclassemble']['seconds'])}]"
+            + f"; linclust [{fmt(stats['linclust_seconds'])}]")
+
+
+def check_nucl_fasta(path, name):
+    """The (headers, sequences) of a contig FASTA with cycle annotations,
+    or an AssertionError."""
+    lines = open(path).read().splitlines()
+    heads, body = lines[0::2], lines[1::2]
+    for h, s in zip(heads, body):
+        if not h.startswith(">") or f" len:{len(s)} " not in h + " ":
+            raise AssertionError(f"{name}: malformed FASTA record {h!r}")
+        if set(s) - set("ACGTN"):
+            raise AssertionError(f"{name}: non-nucleotide contig {h!r}")
+    if not body:
+        raise AssertionError(f"{name}: the assembly produced no contigs")
+    return heads, body
+
+
+def phase_guided_fixture(device, work, extra=()):
+    before = (_launches()["seg_scan"], _launches()["rescore_e2e"],
+              _launches()["rescore_e2e_rev_uniform"])
+    flags = ["--min-contig-len", "150", *extra]
+    stats = {}
+    t0 = time.perf_counter()
+    dev_out = guided_cli(READS, os.path.join(work, "gfix"), flags, device,
+                         stats=stats)
+    secs = time.perf_counter() - t0
+    cpu_out = guided_cli(READS, os.path.join(work, "gfixcpu"), flags, "cpu")
+    data = open(dev_out, "rb").read()
+    if data != open(cpu_out, "rb").read():
+        raise AssertionError("guided_nuclassemble on the device differs from "
+                             "the run with --device cpu")
+    heads, _ = check_nucl_fasta(dev_out, "guided-fixture")
+    after = (_launches()["seg_scan"], _launches()["rescore_e2e"],
+             _launches()["rescore_e2e_rev_uniform"])
+    if device.type == "cuda" and not all(a > b for a, b in zip(after, before)):
+        raise AssertionError(f"kernel launch counters did not rise: "
+                             f"{before} -> {after}")
+    say(f"[guided-fixture] default parameters{' ' + ' '.join(extra) if extra else ''}"
+        f", min-contig-len 150: {len(heads)} contigs in {secs:.1f} s, sha256 "
+        f"{hashlib.sha256(data).hexdigest()}, byte-identical to the run with "
+        f"--device cpu")
+    say(f"[guided-fixture] seconds per stage: {guided_seconds_text(stats)}")
+
+
+def make_coding_metagenome(path, n_genomes, genome_len, reads_per_genome,
+                           read_len=150, sub_rate=0.002, seed=19):
+    """Single-end FASTA of a seeded simulated metagenome of coding genomes:
+    each genome is a row of genes (ATG, 100-700 seeded sense codons, a stop
+    codon) on either strand, 20-150 nt of random sequence between them;
+    reads with uniform starts, half of them reverse complemented, with
+    seeded substitutions. The replicated fixture reads cannot serve here:
+    their copies differ by 3% from each other, so at the nucleotide
+    identity of 0.99 nothing grows beyond the fixture's own 386 nt and the
+    default --min-contig-len 1000 leaves no contig."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    codons = np.array([[a, b, c] for a in acgt for b in acgt for c in acgt
+                       if bytes([a, b, c]) not in (b"TAA", b"TAG", b"TGA")],
+                      dtype=np.uint8)
+    stops = np.frombuffer(b"TAATAGTGA", dtype=np.uint8).reshape(3, 3)
+    genomes = np.empty((n_genomes, genome_len), dtype=np.uint8)
+    for g in range(n_genomes):
+        parts, total = [], 0
+        while total < genome_len:
+            gene = np.concatenate([
+                np.frombuffer(b"ATG", dtype=np.uint8),
+                codons[rng.integers(0, len(codons),
+                                    int(rng.integers(100, 700)))].reshape(-1),
+                stops[rng.integers(3)]])
+            if rng.random() < 0.5:
+                gene = comp[gene[::-1]]
+            parts += [gene, acgt[rng.integers(0, 4, int(rng.integers(20, 150)))]]
+            total += len(gene) + len(parts[-1])
+        genomes[g] = np.concatenate(parts)[:genome_len]
+    n = n_genomes * reads_per_genome
+    g = rng.integers(0, n_genomes, n)
+    start = rng.integers(0, genome_len - read_len + 1, n)
+    reads = genomes[g[:, None], start[:, None] + np.arange(read_len)]
+    mut = rng.random(reads.shape) < sub_rate
+    reads[mut] = acgt[rng.integers(0, 4, int(mut.sum()))]
+    rc = rng.random(n) < 0.5
+    reads[rc] = comp[reads[rc, ::-1]]
+    with open(path, "wb") as fh:
+        fh.write(b"".join(b">%d\n%s\n" % (i, r.tobytes())
+                          for i, r in enumerate(reads)))
+    return n
+
+
+def phase_guided_scale(device, work, n_genomes, genome_len):
+    import torch
+
+    t0 = time.perf_counter()
+    fasta = os.path.join(work, "guided_reads.fasta")
+    # 15x coverage of each genome by 150-nt reads
+    n_reads = make_coding_metagenome(fasta, n_genomes, genome_len,
+                                     genome_len * 15 // 150)
+    say(f"[guided-scale] {n_reads} reads of {n_genomes} coding genomes x "
+        f"{genome_len} nt written in {time.perf_counter() - t0:.1f} s")
+    stats = {}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    # every amino-acid iteration's DB is kept for phase_guided_main
+    out = guided_cli([fasta], os.path.join(work, "gscale"),
+                     ["--delete-tmp-inc", "0"], device, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    _, body = check_nucl_fasta(out, "guided-scale")
+    digest = hashlib.sha256(open(out, "rb").read()).hexdigest()
+    nested = stats["nuclassemble"]
+    say(f"[guided-scale] reads {stats['reads']}, ORFs {stats['orfs']}, "
+        f"aa iteration-0 table entries {stats['table_entries']}, aa "
+        f"iteration-0 hits {stats['hits']}, only-assembled "
+        f"{stats['only_assembled']}; nested nuclassemble on "
+        f"{nested['reads']} sequences, iteration-0 hits {nested['hits']} "
+        f"({nested['reverse_hits']} reverse)")
+    say(f"[guided-scale] seconds per stage: {guided_seconds_text(stats)}")
+    say(f"[guided-scale] wall {wall:.1f} s, {stats['reads'] / wall:.0f} "
+        f"reads/s, {len(body)} contigs (longest "
+        f"{max(len(s) for s in body)} nt), sha256 {digest}")
+    say("[guided-scale] launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    if stats["only_assembled"] <= 0:
+        raise AssertionError("guided-scale: the amino-acid loop extended "
+                             "nothing")
+    if device.type == "cuda":
+        say(f"[guided-scale] max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+        if not (launches["seg_scan"] and launches["rescore_e2e"]
+                and launches["rescore_e2e_rev_uniform"]):
+            raise AssertionError(f"a kernel of the guided path never "
+                                 f"launched: {launches}")
+    tmp = os.path.join(work, "gscale", "tmp", "latest")
+    # the input of the last amino-acid iteration (5 by default) is
+    # iteration 3's output
+    return launches, (os.path.join(tmp, "aa_6f_start_long"),
+                      os.path.join(tmp, "assembly_aa_3"))
+
+
+AA_MATCH = dict(kmers_per_sequence=60, kmers_per_sequence_scale=0.1,
+                hash_shift=67, ignore_multi_kmer=True,
+                include_only_extendable=True)
+
+
+def phase_guided_main(device, first_db, last_db, reps):
+    """K1 and K2 at the shapes of phase 10's amino-acid loop: the matcher
+    (k 14 with the nucleotide k-mer scale, only extendable hits) with every
+    scan in the kernel equals it with every scan in the plain version at
+    iteration 0; K2 equals its plain version on the hits of the last
+    iteration, whose rows are the longest, and is timed against it and its
+    bound."""
+    import torch
+    from plass_tpu_torch import constants
+    from plass_tpu_torch.data import seqdb
+    from plass_tpu_torch.ops import device_kmer
+    from plass_tpu_torch.ops.backend import flat_rows as db_rows
+    from plass_tpu_torch.ops.backend import kmermatcher_torch
+    from plass_tpu_torch.ops.rescore_kernel import (rescore_e2e,
+                                                    rescore_e2e_plain)
+    from plass_tpu_torch.ops.seg_scan import seg_scan, seg_scan_plain
+
+    db = seqdb.SeqDB.open(first_db)
+    hits, scans = recorded_scans(lambda: kmermatcher_torch(db, 14, device,
+                                                           **AA_MATCH))
+    device_kmer.seg_scan = seg_scan_plain
+    try:
+        plain_hits = kmermatcher_torch(db, 14, device, **AA_MATCH)
+    finally:
+        device_kmer.seg_scan = seg_scan
+    k1_err = max(int(np.abs(np.asarray(g, np.int64)
+                            - np.asarray(w, np.int64)).max(initial=0))
+                 for g, w in zip(hits, plain_hits))
+    if k1_err or len(hits[0]) != len(plain_hits[0]):
+        raise AssertionError(f"K1 in the guided matcher: max |err| {k1_err}")
+    say(f"[guided-main] aa matcher on {db.size} ORFs (longest "
+        f"{int(db.seq_lens().max())} residues, {hits.table_entries} table "
+        f"entries, {len(hits.hit_slots)} hits): kernel scans equal plain")
+    say(f"[guided-main] the matcher's scans at iteration 0 (kind/columns, r "
+        f"= reverse): {scans_text(scans)}")
+
+    db = seqdb.SeqDB.open(last_db)
+    hits = kmermatcher_torch(db, 14, device, **AA_MATCH)
+    rep, tgt, diag, _ = hits.dev
+    if not rep.numel():
+        raise AssertionError("guided-main: the last aa iteration has no hits")
+    sub = torch.from_numpy(constants.blosum62().sub.astype(np.int32)) \
+        .to(device)
+    lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
+    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
+            lut[tgt.long()].to(torch.int32), diag.contiguous(), sub)
+    err = max_abs_err(rescore_e2e(*args), rescore_e2e_plain(*args))
+    if err:
+        raise AssertionError(f"K2 on the last aa iteration's hits: max |err| "
+                             f"{err}")
+    data = np.asarray(db.data)
+    lens = db.seq_lens()
+    nonempty = lens > 0
+    star_first = int((data[db.offsets[nonempty]] == ord("*")).sum())
+    star_last = int((data[(db.offsets + lens - 1)[nonempty]]
+                     == ord("*")).sum())
+    ms = cuda_ms(lambda: rescore_e2e(*args), KERNEL_REPS * reps, device,
+                 queued=True)
+    pms = cuda_ms(lambda: rescore_e2e_plain(*args), reps, device)
+    n_bytes, n_ops, residues = rescore_traffic(args)
+    bms, bby = bound(n_bytes, n_ops)
+    flat, padded = upload_bytes(db, device)
+    say(f"[guided-main] K2 rescore_e2e on {args[4].numel()} hits of the last "
+        f"aa iteration ({db.size} flat rows, longest {int(lens.max())} "
+        f"residues, {star_first} begin and {star_last} end with '*'; "
+        f"{residues} window residues): equal to the plain version; kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms by {bby} "
+        f"({n_bytes} bytes)")
+    say(f"[guided-main] rescore upload per call at the last aa iteration: "
+        f"{flat} bytes (flat rows, offsets, lengths, code table); padded "
+        f"codes and chars would take {padded} bytes")
+    return k1_err, err
+
+
+def kernels_summary(k1, k2, rev, launches):
+    """The entries of the `kernels` line. k1, k2 and rev[name] hold a
+    kernel's measurements (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    bytes); launches maps each main path to its {kernel: launches}."""
+    def entry(name, source, replaces, m, **extra):
+        paths = {path: counts.get(name, 0)
+                 for path, counts in launches.items()}
+        # library_ms: no single PyTorch call computes a segmented scan with
+        # these combine functions (torch.cummax is unsegmented) or a
+        # gathered diagonal rescore
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(paths.values()),
+                "launches_by_path": paths, "max_abs_err": m["max_abs_err"],
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": None, "bytes": m["bytes"], **extra}
+
+    k2_src = ("plass_tpu_torch/csrc/rescore.cu",
+              "plass_tpu/ops/pallas_rescore.py:449")
+    kernels = [
+        entry("seg_scan", "plass_tpu_torch/csrc/seg_scan.cu",
+              "plass_tpu/ops/pallas_scan.py:168", k1, copy_ms=k1["copy_ms"],
+              elements=k1["elements"]),
+        entry("rescore_e2e", *k2_src, k2)]
+    for name in ("rescore_e2e_rev", "rescore_e2e_rev_uniform"):
+        # the generic reverse variant serves non-uniform matrices; no
+        # workflow has one, so no main path launches it
+        kernels.append(entry(name, *k2_src, rev[name],
+                             main_path=name == "rescore_e2e_rev_uniform"))
+    return kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run every phase on the CPU at a tiny size; "
                          "prints no result, exits 2")
-    ap.add_argument("--cpu-reference", action="store_true",
-                    help="run the two scale assemblies (phases 4 and 7) at "
+    ap.add_argument("--cpu-reference", nargs="?", const=",".join(SCALE_RUNS),
+                    metavar="RUNS",
+                    help="run the scale assemblies (phases 4, 7 and 10; or "
+                         "those named, of " + ", ".join(SCALE_RUNS) + ") at "
                          "full size on the CPU and print their sha256; "
                          "prints no result, exits 2")
     args = ap.parse_args()
 
     import torch
     if args.cpu_reference:
+        runs = args.cpu_reference.split(",")
+        if set(runs) - set(SCALE_RUNS):
+            ap.error(f"--cpu-reference takes names of {', '.join(SCALE_RUNS)}")
         with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                          dir=ROOT) as work:
             device = torch.device("cpu")
-            phase_scale(device, work, 400)
-            phase_nucl_scale(device, work, 50, 20000)
-        say("[cpu-reference] both scale runs made on the CPU; no result")
+            if "assemble" in runs:
+                phase_scale(device, work, 400)
+            if "nuclassemble" in runs:
+                phase_nucl_scale(device, work, 50, 20000)
+            if "guided_nuclassemble" in runs:
+                phase_guided_scale(device, work, *GUIDED_GENOMES)
+        say(f"[cpu-reference] {', '.join(runs)} at full size on the CPU; no "
+            f"result")
         return 2
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
@@ -972,41 +1290,23 @@ def main():
         nlaunches, ndb_paths = phase_nucl_scale(
             device, work, *((3, 2000) if rehearsal else (50, 20000)))
         k1_nucl_err, rev = phase_nucl_main(device, *ndb_paths, reps)
-    k1_err = max(k1_err, k1_main_err, k1_nucl_err)
+        phase_guided_fixture(
+            device, work, ("--num-iterations", "2") if rehearsal else ())
+        glaunches, gdb_paths = phase_guided_scale(
+            device, work, *((2, 3000) if rehearsal else GUIDED_GENOMES))
+        k1_guided_err, k2_guided_err = phase_guided_main(device, *gdb_paths,
+                                                         reps)
+    k1_err = max(k1_err, k1_main_err, k1_nucl_err, k1_guided_err)
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_guided_err)
 
     if rehearsal:
         say("[rehearsal] all phases ran on the CPU; no result")
         return 2
 
-    def by_path(name):
-        return {"assemble": launches.get(name, 0),
-                "nuclassemble": nlaunches.get(name, 0)}
-
-    def entry(name, source, replaces, m, **extra):
-        paths = by_path(name)
-        # library_ms: no single PyTorch call computes a segmented scan with
-        # these combine functions (torch.cummax is unsegmented) or a
-        # gathered diagonal rescore
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": sum(paths.values()),
-                "launches_by_path": paths, "max_abs_err": m["max_abs_err"],
-                "ms": m["ms"], "plain_ms": m["plain_ms"],
-                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": None, "bytes": m["bytes"], **extra}
-
-    k2_src = ("plass_tpu_torch/csrc/rescore.cu",
-              "plass_tpu/ops/pallas_rescore.py:449")
-    kernels = [
-        entry("seg_scan", "plass_tpu_torch/csrc/seg_scan.cu",
-              "plass_tpu/ops/pallas_scan.py:168",
-              dict(k1, max_abs_err=k1_err), copy_ms=k1["copy_ms"],
-              elements=k1["elements"]),
-        entry("rescore_e2e", *k2_src, k2)]
-    for name in ("rescore_e2e_rev", "rescore_e2e_rev_uniform"):
-        # the generic reverse variant serves non-uniform matrices; no
-        # workflow has one, so no main path launches it
-        kernels.append(entry(name, *k2_src, rev[name],
-                             main_path=name == "rescore_e2e_rev_uniform"))
+    kernels = kernels_summary(
+        dict(k1, max_abs_err=k1_err), k2, rev,
+        {"assemble": launches, "nuclassemble": nlaunches,
+         "guided_nuclassemble": glaunches})
     say(json.dumps({"kernels": kernels}))
     say(smi())
     say(json.dumps({"ok": True, "device": {

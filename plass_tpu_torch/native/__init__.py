@@ -1,11 +1,13 @@
-"""Host C++ kernels of the assemble and nuclassemble slices, built on demand
-with g++ and loaded via ctypes.
+"""Host C++ kernels of the assemble, nuclassemble and guided_nuclassemble
+slices, built on demand with g++ and loaded via ctypes.
 
 The sources are the reference package's own (`plass_tpu/native/`), read by
 path: `extend.cpp` (protein greedy extender), `nucl_extend.cpp` (nucleotide
-greedy extender), `finish.cpp` (rescore post-processing) and `gather.cpp`
-(record padding and gathers). The library is built into the port's build
-directory; the reference package's tracked `_native.so` is never written.
+greedy extender and its protein-guided variant), `finish.cpp` (rescore
+post-processing), `gather.cpp` (record padding and gathers) and
+`aln2nucl.cpp` (proteinaln2nucl window scoring). The library is built into
+the port's build directory; the reference package's tracked `_native.so` is
+never written.
 """
 import ctypes
 import hashlib
@@ -17,7 +19,8 @@ import threading
 from .. import BUILD_DIR, REFERENCE_DIR
 
 SOURCE_DIR = os.path.join(REFERENCE_DIR, "native")
-_SOURCES = ["extend.cpp", "nucl_extend.cpp", "finish.cpp", "gather.cpp"]
+_SOURCES = ["extend.cpp", "nucl_extend.cpp", "finish.cpp", "gather.cpp",
+            "aln2nucl.cpp"]
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -73,10 +76,20 @@ def lib():
             i32p, i32p, i16p, u8p, ctypes.c_double, ctypes.c_int64,
             u8p, u8p, ctypes.c_int64, i64p, i64p, u8p]
         _LIB.nucl_assemble_greedy.restype = ctypes.c_int
+        _LIB.guided_assemble_greedy.argtypes = [
+            u8p, i64p, i32p, u8p, i64p, i32p, u32p, ctypes.c_int32,
+            i64p, i32p, u32p, i32p, i32p, f64p, i32p, i32p, i32p, i32p,
+            i32p, i32p, i32p, i16p, ctypes.c_double, ctypes.c_int64, u8p,
+            u8p, ctypes.c_int64, i64p, i64p,
+            u8p, ctypes.c_int64, i64p, i64p, u8p]
+        _LIB.guided_assemble_greedy.restype = ctypes.c_int
         _LIB.gather_records.argtypes = [u8p, i64p, i64p, i64p,
                                         ctypes.c_int64, u8p]
         _LIB.rescore_finish.argtypes = [
             ctypes.c_int64, i64p, i32p, i32p, i32p, i32p, u8p, i64p, i32p,
             i32p, i32p, i64p, f64p, f64p, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_int64, u8p, u8p]
+        _LIB.aln2nucl_score.argtypes = [
+            ctypes.c_int64, u8p, i64p, i32p, i32p, i32p, i32p, i32p,
+            i16p, i32p, f64p]
         return _LIB

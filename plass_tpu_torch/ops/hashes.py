@@ -1,5 +1,5 @@
 """Exact XXH64 of 8-byte little-endian inputs and the Util::hash sequence
-hash, on int64 tensors.
+hash, on int64 tensors (device matcher) and on numpy uint64 (host matcher).
 
 The k-mer matcher selects k-mers by the low 16 bits of
 XXH64(uint64 kmer_index, seed=hashShift) (reference:
@@ -9,6 +9,7 @@ bits: multiplication, addition and xor wrap identically in two's
 complement, every right shift is made logical by masking off the sign
 copies, and constants >= 2^63 are written as their signed equivalents.
 """
+import numpy as np
 import torch
 
 _M64 = 0xFFFFFFFFFFFFFFFF
@@ -68,3 +69,33 @@ def seq_hash_torch(seqs, lengths):
     active = expo >= 0
     terms = seqs.to(torch.int64) * pw[expo.clamp(min=0)]
     return torch.where(active, terms, 0).sum(dim=1)
+
+
+def xxh64_u64_np(values, seed):
+    """XXH64 of each uint64 (as 8 LE bytes) with the given seed. NumPy."""
+    u = np.uint64
+    p1, p2 = u(_P1 & _M64), u(_P2 & _M64)
+    p3, p4 = u(_P3 & _M64), u(_P4 & _M64)
+    v = np.asarray(values, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        acc = u((seed + _P5 + 8) & _M64)
+        k1 = v * p2
+        k1 = (k1 << u(31)) | (k1 >> u(33))
+        k1 = k1 * p1
+        acc = acc ^ k1
+        acc = ((acc << u(27)) | (acc >> u(37))) * p1 + p4
+        acc ^= acc >> u(33)
+        acc = acc * p2
+        acc ^= acc >> u(29)
+        acc = acc * p3
+        acc ^= acc >> u(32)
+    return acc
+
+
+def seq_hash_np(num_seq):
+    """Util::hash (Util.h:337-345): h = h*31 + x[i] over numeric letters."""
+    h = np.uint64(0)
+    with np.errstate(over="ignore"):
+        for x in num_seq:
+            h = h * np.uint64(31) + np.uint64(x)
+    return h

@@ -4,6 +4,9 @@ the coding filter; everything else stays on the host.
 The choice is explicit. `cuda` without a visible card is an error, never a
 quiet run on the CPU; `cpu` runs every kernel's plain PyTorch version.
 """
+import contextlib
+import time
+
 import torch
 
 
@@ -27,3 +30,17 @@ def synchronize(device):
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def stage_timer(device, seconds):
+    """timed(stage): a context manager that adds the block's wall seconds
+    to seconds[stage], read after the device has finished its queued work
+    on both sides."""
+    @contextlib.contextmanager
+    def timed(stage):
+        synchronize(device)
+        t0 = time.perf_counter()
+        yield
+        synchronize(device)
+        seconds[stage] = seconds.get(stage, 0.0) + time.perf_counter() - t0
+    return timed

@@ -11,9 +11,7 @@ The k-mer matcher, the rescore and the coding filter's MLP run on
 
 Defaults from setAssembleDBWorkflowDefaults (Assembler.cpp:10-27).
 """
-import contextlib
 import os
-import time
 from dataclasses import dataclass, asdict
 
 import numpy as np
@@ -28,7 +26,7 @@ from ..ops import translate as translate_mod
 from ..ops.backend import kmermatcher_torch, rescore_diagonal_torch
 from ..ops.evalue import EvalueComputer
 from ..ops.rescore import RESCORE_END_TO_END, RescoreParams
-from ..utils.device import pick_device, synchronize
+from ..utils.device import pick_device, stage_timer
 from ..utils.log import logger
 from .engine import Workflow, create_tmp_dir, fingerprint
 
@@ -86,13 +84,7 @@ def run_assemble(input_files, out_fasta, tmp_base, params=None, stats=None):
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
 
-    @contextlib.contextmanager
-    def timed(stage):
-        synchronize(device)
-        t0 = time.perf_counter()
-        yield
-        synchronize(device)
-        seconds[stage] = seconds.get(stage, 0.0) + time.perf_counter() - t0
+    timed = stage_timer(device, seconds)
 
     if os.path.exists(out_fasta):
         raise FileExistsError(f"{out_fasta} exists already!")

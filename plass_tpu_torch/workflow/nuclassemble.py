@@ -7,12 +7,10 @@ queue) -> cyclecheck (divert circular contigs to an accumulator, drop them
 from the active set)} -> concat linear+cyclic -> only-extended + min-length
 selection -> fasta (headers annotated with cycle:0/1).
 
-The k-mer matcher and the rescore run on `NuclAssembleParams.device`; the
-extender, the cycle check and the rest run on the host.
+The k-mer matcher, the rescore and the sort of the cycle check run on
+`NuclAssembleParams.device`; the extender and the rest run on the host.
 """
-import contextlib
 import os
-import time
 from dataclasses import asdict, dataclass
 
 from ..assembler.cyclecheck import cycle_check_db
@@ -22,7 +20,7 @@ from ..data.createdb import create_db, merge_reads
 from ..ops.backend import kmermatcher_torch, rescore_diagonal_torch
 from ..ops.evalue import EvalueComputer
 from ..ops.rescore import RESCORE_END_TO_END, RescoreParams
-from ..utils.device import pick_device, synchronize
+from ..utils.device import pick_device, stage_timer
 from ..utils.log import logger
 from .engine import Workflow, create_tmp_dir, fingerprint
 
@@ -71,13 +69,7 @@ def run_nuclassemble(input_files, out_file, tmp_base, params=None,
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
 
-    @contextlib.contextmanager
-    def timed(stage):
-        synchronize(device)
-        t0 = time.perf_counter()
-        yield
-        synchronize(device)
-        seconds[stage] = seconds.get(stage, 0.0) + time.perf_counter() - t0
+    timed = stage_timer(device, seconds)
 
     if not p.db_mode and os.path.exists(out_file):
         raise FileExistsError(f"{out_file} exists already!")
@@ -153,7 +145,7 @@ def run_nuclassemble(input_files, out_file, tmp_base, params=None,
                 cyc_db, _info = cycle_check_db(assembly,
                                                chop_cycle=p.chop_cycle,
                                                max_seq_len=p.max_seq_len,
-                                               k=22)
+                                               k=22, device=device)
                 if cyc_db.size:
                     cycle_keys = set(int(k) for k in cyc_db.keys)
                     active_keys = [int(k) for k in assembly.keys

@@ -1,6 +1,9 @@
 """chip_smoke.py, the port's GPU smoke run, on a machine without a card:
 its CPU rehearsal drives every phase at a tiny size and prints no result;
-run alone, outside the repo, it fails without printing a result."""
+run alone, outside the repo, it fails without printing a result; its
+`kernels` line holds every key for every kernel."""
+import importlib.util
+import json
 import os
 import shutil
 import subprocess
@@ -27,7 +30,16 @@ def test_cpu_rehearsal_runs_every_phase():
                 "[nucl-fixture] 2 iterations, min-contig-len 150: "
                 "byte-identical", "[nucl-scale] reads", "[nucl-main] matcher",
                 "[nucl-main] K2 rescore_e2e_rev_uniform",
-                "[nucl-main] K2 rescore_e2e_rev ", "[rehearsal]"):
+                "[nucl-main] K2 rescore_e2e_rev ",
+                "[guided-fixture] default parameters --num-iterations 2, "
+                "min-contig-len 150:", "byte-identical to the run with "
+                "--device cpu", "[guided-fixture] seconds per stage: ingest",
+                "[guided-scale] reads 600, ORFs", "only-assembled",
+                "[guided-scale] seconds per stage: ingest",
+                "; nuclassemble [ingest", "; linclust [kmermatch",
+                "[guided-scale] wall", "[guided-main] aa matcher on",
+                "[guided-main] K2 rescore_e2e on", "windows with '*' at both "
+                "ends: equal to the plain version", "[rehearsal]"):
         assert tag in out, out
     assert '"ok"' not in out
 
@@ -39,3 +51,43 @@ def test_alone_it_fails_without_a_result(tmp_path):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
+
+
+def test_kernels_line_has_every_key_for_every_kernel():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    m = {"max_abs_err": 0, "ms": 0.05, "plain_ms": 3.0, "bound_ms": 0.01,
+         "bound_by": "bytes", "bytes": 1000}
+    names = ["seg_scan", "rescore_e2e", "rescore_e2e_rev",
+             "rescore_e2e_rev_uniform"]
+    launches = {
+        "assemble": {"seg_scan": 78, "rescore_e2e": 13},
+        "nuclassemble": {"seg_scan": 48, "rescore_e2e_rev_uniform": 8},
+        "guided_nuclassemble": {"seg_scan": 60, "rescore_e2e": 5,
+                                "rescore_e2e_rev_uniform": 5}}
+    kernels = chip_smoke.kernels_summary(
+        dict(m, copy_ms=0.06, elements=100), m, {n: m for n in names[2:]},
+        launches)
+    line = json.loads(json.dumps({"kernels": kernels}))["kernels"]
+    assert [k["name"] for k in line] == names
+    for k in line:
+        assert KERNEL_KEYS <= set(k), k["name"]
+        assert k["route"] == "cuda" and k["library_ms"] is None
+        assert os.path.exists(os.path.join(ROOT, k["source"]))
+        ref_file, ref_line = k["replaces"].split(":")
+        text = open(os.path.join(ROOT, ref_file)).read().splitlines()
+        assert "pallas_call" in text[int(ref_line) - 1], k["replaces"]
+        assert set(k["launches_by_path"]) == set(launches)
+        assert k["launches"] == sum(k["launches_by_path"].values())
+    by_name = {k["name"]: k for k in line}
+    assert by_name["seg_scan"]["launches"] == 186
+    assert by_name["rescore_e2e"]["launches_by_path"] == {
+        "assemble": 13, "nuclassemble": 0, "guided_nuclassemble": 5}
+    assert by_name["rescore_e2e_rev"]["launches"] == 0
