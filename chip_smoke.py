@@ -50,12 +50,25 @@ Phases, each printing its own lines; any failure exits non-zero:
      K1's plain version at iteration 0, and K2 equals its plain version on
      the hits of the last amino-acid iteration, whose rows are the longest
      and begin and end with the '*' of --add-orf-stop (exact; timed beside
-     its bound).
-The kernels' launch counters are set to 0 just before phases 4, 7 and 10 and
-read just after; every kernel of each path must have run there. The last
-lines are a JSON summary of the kernels (times, launches by path, bytes
-counted and the bound they give at 3.35 TB/s), the card's name and power
-limit, and {"ok": true, "device": {...}}.
+     its bound); each of the matcher's six scans timed alone;
+ 12. split-main: the hash-range split matcher on the iteration-0 DBs of
+     phases 4 and 10 and the first and last DBs of phase 7, with a budget
+     that gives at least 8 ranges and one an entry below the largest
+     range-key bin, equals the monolithic matcher (flat hits and device
+     hits); the monolithic matcher's device memory by stage, whose largest
+     bytes per table entry the automatic budget must cover;
+ 13. nucl-split: phase 7's nuclassemble through the CLI with a
+     --split-memory-limit that splits iteration 0 into at least 8 ranges:
+     byte-identical to phase 7, with its stage seconds and peak memory;
+ 14. nucl-large: the nucleotide matcher at iteration 0 on the fewest
+     seeded 150-nt reads whose table the monolithic matcher would need more
+     than the card's free memory for, with the automatic budget and at half
+     of it: equal hits, peak memory under the card's (the matcher only).
+The kernels' launch counters are set to 0 just before phases 4, 7, 10 and
+13 and read just after; every kernel of each path must have run there. The
+last lines are the script's seconds, a JSON summary of the kernels (times,
+launches by path, bytes counted and the bound they give at 3.35 TB/s), the
+card's name and power limit, and {"ok": true, "device": {...}}.
 
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
@@ -209,15 +222,17 @@ def flat_rows(seqs, device):
                          device=device))
 
 
-def recorded_scans(fn):
+def recorded_scans(fn, keep=False):
     """fn() with every seg_scan call of the matcher recorded: returns
-    (fn's result, [(kind, elements, columns, reverse), ...])."""
+    (fn's result, [(kind, elements, columns, reverse), ...]); with keep,
+    each entry also holds the call's (flag, columns)."""
     from plass_tpu_torch.ops import device_kmer
     from plass_tpu_torch.ops.seg_scan import seg_scan
     calls = []
 
     def spy(kind, flag, *vals, reverse=False):
-        calls.append((kind, flag.numel(), len(vals), reverse))
+        calls.append((kind, flag.numel(), len(vals), reverse)
+                     + (((flag, vals),) if keep else ()))
         return seg_scan(kind, flag, *vals, reverse=reverse)
 
     device_kmer.seg_scan = spy
@@ -229,7 +244,13 @@ def recorded_scans(fn):
 
 def scans_text(calls):
     return ", ".join(f"{kind}/{nv}{'r' if rev else ''} n={n}"
-                     for kind, n, nv, rev in calls)
+                     for kind, n, nv, rev, *_ in calls)
+
+
+def peaks_text(stats):
+    """A run's peak device memory by stage, GiB (stats["peak_bytes"])."""
+    return ", ".join(f"{k} {v / 2**30:.2f}"
+                     for k, v in stats["peak_bytes"].items())
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +458,6 @@ def make_reads(path, copies, seed=42):
 
 
 def phase_scale(device, work, copies):
-    import torch
     from plass_tpu_torch.cli.plass import run
     from plass_tpu_torch.ops import rescore_kernel, seg_scan
 
@@ -448,8 +468,6 @@ def phase_scale(device, work, copies):
     out = os.path.join(work, "scale", "assembly.fas")
     tmp = os.path.join(work, "scale", "tmp")
     stats = {}
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     seg_scan.LAUNCHES = 0
     rescore_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -479,13 +497,17 @@ def phase_scale(device, work, copies):
         f"{launches['rescore_e2e']}")
     if device.type == "cuda":
         say(f"[scale] max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+            f"{max(stats['peak_bytes'].values()) / 2**30:.2f} GiB; by stage, "
+            f"GiB: {peaks_text(stats)}")
         if min(launches.values()) == 0:
             raise AssertionError(f"a kernel of the main path never launched: "
                                  f"{launches}")
     return launches, os.path.join(tmp, "latest", "aa_6f_start_long")
 
 
+# the protein matcher at iteration 0 (`plass assemble` defaults)
+PROTEIN_MATCH = dict(kmers_per_sequence=60, hash_shift=67,
+                     ignore_multi_kmer=True, include_only_extendable=False)
 # K2 sends windows of more than LONG_WINDOW residues to its second pass
 # (kLongWindow in csrc/rescore.cu); the edge cases sit on both sides of it
 LONG_WINDOW = 512
@@ -591,8 +613,7 @@ def phase_main_shapes(device, db_path, reps):
     from plass_tpu_torch.ops.seg_scan import seg_scan, seg_scan_plain
 
     db = seqdb.SeqDB.open(db_path)
-    kw = dict(kmers_per_sequence=60, hash_shift=67, ignore_multi_kmer=True,
-              include_only_extendable=False)
+    kw = PROTEIN_MATCH
     hits, scans = recorded_scans(lambda: kmermatcher_torch(db, 14, device,
                                                            **kw))
     device_kmer.seg_scan = seg_scan_plain
@@ -615,7 +636,7 @@ def phase_main_shapes(device, db_path, reps):
         device_kmer.KmerParams(k=14, alphabet_size=13, kmers_per_sequence=60,
                                kmers_per_sequence_scale=0.0, ksel=60), 67)
     new_group, sid_s, pos_s, len_s, fwd_s = device_kmer.sort_table(
-        *table, False)
+        *table[:4], False)
     cols = (new_group, sid_s, (pos_s << 1) | fwd_s, len_s)
     k1 = {"ms": cuda_ms(lambda: seg_scan("first", *cols), KERNEL_REPS * reps,
                         device, queued=True),
@@ -753,8 +774,6 @@ def make_metagenome(path, n_genomes, genome_len, reads_per_genome,
 
 
 def phase_nucl_scale(device, work, n_genomes, genome_len):
-    import torch
-
     t0 = time.perf_counter()
     fasta = os.path.join(work, "metagenome.fasta")
     # 15x coverage of each genome by 150-nt reads
@@ -763,8 +782,6 @@ def phase_nucl_scale(device, work, n_genomes, genome_len):
     say(f"[nucl-scale] {n_reads} reads of {n_genomes} genomes x {genome_len} "
         f"nt written in {time.perf_counter() - t0:.1f} s")
     stats = {}
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     t0 = time.perf_counter()
     out = nucl_cli([fasta], os.path.join(work, "nscale"), [], device,
@@ -787,15 +804,17 @@ def phase_nucl_scale(device, work, n_genomes, genome_len):
         raise AssertionError("no reverse-strand hits at iteration 0")
     if device.type == "cuda":
         say(f"[nucl-scale] max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+            f"{max(stats['peak_bytes'].values()) / 2**30:.2f} GiB; by stage, "
+            f"GiB: {peaks_text(stats)}")
         if not (launches["seg_scan"] and launches["rescore_e2e_rev_uniform"]):
             raise AssertionError(f"a kernel of the nucleotide path never "
                                  f"launched: {launches}")
     tmp = os.path.join(work, "nscale", "tmp", "latest")
     # the input of the last iteration (8 by default) is iteration 6's
     # active set
+    run = {"fasta": fasta, "sha256": digest, "stats": stats}
     return launches, (os.path.join(tmp, "nucl_reads"),
-                      os.path.join(tmp, "assembly_6_active"))
+                      os.path.join(tmp, "assembly_6_active")), run
 
 
 def _nucl_edge_case_rows(device):
@@ -1075,8 +1094,6 @@ def make_coding_metagenome(path, n_genomes, genome_len, reads_per_genome,
 
 
 def phase_guided_scale(device, work, n_genomes, genome_len):
-    import torch
-
     t0 = time.perf_counter()
     fasta = os.path.join(work, "guided_reads.fasta")
     # 15x coverage of each genome by 150-nt reads
@@ -1085,8 +1102,6 @@ def phase_guided_scale(device, work, n_genomes, genome_len):
     say(f"[guided-scale] {n_reads} reads of {n_genomes} coding genomes x "
         f"{genome_len} nt written in {time.perf_counter() - t0:.1f} s")
     stats = {}
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     t0 = time.perf_counter()
     # every amino-acid iteration's DB is kept for phase_guided_main
@@ -1114,7 +1129,9 @@ def phase_guided_scale(device, work, n_genomes, genome_len):
                              "nothing")
     if device.type == "cuda":
         say(f"[guided-scale] max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+            f"{max(stats['peak_bytes'].values()) / 2**30:.2f} GiB; by stage, "
+            f"GiB: {peaks_text(stats)}; nuclassemble by stage, GiB: "
+            f"{peaks_text(stats['nuclassemble'])}")
         if not (launches["seg_scan"] and launches["rescore_e2e"]
                 and launches["rescore_e2e_rev_uniform"]):
             raise AssertionError(f"a kernel of the guided path never "
@@ -1150,7 +1167,8 @@ def phase_guided_main(device, first_db, last_db, reps):
 
     db = seqdb.SeqDB.open(first_db)
     hits, scans = recorded_scans(lambda: kmermatcher_torch(db, 14, device,
-                                                           **AA_MATCH))
+                                                           **AA_MATCH),
+                                 keep=True)
     device_kmer.seg_scan = seg_scan_plain
     try:
         plain_hits = kmermatcher_torch(db, 14, device, **AA_MATCH)
@@ -1166,6 +1184,25 @@ def phase_guided_main(device, first_db, last_db, reps):
         f"entries, {len(hits.hit_slots)} hits): kernel scans equal plain")
     say(f"[guided-main] the matcher's scans at iteration 0 (kind/columns, r "
         f"= reverse): {scans_text(scans)}")
+    # each of the matcher's scans again, alone: kernel, plain, bound
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+    for kind, n, nv, rev, (flag, vals) in scans:
+        err = max_abs_err(seg_scan(kind, flag, *vals, reverse=rev),
+                          seg_scan_plain(kind, flag, *vals, reverse=rev))
+        if err:
+            raise AssertionError(f"K1 {kind} in the guided matcher: max |err| "
+                                 f"{err}")
+        k1["ms"] += cuda_ms(lambda: seg_scan(kind, flag, *vals, reverse=rev),
+                            KERNEL_REPS * reps, device, queued=True)
+        k1["plain_ms"] += cuda_ms(lambda: seg_scan_plain(
+            kind, flag, *vals, reverse=rev), reps, device)
+        k1["bytes"] += scan_bytes(n, nv)
+    k1["bound_ms"] = bound(k1["bytes"], 0)[0]
+    say(f"[guided-main] K1, the aa matcher's {len(scans)} scans at "
+        f"iteration 0, each alone: equal to the plain version; together: "
+        f"kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound "
+        f"{k1['bound_ms']:.4f} ms ({k1['bytes']} bytes)")
+    del scans
 
     db = seqdb.SeqDB.open(last_db)
     hits = kmermatcher_torch(db, 14, device, **AA_MATCH)
@@ -1203,6 +1240,293 @@ def phase_guided_main(device, first_db, last_db, reps):
         f"{flat} bytes (flat rows, offsets, lengths, code table); padded "
         f"codes and chars would take {padded} bytes")
     return k1_err, err
+
+
+# ---------------------------------------------------------------------------
+# the memory-bounded (hash-range split) matcher
+
+def _peak_reset(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak(device):
+    """Peak device memory since the last _peak_reset, bytes (0 on the
+    CPU)."""
+    import torch
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device)
+
+
+def _match_args(kw):
+    """kmermatcher_torch's keywords split into matcher_params' and the
+    hash shift."""
+    kw = dict(kw)
+    return kw.pop("hash_shift"), kw
+
+
+def matcher_memory(db, k, kw, device):
+    """The monolithic matcher's device memory on `db`, stage by stage, and
+    its largest range-key bin: the selection stage's peak above the table
+    it builds, the table's bytes, the peak of the pairs and the merge per
+    table entry (the table included) and (bin, entries) of the fullest
+    range-key bin."""
+    import torch
+    from plass_tpu_torch.ops import device_kmer as dk
+    from plass_tpu_torch.ops.backend import flat_rows as db_rows
+    from plass_tpu_torch.ops.backend import matcher_params
+
+    shift, pkw = _match_args(kw)
+    params = matcher_params(db, k, **pkw)
+    args = (*db_rows(db, device, "kmer"),
+            torch.from_numpy(db.keys.astype(np.int32)).to(device))
+    _peak_reset(device)
+    base = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    table = dk.build_table(*args, params, shift)
+    select = _peak(device)
+    table_bytes = sum(x.numel() * x.element_size() for x in table[:4])
+    hist = torch.bincount(table[4], minlength=dk.RANGE_BINS)
+    top = int(hist.argmax())
+    largest = int(hist[top])
+    table = table[:4]
+    del hist
+    _peak_reset(device)
+    hits = dk._hits(*dk.sort_pairs(*dk.pairs_from_table(*table, params)))
+    pairs = _peak(device)
+    n = table[0].numel()
+    del hits, table
+    return {"entries": n, "select_bytes": max(select - base - table_bytes, 0),
+            "table_bytes": table_bytes,
+            "bytes_per_entry": (pairs - base) / max(n, 1),
+            "peak": max(select, pairs) - base, "largest_bin": (top, largest)}
+
+
+def _same_hits(a, b):
+    """Flat hit arrays and device hits equal."""
+    import torch
+    return (all(np.array_equal(x, y) for x, y in zip(a, b))
+            and all(torch.equal(x, y) for x, y in zip(a.dev, b.dev)))
+
+
+def phase_split_main(device, inputs, rehearsal):
+    """The split matcher against the monolithic one at the main paths'
+    shapes: for each (name, DB path, k, matcher keywords), the monolithic
+    call, a split into at least 8 ranges and a split whose budget is one
+    entry below the largest range-key bin give equal flat hits and device
+    hits; the monolithic matcher's memory by stage gives its bytes per
+    table entry, which the automatic budget assumes. Returns the largest
+    bytes per entry measured."""
+    from plass_tpu_torch.data import seqdb
+    from plass_tpu_torch.ops.backend import BYTES_PER_ENTRY, kmermatcher_torch
+    from plass_tpu_torch.ops.kmermatch import ENTRY_BYTES
+
+    worst = 0.0
+    for name, path, k, kw in inputs:
+        db = seqdb.SeqDB.open(path)
+        mem = matcher_memory(db, k, kw, device)
+        _peak_reset(device)
+        t0 = time.perf_counter()
+        mono = kmermatcher_torch(db, k, device, **kw)
+        secs = {"monolithic": time.perf_counter() - t0}
+        peaks = {"monolithic": _peak(device)}
+        top, largest = mem["largest_bin"]
+        # the rehearsal's tables are too small for one range per few bins
+        budgets = {"8+ ranges": mono.table_entries // 10,
+                   "below the largest bin": largest - 1 if not rehearsal
+                   else max(largest - 1, mono.table_entries // 40)}
+        ranges = {}
+        for label, budget in budgets.items():
+            _peak_reset(device)
+            t0 = time.perf_counter()
+            split = kmermatcher_torch(db, k, device, split_memory_limit=budget
+                                      * ENTRY_BYTES, **kw)
+            secs[label] = time.perf_counter() - t0
+            peaks[label] = _peak(device)
+            ranges[label] = len(split.ranges)
+            if not _same_hits(split, mono):
+                raise AssertionError(f"split-main {name}, {label}: the split "
+                                     f"hits differ from the monolithic ones")
+            del split
+        if ranges["8+ ranges"] < 8 or len(mono.hit_slots) == 0 or (
+                largest <= budgets["below the largest bin"]
+                and not rehearsal):
+            raise AssertionError(f"split-main {name}: {ranges} ranges, "
+                                 f"largest bin {largest}")
+        say(f"[split-main] {name}: {db.size} sequences, {mono.table_entries} "
+            f"table entries, {len(mono.hit_slots)} hits; split into "
+            + ", ".join(f"{ranges[b]} ranges ({b}, budget {budgets[b]})"
+                        for b in budgets)
+            + f": equal to the monolithic matcher; seconds "
+            + ", ".join(f"{b} {v:.2f}" for b, v in secs.items())
+            + "; peak device memory, GiB: "
+            + ", ".join(f"{b} {v / 2**30:.2f}" for b, v in peaks.items()))
+        if device.type == "cuda":
+            worst = max(worst, mem["bytes_per_entry"])
+            say(f"[split-main] {name}: monolithic matcher memory by stage: "
+                f"selection block {mem['select_bytes'] / 2**30:.2f} GiB above "
+                f"the table, table {mem['table_bytes']} bytes ("
+                f"{mem['table_bytes'] / max(mem['entries'], 1):.1f} per "
+                f"entry), pairs and merge {mem['bytes_per_entry']:.1f} bytes "
+                f"per table entry (the table included); largest range-key "
+                f"bin {top}, {largest} entries")
+        del mono
+    if device.type == "cuda":
+        say(f"[split-main] largest bytes per table entry measured "
+            f"{worst:.1f}; the automatic budget assumes {BYTES_PER_ENTRY}")
+        if worst > BYTES_PER_ENTRY:
+            raise AssertionError("the automatic split budget assumes fewer "
+                                 "bytes per entry than the matcher takes")
+    return worst
+
+
+def phase_nucl_split(device, work, ref):
+    """penguin nuclassemble of phase 7's reads through the CLI with a
+    --split-memory-limit that splits iteration 0 into at least 8 ranges:
+    the contigs equal phase 7's byte for byte."""
+    from plass_tpu_torch.ops.kmermatch import ENTRY_BYTES
+
+    limit = ref["stats"]["table_entries"] // 10 * ENTRY_BYTES
+    stats = {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = nucl_cli([ref["fasta"]], os.path.join(work, "nsplit"),
+                   ["--split-memory-limit", str(limit)], device, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    digest = hashlib.sha256(open(out, "rb").read()).hexdigest()
+    if digest != ref["sha256"]:
+        raise AssertionError(f"nucl-split: sha256 {digest} differs from the "
+                             f"monolithic run's {ref['sha256']}")
+    if stats["ranges"][0] < 8:
+        raise AssertionError(f"nucl-split: {stats['ranges'][0]} ranges at "
+                             f"iteration 0")
+    say(f"[nucl-split] --split-memory-limit {limit} (table bytes at "
+        f"{ENTRY_BYTES} per entry): ranges per iteration {stats['ranges']}; "
+        f"sha256 {digest}, equal to nucl-scale's")
+    say("[nucl-split] seconds per stage: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stats["seconds"].items())
+        + f"; wall {wall:.1f} s (nucl-scale: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ref["stats"]["seconds"].items())
+        + ")")
+    say("[nucl-split] launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    if device.type == "cuda":
+        say(f"[nucl-split] peak device memory by stage, GiB: "
+            f"{peaks_text(stats)} (nucl-scale: {peaks_text(ref['stats'])})")
+        if not (launches["seg_scan"] and launches["rescore_e2e_rev_uniform"]):
+            raise AssertionError(f"a kernel of the split path never launched: "
+                                 f"{launches}")
+    return launches
+
+
+def metagenome_db(n_reads, genome_len=20000, read_len=150, sub_rate=0.002,
+                  seed=23, chunk=1 << 20):
+    """A nucleotide SeqDB, built in memory, of n_reads seeded reads in the
+    manner of make_metagenome: random genomes read at 15x, uniform starts,
+    half of the reads reverse complemented, seeded substitutions."""
+    from plass_tpu_torch.data import seqdb
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    n_genomes = max(1, n_reads * read_len // (15 * genome_len))
+    genomes = acgt[rng.integers(0, 4, (n_genomes, genome_len), dtype=np.uint8)]
+    width = read_len + 2
+    data = np.empty((n_reads, width), dtype=np.uint8)
+    data[:, read_len] = ord("\n")
+    data[:, read_len + 1] = 0
+    for lo in range(0, n_reads, chunk):
+        m = min(chunk, n_reads - lo)
+        g = rng.integers(0, n_genomes, m)
+        start = rng.integers(0, genome_len - read_len + 1, m)
+        reads = genomes[g[:, None], start[:, None] + np.arange(read_len)]
+        n_mut = int(rng.binomial(m * read_len, sub_rate))
+        reads.reshape(-1)[rng.integers(0, m * read_len, n_mut)] = \
+            acgt[rng.integers(0, 4, n_mut)]
+        rc = rng.random(m) < 0.5
+        reads[rc] = comp[reads[rc, ::-1]]
+        data[lo:lo + m, :read_len] = reads
+    return seqdb.SeqDB(data.reshape(-1), np.arange(n_reads, dtype=np.uint32),
+                       np.arange(n_reads, dtype=np.int64) * width,
+                       np.full(n_reads, width, dtype=np.int64),
+                       seqdb.NUCLEOTIDES), n_genomes
+
+
+def _hits_digest(hits):
+    h = hashlib.sha256()
+    for x in hits:
+        h.update(np.ascontiguousarray(x, dtype=np.int64).tobytes())
+    return h.hexdigest()
+
+
+def phase_nucl_large(device, rehearsal):
+    """The nucleotide matcher (iteration 0, nuclassemble defaults) on a DB
+    of seeded 150-nt reads, the fewest whose table the monolithic matcher
+    would need more than the card's free memory for: once with the
+    automatic budget, once at half of it; equal hits, peak memory under
+    the card's. The rescore and the later iterations are left out."""
+    import torch
+    from plass_tpu_torch.ops.backend import (BYTES_PER_ENTRY,
+                                             kmermatcher_torch,
+                                             matcher_params, split_budget)
+    from plass_tpu_torch.ops.device_kmer import ksel_capacity
+    from plass_tpu_torch.ops.kmermatch import ENTRY_BYTES
+
+    _, pkw = _match_args(NUCL_MATCH)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(device)
+        # the estimate of one read of 150 nt: ksel + 1 selected entries and
+        # its own entry
+        per_read = ksel_capacity(pkw["kmers_per_sequence"],
+                                 pkw["kmers_per_sequence_scale"], 150) + 2
+        n_reads = free // (per_read * BYTES_PER_ENTRY) + 1
+    else:
+        n_reads, total = 3000, 0
+    t0 = time.perf_counter()
+    db, n_genomes = metagenome_db(n_reads)
+    params = matcher_params(db, 22, **pkw)
+    est = db.size * (params.ksel + 1) + db.size
+    say(f"[nucl-large] {n_reads} reads of {n_genomes} genomes x 20000 nt "
+        f"built in {time.perf_counter() - t0:.1f} s; table estimate {est} "
+        f"entries, {est * BYTES_PER_ENTRY} bytes for the monolithic matcher "
+        f"at {BYTES_PER_ENTRY} per entry")
+    budget = split_budget(db, params, device, 0)
+    if budget is None:
+        if not rehearsal:
+            raise AssertionError("nucl-large: the automatic budget does not "
+                                 "split")
+        budget = est // 4    # the CPU has no automatic budget
+    runs = {}
+    for label, limit in (("automatic", 0 if not rehearsal else budget
+                          * ENTRY_BYTES),
+                         ("half", budget // 2 * ENTRY_BYTES)):
+        _peak_reset(device)
+        t0 = time.perf_counter()
+        hits = kmermatcher_torch(db, 22, device, split_memory_limit=limit,
+                                 **NUCL_MATCH)
+        secs = time.perf_counter() - t0
+        runs[label] = (len(hits.ranges), secs, _peak(device),
+                       _hits_digest(hits), hits.table_entries,
+                       len(hits.hit_slots))
+        del hits
+    (r1, s1, p1, d1, n, h), (r2, s2, p2, d2, _, _) = runs.values()
+    if d1 != d2 or r1 < 2 or r2 <= r1:
+        raise AssertionError(f"nucl-large: {r1} and {r2} ranges, hits "
+                             f"{d1} and {d2}")
+    if device.type == "cuda" and max(p1, p2) >= total:
+        raise AssertionError("nucl-large: peak memory above the card's")
+    say(f"[nucl-large] {n} table entries, {h} hits; automatic budget "
+        f"(before the call: {budget} entries a range): {r1} ranges, "
+        f"{s1:.1f} s, peak {p1 / 2**30:.2f} GiB; half of it: {r2} ranges, "
+        f"{s2:.1f} s, peak {p2 / 2**30:.2f} GiB; card {total / 2**30:.2f} "
+        f"GiB; equal hits, sha256 {d1}; the rescore and the later "
+        f"iterations are left out")
 
 
 def kernels_summary(k1, k2, rev, launches):
@@ -1267,6 +1591,7 @@ def main():
         say(f"[cpu-reference] {', '.join(runs)} at full size on the CPU; no "
             f"result")
         return 2
+    t_start = time.perf_counter()
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1287,7 +1612,7 @@ def main():
         launches, db_path = phase_scale(device, work, 4 if rehearsal else 400)
         (k1_main_err, k1), k2 = phase_main_shapes(device, db_path, reps)
         phase_nucl_fixture(device, work)
-        nlaunches, ndb_paths = phase_nucl_scale(
+        nlaunches, ndb_paths, nrun = phase_nucl_scale(
             device, work, *((3, 2000) if rehearsal else (50, 20000)))
         k1_nucl_err, rev = phase_nucl_main(device, *ndb_paths, reps)
         phase_guided_fixture(
@@ -1296,9 +1621,18 @@ def main():
             device, work, *((2, 3000) if rehearsal else GUIDED_GENOMES))
         k1_guided_err, k2_guided_err = phase_guided_main(device, *gdb_paths,
                                                          reps)
+        phase_split_main(device, [
+            ("protein x400 iteration 0", db_path, 14, PROTEIN_MATCH),
+            ("nucl-scale iteration 0", ndb_paths[0], 22, NUCL_MATCH),
+            ("nucl-scale last iteration", ndb_paths[1], 22, NUCL_MATCH),
+            ("guided-scale aa iteration 0", gdb_paths[0], 14, AA_MATCH)],
+            rehearsal)
+        slaunches = phase_nucl_split(device, work, nrun)
+    phase_nucl_large(device, rehearsal)
     k1_err = max(k1_err, k1_main_err, k1_nucl_err, k1_guided_err)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_guided_err)
 
+    say(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     if rehearsal:
         say("[rehearsal] all phases ran on the CPU; no result")
         return 2
@@ -1306,7 +1640,7 @@ def main():
     kernels = kernels_summary(
         dict(k1, max_abs_err=k1_err), k2, rev,
         {"assemble": launches, "nuclassemble": nlaunches,
-         "guided_nuclassemble": glaunches})
+         "guided_nuclassemble": glaunches, "split": slaunches})
     say(json.dumps({"kernels": kernels}))
     say(smi())
     say(json.dumps({"ok": True, "device": {

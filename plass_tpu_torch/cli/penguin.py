@@ -18,6 +18,7 @@ has both (--num-iterations, -k, --min-seq-id).
 import argparse
 import sys
 
+from ..ops.kmermatch import parse_memory_limit
 from ..utils.log import logger
 from ..workflow.guided import (GuidedNuclAssembleParams,
                                run_guided_nuclassemble)
@@ -76,6 +77,7 @@ FLAGS = [
     ("--db-mode", "db_mode", _bool, False),
     ("--remove-tmp-files", "remove_tmp_files", _bool, False),
     ("--delete-tmp-inc", "delete_tmp_inc", int, 1),
+    ("--split-memory-limit", "split_memory_limit", parse_memory_limit, 0),
     ("--device", "device", str, "cuda"),
 ]
 
@@ -102,6 +104,7 @@ GUIDED_FLAGS = [
     ("--clust-min-cov", "clust_cov", float, 0.99),
     ("--remove-tmp-files", "remove_tmp_files", _bool, False),
     ("--delete-tmp-inc", "delete_tmp_inc", int, 1),
+    ("--split-memory-limit", "split_memory_limit", parse_memory_limit, 0),
     ("--device", "device", str, "cuda"),
 ]
 _PAIRS = ("kmer_size", "num_iterations", "seq_id")

@@ -12,6 +12,7 @@ the port reads the amino-acid part.
 import argparse
 import sys
 
+from ..ops.kmermatch import parse_memory_limit
 from ..utils.log import logger
 from ..workflow.assemble import AssembleParams, run_assemble
 
@@ -61,6 +62,9 @@ FLAGS = [
     ("--rescore-mode", "rescore_mode", int, 3),
     ("--remove-tmp-files", "remove_tmp_files", _bool, False),
     ("--delete-tmp-inc", "delete_tmp_inc", int, 1),
+    # bytes (K/M/G/T suffix) of k-mer table per hash-range split; 0:
+    # automatic on a card, monolithic on the CPU
+    ("--split-memory-limit", "split_memory_limit", parse_memory_limit, 0),
     ("--device", "device", str, "cuda"),
 ]
 

@@ -1,5 +1,6 @@
 """Host <-> device glue of the assemble and nuclassemble slices: run the
-device k-mer matcher and the device rescore on a SeqDB (protein or
+device k-mer matcher (monolithic, or split into hash ranges when its table
+would not fit) and the device rescore on a SeqDB (protein or
 nucleotide) and return host-format results.
 
 The hits stay on the device between the two steps: the matcher keeps
@@ -17,7 +18,23 @@ from .. import constants, native
 from ..data import seqdb
 from . import device_kmer
 from .device_kmer import KmerParams, ksel_capacity
+from .kmermatch import ENTRY_BYTES, estimate_kmer_count, parse_memory_limit
 from .rescore_kernel import rescore_e2e, uniform_pattern
+
+# The automatic split budget on the card (split_memory_limit 0). The
+# monolithic matcher's peak device memory per table entry in its pair and
+# merge stages, the table included: at most 124.9 bytes on the iteration-0
+# and last-iteration tables of chip_smoke.py's split-main phase (H100 80GB
+# HBM3; PERF.md §5), which fails if a table needs more
+BYTES_PER_ENTRY = 128
+# what stays resident per table entry on the split path: the table (k-mer
+# 8, id 4, pos 4, length 4, range key 4 bytes), then the kept pairs (rep,
+# tgt, diag << 1 | rev: 12 bytes)
+RESIDENT_BYTES = 36
+# the share of the card's free memory the matcher plans to use; the rest
+# covers the selection stage's fixed block (device_kmer.SELECT_CELLS) and
+# the allocator's fragmentation
+AUTO_SHARE = 0.75
 
 
 def _matrix(db, alphabet):
@@ -52,11 +69,43 @@ def flat_rows(db, device, alphabet="score"):
 def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
                       kmers_per_sequence_scale=None, hash_shift=67,
                       ignore_multi_kmer=False, include_only_extendable=False,
-                      cov_thr=0.0):
-    """Device k-mer matcher (monolithic) on `device`, protein or nucleotide.
+                      cov_thr=0.0, split_memory_limit=0):
+    """Device k-mer matcher on `device`, protein or nucleotide.
+
+    split_memory_limit (bytes of k-mer table at ENTRY_BYTES per entry, or
+    a string with a K/M/G/T suffix, as --split-memory-limit): when the
+    table's estimate exceeds it, the table is split into hash ranges of at
+    most limit / ENTRY_BYTES entries (device_kmer.kmermatch_device); 0
+    means automatic on a card (split_budget) and monolithic on the CPU.
 
     Returns the flat KmerHits (the JAX package's return_arrays format),
     whose raw hits stay on the device for rescore_diagonal_torch."""
+    params = matcher_params(
+        db, k, kmers_per_sequence=kmers_per_sequence,
+        kmers_per_sequence_scale=kmers_per_sequence_scale,
+        ignore_multi_kmer=ignore_multi_kmer,
+        include_only_extendable=include_only_extendable, cov_thr=cov_thr)
+    rows = flat_rows(db, device, "kmer")
+    budget = split_budget(db, params, device, split_memory_limit)
+    rep, tgt, score, diag, table_entries, ranges = \
+        device_kmer.kmermatch_device(
+            *rows, torch.from_numpy(db.keys.astype(np.int32)).to(device),
+            hash_shift, params, budget)
+    out = _insert_self_hits(db, rep.cpu().numpy().astype(np.uint32),
+                            tgt.cpu().numpy().astype(np.uint32),
+                            score.cpu().numpy(), diag.cpu().numpy())
+    out.dev = (rep, tgt, diag, score < 0)
+    out.table_entries = table_entries
+    out.ranges = ranges
+    return out
+
+
+def matcher_params(db, k, kmers_per_sequence=21,
+                   kmers_per_sequence_scale=None, ignore_multi_kmer=False,
+                   include_only_extendable=False, cov_thr=0.0):
+    """The device matcher's KmerParams for `db` (kmermatcher_torch's
+    arguments), after checking the DB's lengths and keys against what its
+    packed sort keys hold."""
     is_nucl = db.dbtype == seqdb.NUCLEOTIDES
     if kmers_per_sequence_scale is None:
         kmers_per_sequence_scale = 0.2 if is_nucl else 0.0
@@ -66,7 +115,7 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
                          "more are not supported by the k-mer matcher")
     if db.size and int(db.keys.max()) >= device_kmer.MAX_KEY:
         raise ValueError("sequence keys must be below 2^31")
-    params = KmerParams(
+    return KmerParams(
         k=k, alphabet_size=_matrix(db, "kmer").alphabet_size,
         kmers_per_sequence=kmers_per_sequence,
         kmers_per_sequence_scale=kmers_per_sequence_scale, is_nucl=is_nucl,
@@ -74,26 +123,49 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
         include_only_extendable=include_only_extendable, cov_thr=cov_thr,
         ksel=ksel_capacity(kmers_per_sequence, kmers_per_sequence_scale,
                            max(longest, k)))
-    rep, tgt, score, diag, table_entries = device_kmer.kmermatch_device(
-        *flat_rows(db, device, "kmer"),
-        torch.from_numpy(db.keys.astype(np.int32)).to(device), hash_shift,
-        params)
-    out = _insert_self_hits(db, rep.cpu().numpy().astype(np.uint32),
-                            tgt.cpu().numpy().astype(np.uint32),
-                            score.cpu().numpy(), diag.cpu().numpy())
-    out.dev = (rep, tgt, diag, score < 0)
-    out.table_entries = table_entries
-    return out
+
+
+def split_budget(db, params, device, split_memory_limit=0):
+    """The split path's entries per hash range for kmermatch_device, or
+    None for the monolithic path; decided before the table is built.
+
+    The table's estimate is the JAX package's, db.size * (ksel + 1) +
+    db.size entries (its backend.py:165). With a limit, the table splits
+    when the estimate at ENTRY_BYTES per entry exceeds it, into ranges of
+    limit / ENTRY_BYTES entries, as the JAX package's device path cuts them.
+    With 0 on a card, it splits when the estimate at BYTES_PER_ENTRY
+    exceeds AUTO_SHARE of the memory the process can still allocate (the
+    card's free memory and the allocator's unused cache), into ranges whose
+    work at BYTES_PER_ENTRY fits beside what stays resident (RESIDENT_BYTES
+    for each entry of the reference's table bound, estimate_kmer_count).
+    With 0 on the CPU, monolithic."""
+    est = db.size * (params.ksel + 1) + db.size
+    limit = parse_memory_limit(split_memory_limit)
+    if limit:
+        return limit // ENTRY_BYTES if est * ENTRY_BYTES > limit else None
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    usable = AUTO_SHARE * (free + torch.cuda.memory_reserved(device)
+                           - torch.cuda.memory_allocated(device))
+    if est * BYTES_PER_ENTRY <= usable:
+        return None
+    resident = RESIDENT_BYTES * estimate_kmer_count(
+        db, params.k, params.kmers_per_sequence,
+        params.kmers_per_sequence_scale)
+    return max(int((usable - resident) // BYTES_PER_ENTRY), 1)
 
 
 class KmerHits(tuple):
     """(qk, tk, score, diag) flat host arrays, self rows interleaved; also
     carries the device-resident raw hits (rep, tgt, diag, reverse flag) and
     the slots the raw hits occupy, so the rescore addresses hits by
-    index."""
+    index; table_entries and the hash ranges the matcher ran (inclusive
+    range-key pairs, one pair for the monolithic path)."""
     dev = None
     hit_slots = None
     table_entries = 0
+    ranges = ()
 
 
 def _insert_self_hits(db, rep, tgt, score, diag):
@@ -106,7 +178,7 @@ def _insert_self_hits(db, rep, tgt, score, diag):
     pos = np.searchsorted(keys, rep.astype(np.int64))
     np.add.at(counts, pos, 1)
     m = len(rep) + n
-    group_starts = np.concatenate([[0], np.cumsum(counts + 1)[:-1]])
+    group_starts = np.cumsum(counts + 1) - (counts + 1)
     qk = np.empty(m, dtype=np.int64)
     tk = np.empty(m, dtype=np.int64)
     sc = np.zeros(m, dtype=np.int64)

@@ -1,8 +1,8 @@
 """Device k-mer matcher (protein and nucleotide) — the hot path of every
 assembly iteration, in torch.
 
-Same semantics as the JAX package's ops/device_kmer.py (monolithic path;
-reference: linclust/kmermatcher.cpp):
+Same semantics as the JAX package's ops/device_kmer.py (reference:
+linclust/kmermatcher.cpp):
 
  A. per sequence, pick the k-mers with the smallest 16-bit XXH64 hashes
     (select_kmers) and flatten them with one whole-sequence hash entry per
@@ -25,6 +25,15 @@ strands.
 The segmented scans of B and C run in kernel K1 (ops/seg_scan.py); sorts,
 gathers and elementwise work are torch ops.
 
+Memory-bounded split (kmermatcher.cpp:594-779): every table entry carries a
+16-bit range key, the low 16 bits of the hash that selected it (a k-mer
+group shares one key, both strands included, so no group straddles two
+ranges). With a budget, the key space is cut by the exact histogram into
+ranges of at most `budget` entries; B runs per range on the resident
+table, and the kept pairs of all ranges are merged through C in buckets of
+whole representatives, so that neither the table's sort nor the merge
+ever works on more than about `budget` elements at once.
+
 uint64 k-mer values live in int64. Wherever the JAX package compares them
 as unsigned, the port sorts `x ^ INT64_MIN`, which orders signed int64
 exactly as the uint64 bits order unsigned; the invalid sentinel 2^64-1 maps
@@ -34,6 +43,7 @@ carried to the end of every sort.
 """
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .hashes import seq_hash_torch, xxh64_u64_torch
@@ -50,6 +60,8 @@ MAX_KEY = 1 << 31
 # rows of the selection stage handled at once: bounds its [rows, positions]
 # temporaries (about a dozen 8-byte arrays) to a few GB
 SELECT_CELLS = 1 << 26
+# bins of the split path's range keys
+RANGE_BINS = 1 << 16
 
 
 @dataclass(frozen=True)
@@ -161,8 +173,9 @@ def select_kmers(seqs, lengths, params: KmerParams, hash_shift):
     block of rows.
 
     Returns the selected entries flattened row by row in selection order —
-    (row int64[S], stored k-mer int64[S], stored pos int32[S]) — and the
-    whole-sequence hash int64[N] (uint64 bits)."""
+    (row int64[S], stored k-mer int64[S], stored pos int32[S]) —, the
+    whole-sequence hash int64[N] (uint64 bits) and the selected entries'
+    16-bit range keys int32[S] (the selection hash)."""
     n, _ = seqs.shape
     store_kmer, store_pos, canon, valid = _extract_kmers(
         seqs, lengths, params.k, params.alphabet_size, params.is_nucl)
@@ -217,7 +230,7 @@ def select_kmers(seqs, lengths, params: KmerParams, hash_shift):
     col = order[rows, cols]
     seq_hash = xxh64_u64_torch(seq_hash_torch(seqs, lengths), hash_shift)
     return (rows, store_kmer[rows, col], store_pos[rows, col].to(torch.int32),
-            seq_hash)
+            seq_hash, h16[rows, col])
 
 
 def gather_rows(rows, offsets, lengths, code_lut, idx, width, x_code):
@@ -232,8 +245,11 @@ def gather_rows(rows, offsets, lengths, code_lut, idx, width, x_code):
 def build_table(rows, offsets, lengths, code_lut, keys, params: KmerParams,
                 hash_shift):
     """Selected k-mers + one whole-sequence hash entry per non-empty
-    sequence -> flat table (kmer int64, sid int32, pos int32, len int32),
-    valid entries only. The sequences come as the database holds them:
+    sequence -> flat table (kmer int64, sid int32, pos int32, len int32,
+    range key int32), valid entries only. A selected k-mer's range key is
+    its selection hash, a whole-sequence entry's the low 16 bits of its
+    hash value (the JAX package's select_table_h16). The sequences come as
+    the database holds them:
     rows uint8[T] back to back, row r the lengths[r] bytes from
     rows[offsets[r]], a residue's code code_lut[byte]. Rows are selected
     longest first, in blocks of at most SELECT_CELLS cells; each block is
@@ -252,21 +268,34 @@ def build_table(rows, offsets, lengths, code_lut, keys, params: KmerParams,
         hi = min(lo + max(SELECT_CELLS // w, 1), n)
         idx = order[lo:hi].to(rows.device)
         blk_len = lengths[idx]
-        sel_rows, kmer, pos, seq_hash = select_kmers(
+        sel_rows, kmer, pos, seq_hash, h16 = select_kmers(
             gather_rows(rows, offsets, lengths, code_lut, idx, w,
                         params.alphabet_size - 1),
             blk_len, params, hash_shift)
         sel_rows = idx[sel_rows]
-        parts.append((kmer, keys[sel_rows], pos, lengths[sel_rows]))
+        parts.append([kmer, keys[sel_rows], pos, lengths[sel_rows], h16])
         nonempty = blk_len > 0
         sids = keys[idx][nonempty]
-        parts.append((seq_hash[nonempty], sids, torch.zeros_like(sids),
-                      blk_len[nonempty]))
+        seq_hash = seq_hash[nonempty]
+        parts.append([seq_hash, sids, torch.zeros_like(sids),
+                      blk_len[nonempty], (seq_hash & 0xFFFF).to(torch.int32)])
         lo = hi
     if not parts:
         empty = torch.zeros(0, dtype=torch.int32, device=rows.device)
-        return empty.long(), empty, empty, empty
-    return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
+        return empty.long(), empty, empty, empty, empty
+    return tuple(_join(parts))
+
+
+def _join(parts):
+    """The column-wise concatenation of blocks (lists of columns), one
+    column at a time, each block's copy freed as it is joined: the columns
+    are never held twice."""
+    out = []
+    for i in range(len(parts[0])):
+        out.append(torch.cat([p[i] for p in parts]))
+        for p in parts:
+            p[i] = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +357,7 @@ def pairs_from_table(kmer, sid, pos, slen, params: KmerParams):
         big = torch.maximum(rep_len, len_s).to(torch.float32)
         small = torch.minimum(rep_len, len_s).to(torch.float32)
         keep &= small / big >= params.cov_thr
+    keep = keep.nonzero()[:, 0]     # one host sync for the four columns
     return rep_id[keep], sid_s[keep], diagonal[keep], rev[keep]
 
 
@@ -353,7 +383,7 @@ def _next(x, fill):
     return out
 
 
-def best_diagonal_hits(rep, tgt, diag, rev):
+def best_diagonal_hits(rep, tgt, diag, rev, n_own=None):
     """Per (rep, target): most frequent diagonal + entry count
     (kmermatcher.cpp:870-913) over sorted, kept pairs, including the
     reference's run-absorb quirk: the run scan checks only the TARGET id,
@@ -362,7 +392,10 @@ def best_diagonal_hits(rep, tgt, diag, rev):
 
     Returns (rep, tgt, score, diag) int32 of the hits — one per (rep, tgt)
     segment start, self pairs excluded — in pair order; a negative score
-    marks a reverse-strand hit."""
+    marks a reverse-strand hit. With n_own, only hits starting before that
+    index are returned: the pairs after it only extend the last target
+    segment (a hit depends on its own position and those after it within
+    its target segment, never on those before)."""
     t = rep.numel()
     dev = rep.device
     idx = torch.arange(t, dtype=torch.int32, device=dev)
@@ -409,21 +442,157 @@ def best_diagonal_hits(rep, tgt, diag, rev):
     top_score = tgt_end - idx + 1
     score = torch.where(best_rev, -top_score, top_score)
     hit = pair_change & (rep != tgt)
+    if n_own is not None:
+        hit[n_own:] = False
+    hit = hit.nonzero()[:, 0]       # one host sync for the four columns
     return rep[hit], tgt[hit], score[hit], best_diag[hit]
 
 
+def _hits(rep, tgt, diag, rev, n_own=None):
+    """best_diagonal_hits of sorted pairs, also when there are none."""
+    if rep.numel() == 0:
+        return rep, tgt, diag.clone(), diag
+    return best_diagonal_hits(rep, tgt, diag, rev, n_own)
+
+
+# ---------------------------------------------------------------------------
+# Memory-bounded split: hash ranges, per-range pairs, bucketed merge
+# ---------------------------------------------------------------------------
+
+def cut_bins(hist, budget):
+    """Greedy cut of consecutive bins (numpy int64 counts) into ranges of at
+    most `budget` entries, as the JAX package's backend.py:196-205 cuts the
+    range-key histogram: a range takes bins while it is empty or stays
+    within the budget, so a bin over the budget is a range of its own.
+    Returns inclusive (lo, hi) bin pairs covering every bin."""
+    cs = np.concatenate([[0], np.cumsum(hist, dtype=np.int64)])
+    n = len(hist)
+    ranges = []
+    lo = 0
+    while lo < n:
+        # the range ends before the first bin h with acc + hist[h] > budget
+        # and acc > 0, where acc = cs[h] - cs[lo]
+        over = int(np.searchsorted(cs, cs[lo] + budget, side="right")) - 1
+        nonempty = int(np.searchsorted(cs, cs[lo], side="right"))
+        hi = min(max(over, nonempty), n)
+        ranges.append((lo, hi - 1))
+        lo = hi
+    return ranges
+
+
+def table_ranges(rkey, budget):
+    """The hash ranges of a table of range keys rkey int32[T] for `budget`
+    entries per range: the exact 65,536-bin histogram, cut by cut_bins."""
+    hist = torch.bincount(rkey, minlength=RANGE_BINS).cpu().numpy()
+    return cut_bins(hist, budget)
+
+
+def pairs_by_range(kmer, sid, pos, slen, rkey, ranges, params: KmerParams):
+    """Stage B on each hash range of the resident table: the range's
+    entries are taken by a mask of their keys (one read of the key column
+    per range; no sorted copy of the table), then pairs_from_table. Returns
+    the kept pairs of each range, in range order, as (rep, tgt, diag << 1 |
+    rev) int32."""
+    parts = []
+    for lo, hi in ranges:
+        idx = ((rkey >= lo) & (rkey <= hi)).nonzero()[:, 0]
+        rep, tgt, diag, rev = pairs_from_table(kmer[idx], sid[idx], pos[idx],
+                                               slen[idx], params)
+        del idx
+        parts.append([rep, tgt, (diag << 1) | rev])
+    return parts
+
+
+def _bucket(stream, klo, khi):
+    """The pairs of `stream` (rep, tgt, diag << 1 | rev) whose
+    representative key lies in [klo, khi], in stream order, sorted by
+    sort_pairs."""
+    idx = ((stream[0] >= klo) & (stream[0] <= khi)).nonzero()[:, 0]
+    rep, tgt, dr = (x[idx] for x in stream)
+    return sort_pairs(rep, tgt, dr >> 1, dr & 1)
+
+
+def merge_parts(parts, keys, budget):
+    """Stage C over the kept pairs of every hash range, equal to running it
+    on all of them at once. Stage C needs the pairs sorted by (rep, tgt,
+    diag); they are sorted and scanned in buckets of whole representatives
+    of at most `budget` pairs (a representative with more pairs is a bucket
+    of its own), cut greedily over the exact per-representative counts.
+    A bucket's last target segment may go on into the next buckets (the
+    run-absorb quirk: the same target at a representative boundary), so
+    those buckets' leading pairs with that target are scanned with it; the
+    hits starting in them are left to their own bucket. parts are lists
+    [rep, tgt, diag << 1 | rev] (pairs_by_range), joined here and freed;
+    keys int32[N] are the DB's keys, ascending.
+
+    Pairs equal on (rep, tgt, diag) keep their order within a range and
+    come in range order across ranges: the monolithic path orders them by
+    the k-mer value instead, so the two agree wherever such a run does not
+    mix strands across ranges (a pair's strand decides the hit's sign when
+    it ends a run of the winning diagonal)."""
+    hist = torch.zeros(keys.numel(), dtype=torch.int64, device=keys.device)
+    for part in parts:
+        hist += torch.bincount(torch.searchsorted(keys, part[0]),
+                               minlength=keys.numel())
+    if int(hist.sum()) == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=keys.device)
+        return empty, empty, empty, empty
+    keys_h = keys.cpu().numpy()
+    bounds = [(int(keys_h[lo]), int(keys_h[hi]))
+              for lo, hi in cut_bins(hist.cpu().numpy(), budget)]
+    del hist
+    stream = _join(parts)
+    cache = {}
+
+    def bucket(j):
+        if j not in cache:
+            cache[j] = _bucket(stream, *bounds[j])
+        return cache[j]
+
+    out = []
+    for i in range(len(bounds)):
+        cur = bucket(i)
+        segs = [cur]
+        last = cur[1][-1]
+        for j in range(i + 1, len(bounds)):
+            nxt = bucket(j)
+            n_lead = 0
+            if bool(nxt[1][0] == last):
+                other = (nxt[1] != last).nonzero()
+                n_lead = int(other[0, 0]) if other.numel() else nxt[1].numel()
+            if n_lead:
+                segs.append(tuple(c[:n_lead] for c in nxt))
+            if n_lead < nxt[1].numel():
+                break
+        cols = [torch.cat(c) for c in zip(*segs)] if len(segs) > 1 else cur
+        out.append(_hits(*cols, n_own=cur[0].numel()))
+        del cache[i], segs, cols, cur
+    return tuple(torch.cat(c) for c in zip(*out))
+
+
 def kmermatch_device(rows, offsets, lengths, code_lut, keys, hash_shift,
-                     params: KmerParams):
+                     params: KmerParams, budget=None):
     """Full device k-mer matcher on one device.
 
     rows uint8[T], offsets int64[N], lengths int32[N] (< MAX_LEN), code_lut
     uint8[256] (the flat sequences of build_table), keys int32[N]
-    (ascending, < MAX_KEY). Returns (rep, tgt, score, diag) int32[H] — hits
-    grouped by ascending rep key — and the number of table entries."""
-    kmer, sid, pos, slen = build_table(rows, offsets, lengths, code_lut, keys,
-                                       params, hash_shift)
-    rep, tgt, diag, rev = sort_pairs(*pairs_from_table(kmer, sid, pos, slen,
-                                                       params))
-    if rep.numel() == 0:
-        return rep, tgt, diag.clone(), diag, kmer.numel()
-    return (*best_diagonal_hits(rep, tgt, diag, rev), kmer.numel())
+    (ascending, < MAX_KEY). budget: None for the monolithic path, else the
+    split path's entries per hash range (and pairs per merge bucket); a
+    table of at most `budget` entries runs as one range, monolithic.
+    Returns (rep, tgt, score, diag) int32[H] — hits grouped by ascending
+    rep key —, the number of table entries and the hash ranges (inclusive
+    (lo, hi) range-key pairs)."""
+    kmer, sid, pos, slen, rkey = build_table(rows, offsets, lengths, code_lut,
+                                             keys, params, hash_shift)
+    n = kmer.numel()
+    ranges = [(0, RANGE_BINS - 1)]
+    if budget is not None and n > budget:
+        ranges = table_ranges(rkey, budget)
+    if len(ranges) == 1:
+        del rkey
+        pairs = sort_pairs(*pairs_from_table(kmer, sid, pos, slen, params))
+        del kmer, sid, pos, slen
+        return (*_hits(*pairs), n, ranges)
+    parts = pairs_by_range(kmer, sid, pos, slen, rkey, ranges, params)
+    del kmer, sid, pos, slen, rkey
+    return (*merge_parts(parts, keys, budget), n, ranges)

@@ -32,15 +32,24 @@ def synchronize(device):
         torch.cuda.synchronize(device)
 
 
-def stage_timer(device, seconds):
+def stage_timer(device, seconds, peaks=None):
     """timed(stage): a context manager that adds the block's wall seconds
     to seconds[stage], read after the device has finished its queued work
-    on both sides."""
+    on both sides. With `peaks` on a card, peaks[stage] is also the largest
+    torch.cuda.max_memory_allocated of the stage's blocks, the peak reset
+    as each block starts."""
+    measure = peaks is not None and device.type == "cuda"
+
     @contextlib.contextmanager
     def timed(stage):
         synchronize(device)
+        if measure:
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         yield
         synchronize(device)
         seconds[stage] = seconds.get(stage, 0.0) + time.perf_counter() - t0
+        if measure:
+            peaks[stage] = max(peaks.get(stage, 0),
+                               torch.cuda.max_memory_allocated(device))
     return timed

@@ -59,6 +59,8 @@ class AssembleParams:
     rescore_mode: int = RESCORE_END_TO_END
     remove_tmp_files: bool = False
     delete_tmp_inc: bool = False
+    # bytes of k-mer table per hash-range split; 0: automatic on a card
+    split_memory_limit: int = 0
     device: str = "cuda"  # cuda | cuda:<i> | cpu
 
 
@@ -75,16 +77,17 @@ def run_assemble(input_files, out_fasta, tmp_base, params=None, stats=None):
     (paired). Writes out_fasta; returns its path.
 
     stats: an optional dict that receives the run's counts ("reads",
-    "orfs", and at iteration 0 "table_entries" and "hits") and, under
-    "seconds", the wall seconds per stage (ingest, kmermatch, rescore,
-    extend, filter, output), each read after the device has finished its
-    queued work."""
+    "orfs", and at iteration 0 "table_entries" and "hits"), under "ranges"
+    the matcher's hash ranges per call, under "seconds" the wall seconds
+    per stage (ingest, kmermatch, rescore, extend, filter, output), each
+    read after the device has finished its queued work, and on a card
+    under "peak_bytes" each stage's peak device memory."""
     p = params or AssembleParams()
     device = pick_device(p.device)
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
 
-    timed = stage_timer(device, seconds)
+    timed = stage_timer(device, seconds, stats.setdefault("peak_bytes", {}))
 
     if os.path.exists(out_fasta):
         raise FileExistsError(f"{out_fasta} exists already!")
@@ -166,7 +169,9 @@ def run_assemble(input_files, out_fasta, tmp_base, params=None, stats=None):
                 kmers_per_sequence=p.kmers_per_sequence,
                 kmers_per_sequence_scale=p.kmers_per_sequence_scale,
                 hash_shift=shift, ignore_multi_kmer=p.ignore_multi_kmer,
-                include_only_extendable=only_ext, cov_thr=p.cov_thr)
+                include_only_extendable=only_ext, cov_thr=p.cov_thr,
+                split_memory_limit=p.split_memory_limit)
+        stats.setdefault("ranges", []).append(len(hits.ranges))
         if iteration == 0 and "hits" not in stats:
             stats["table_entries"] = hits.table_entries
             stats["hits"] = len(hits.hit_slots)

@@ -64,6 +64,9 @@ class GuidedNuclAssembleParams:
     zdrop: int = 200
     remove_tmp_files: bool = False
     delete_tmp_inc: bool = False
+    # bytes of k-mer table per hash-range split, for the matchers of both
+    # loops; 0: automatic on a card
+    split_memory_limit: int = 0
     device: str = "cuda"  # cuda | cuda:<i> | cpu
 
 
@@ -87,16 +90,19 @@ def run_guided_nuclassemble(input_files, out_fasta, tmp_base, params=None,
 
     stats: an optional dict that receives the run's counts ("reads", "orfs",
     at aa iteration 0 "table_entries" and "hits", "only_assembled",
-    "contigs"), under "seconds" the wall seconds per stage (ingest, orfs,
+    "contigs"), under "ranges" the amino-acid matcher's hash ranges per
+    iteration, under "seconds" the wall seconds per stage (ingest, orfs,
     kmermatch, rescore, aln2nucl, extend, select, nuclassemble, linclust,
-    output), each read after the device has finished its queued work, under
+    output), each read after the device has finished its queued work, on a
+    card under "peak_bytes" each stage's peak device memory, under
     "nuclassemble" the nested run's own stats (run_nuclassemble) and under
     "linclust_seconds" the seconds of the linclust stages (run_linclust)."""
     p = params or GuidedNuclAssembleParams()
     device = pick_device(p.device)
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
-    timed = stage_timer(device, seconds)
+    peaks = stats.setdefault("peak_bytes", {})
+    timed = stage_timer(device, seconds, peaks)
 
     if os.path.exists(out_fasta):
         raise FileExistsError(f"{out_fasta} exists already!")
@@ -169,7 +175,9 @@ def run_guided_nuclassemble(input_files, out_fasta, tmp_base, params=None,
                 kmers_per_sequence=p.kmers_per_sequence,
                 kmers_per_sequence_scale=p.kmers_per_sequence_scale,
                 hash_shift=p.hash_shift, ignore_multi_kmer=True,
-                include_only_extendable=True)
+                include_only_extendable=True,
+                split_memory_limit=p.split_memory_limit)
+        stats.setdefault("ranges", []).append(len(hits.ranges))
         if it == 0 and "hits" not in stats:
             stats["table_entries"] = hits.table_entries
             stats["hits"] = len(hits.hit_slots)
@@ -214,12 +222,16 @@ def run_guided_nuclassemble(input_files, out_fasta, tmp_base, params=None,
         hash_shift=p.hash_shift, max_seq_len=p.max_seq_len,
         cycle_check=p.cycle_check, chop_cycle=p.chop_cycle,
         min_contig_len=p.min_contig_len, cov_mode=1, db_mode=True,
-        device=p.device)
+        split_memory_limit=p.split_memory_limit, device=p.device)
     nucl_out = wf.path("nuclassembly")
+    nested = stats.setdefault("nuclassemble", {})
     with timed("nuclassemble"):
         _, nucl_db = run_nuclassemble(
             [merged_path], nucl_out, wf.path("nuclassembly_tmp"), nucl_params,
-            return_db=True, stats=stats.setdefault("nuclassemble", {}))
+            return_db=True, stats=nested)
+    if nested.get("peak_bytes"):
+        # the nested stages reset the peak as they start: theirs is this one
+        peaks["nuclassemble"] = max(nested["peak_bytes"].values())
     cycle_index = nucl_out + "_cycle.index"
     cycle_keys = set()
     has_cycle = os.path.exists(cycle_index)

@@ -51,6 +51,8 @@ class NuclAssembleParams:
     db_mode: bool = False
     remove_tmp_files: bool = False
     delete_tmp_inc: bool = False
+    # bytes of k-mer table per hash-range split; 0: automatic on a card
+    split_memory_limit: int = 0
     device: str = "cuda"  # cuda | cuda:<i> | cpu
 
 
@@ -60,16 +62,17 @@ def run_nuclassemble(input_files, out_file, tmp_base, params=None,
     prefix and out_file receives the result DB.
 
     stats: an optional dict that receives the run's counts ("reads", and at
-    iteration 0 "table_entries", "hits" and "reverse_hits") and, under
-    "seconds", the wall seconds per stage (ingest, kmermatch, rescore,
-    extend, cyclecheck, output), each read after the device has finished
-    its queued work."""
+    iteration 0 "table_entries", "hits" and "reverse_hits"), under "ranges"
+    the matcher's hash ranges per iteration, under "seconds" the wall
+    seconds per stage (ingest, kmermatch, rescore, extend, cyclecheck,
+    output), each read after the device has finished its queued work, and
+    on a card under "peak_bytes" each stage's peak device memory."""
     p = params or NuclAssembleParams()
     device = pick_device(p.device)
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
 
-    timed = stage_timer(device, seconds)
+    timed = stage_timer(device, seconds, stats.setdefault("peak_bytes", {}))
 
     if not p.db_mode and os.path.exists(out_file):
         raise FileExistsError(f"{out_file} exists already!")
@@ -118,7 +121,8 @@ def run_nuclassemble(input_files, out_file, tmp_base, params=None,
                 kmers_per_sequence_scale=p.kmers_per_sequence_scale,
                 hash_shift=p.hash_shift, ignore_multi_kmer=p.ignore_multi_kmer,
                 include_only_extendable=p.include_only_extendable,
-                cov_thr=p.cov_thr)
+                cov_thr=p.cov_thr, split_memory_limit=p.split_memory_limit)
+        stats.setdefault("ranges", []).append(len(hits.ranges))
         if it == 0 and "hits" not in stats:
             stats["table_entries"] = hits.table_entries
             stats["hits"] = len(hits.hit_slots)

@@ -65,9 +65,10 @@ def test_cli_flags_map_to_params():
     ns = parser().parse_args([
         "assemble", "a.fq", "o.fas", "tmp", "-k", "aa:12,nucl:22",
         "--min-seq-id", "0.95", "--include-only-extendable", "0",
-        "--device", "cpu"])
+        "--split-memory-limit", "1.5K", "--device", "cpu"])
     p = assemble_params(ns)
     assert (p.kmer_size, p.min_seq_id, p.device) == (12, 0.95, "cpu")
+    assert p.split_memory_limit == 1536
     assert p.include_only_extendable_set and not p.include_only_extendable
 
 

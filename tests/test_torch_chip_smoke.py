@@ -1,5 +1,6 @@
 """chip_smoke.py, the port's GPU smoke run, on a machine without a card:
-its CPU rehearsal drives every phase at a tiny size and prints no result;
+its CPU rehearsal drives every phase at a tiny size (the split matcher's
+phases included) and prints no result;
 run alone, outside the repo, it fails without printing a result; its
 `kernels` line holds every key for every kernel."""
 import importlib.util
@@ -39,7 +40,16 @@ def test_cpu_rehearsal_runs_every_phase():
                 "; nuclassemble [ingest", "; linclust [kmermatch",
                 "[guided-scale] wall", "[guided-main] aa matcher on",
                 "[guided-main] K2 rescore_e2e on", "windows with '*' at both "
-                "ends: equal to the plain version", "[rehearsal]"):
+                "ends: equal to the plain version",
+                "[guided-main] K1, the aa matcher's 6 scans",
+                "[split-main] protein x400 iteration 0:",
+                "[split-main] nucl-scale iteration 0:",
+                "[split-main] nucl-scale last iteration:",
+                "[split-main] guided-scale aa iteration 0:",
+                "equal to the monolithic matcher",
+                "[nucl-split] --split-memory-limit", "equal to nucl-scale's",
+                "[nucl-large] 3000 reads", "equal hits, sha256",
+                "[done] all phases in", "[rehearsal]"):
         assert tag in out, out
     assert '"ok"' not in out
 
@@ -71,7 +81,8 @@ def test_kernels_line_has_every_key_for_every_kernel():
         "assemble": {"seg_scan": 78, "rescore_e2e": 13},
         "nuclassemble": {"seg_scan": 48, "rescore_e2e_rev_uniform": 8},
         "guided_nuclassemble": {"seg_scan": 60, "rescore_e2e": 5,
-                                "rescore_e2e_rev_uniform": 5}}
+                                "rescore_e2e_rev_uniform": 5},
+        "split": {"seg_scan": 150, "rescore_e2e_rev_uniform": 8}}
     kernels = chip_smoke.kernels_summary(
         dict(m, copy_ms=0.06, elements=100), m, {n: m for n in names[2:]},
         launches)
@@ -87,7 +98,8 @@ def test_kernels_line_has_every_key_for_every_kernel():
         assert set(k["launches_by_path"]) == set(launches)
         assert k["launches"] == sum(k["launches_by_path"].values())
     by_name = {k["name"]: k for k in line}
-    assert by_name["seg_scan"]["launches"] == 186
+    assert by_name["seg_scan"]["launches"] == 336
     assert by_name["rescore_e2e"]["launches_by_path"] == {
-        "assemble": 13, "nuclassemble": 0, "guided_nuclassemble": 5}
+        "assemble": 13, "nuclassemble": 0, "guided_nuclassemble": 5,
+        "split": 0}
     assert by_name["rescore_e2e_rev"]["launches"] == 0

@@ -308,31 +308,40 @@ def test_cli_flags_map_to_params():
     from plass_tpu.cli import penguin as ref_cli
     from plass_tpu_torch.cli.penguin import guided_params, parser
 
+    from plass_tpu.ops.kmermatch import parse_memory_limit
+
+    def ref_value(space, name):
+        # the JAX package's CLI takes --split-memory-limit for guided but
+        # its params class does not carry it: read the parsed flag
+        if name == "split_memory_limit":
+            return parse_memory_limit(space.values[name])
+        return getattr(ref_guided.GuidedNuclAssembleParams.from_space(space),
+                       name)
+
     base = ["guided_nuclassemble", "a.fq", "o.fasta", "tmp"]
     p = guided_params(parser().parse_args(base))
     assert p == port_guided.GuidedNuclAssembleParams(delete_tmp_inc=True)
-    want = ref_guided.GuidedNuclAssembleParams.from_space(
-        ref_cli._guided_defaults())
+    space = ref_cli._guided_defaults()
     for name, value in vars(p).items():
         if name != "device":
-            assert getattr(want, name) == value, name
+            assert ref_value(space, name) == value, name
 
     flags = ["--num-iterations", "aa:2,nucl:3", "-k", "aa:12,nucl:20",
              "--min-seq-id", "aa:0.9,nucl:0.95", "--kmer-per-seq-scale",
              "aa:0.3,nucl:0.2", "--clust-min-seq-id", "0.9",
              "--clust-min-cov", "0.8", "--min-contig-len", "150",
-             "--chop-cycle", "0"]
+             "--chop-cycle", "0", "--split-memory-limit", "2G"]
     p = guided_params(parser().parse_args(base + flags + ["--device", "cpu"]))
     space = ref_cli._guided_defaults()
     space.parse_args(flags)
-    want = ref_guided.GuidedNuclAssembleParams.from_space(space)
     assert (p.aa_num_iterations, p.nucl_num_iterations) == (2, 3)
     assert (p.aa_kmer_size, p.nucl_kmer_size) == (12, 20)
     assert (p.aa_seq_id, p.nucl_seq_id) == (0.9, 0.95)
+    assert p.split_memory_limit == 2 << 30
     assert p.device == "cpu"
     for name, value in vars(p).items():
         if name != "device":
-            assert getattr(want, name) == value, name
+            assert ref_value(space, name) == value, name
     # a bare value sets both parts
     p = guided_params(parser().parse_args(base + ["--num-iterations", "4"]))
     assert (p.aa_num_iterations, p.nucl_num_iterations) == (4, 4)

@@ -96,7 +96,8 @@ def test_kmermatcher_matches_jax(which, shift, only_ext):
 @pytest.mark.parametrize("ignore_multi", [True, False])
 def test_select_kmers_matches_jax(ignore_multi):
     """Stage A alone, where the duplicate-skip state machine lives: the
-    selected (row, k-mer, pos) entries in selection order are equal."""
+    selected (row, k-mer, pos, range key) entries in selection order are
+    equal."""
     import jax.numpy as jnp
     from plass_tpu.ops.backend import db_to_padded
 
@@ -104,13 +105,13 @@ def test_select_kmers_matches_jax(ignore_multi):
     codes, lengths, _ = db_to_padded(db, "kmer")
     jp = jdk.KmerParams.protein_default(ignore_multi_kmer=ignore_multi,
                                         ksel=60)
-    sk, sp, sv, sh, _ = jdk.select_kmers(jnp.asarray(codes),
-                                         jnp.asarray(lengths), jp, 67)
+    sk, sp, sv, sh, sh16 = jdk.select_kmers(jnp.asarray(codes),
+                                            jnp.asarray(lengths), jp, 67)
     sv = np.asarray(sv)
     pp = pdk.KmerParams(k=14, alphabet_size=13, kmers_per_sequence=60,
                         kmers_per_sequence_scale=0.0,
                         ignore_multi_kmer=ignore_multi, ksel=60)
-    rows, kmer, pos, seq_hash = pdk.select_kmers(
+    rows, kmer, pos, seq_hash, h16 = pdk.select_kmers(
         torch.from_numpy(codes), torch.from_numpy(lengths), pp, 67)
     np.testing.assert_array_equal(rows.numpy(), np.nonzero(sv)[0])
     np.testing.assert_array_equal(kmer.numpy().view(np.uint64),
@@ -118,6 +119,8 @@ def test_select_kmers_matches_jax(ignore_multi):
     np.testing.assert_array_equal(pos.numpy(), np.asarray(sp)[sv])
     np.testing.assert_array_equal(seq_hash.numpy().view(np.uint64),
                                   np.asarray(sh))
+    # the split path's range keys: the selection hash
+    np.testing.assert_array_equal(h16.numpy(), np.asarray(sh16)[sv])
 
 
 def test_dup_skip_state_machine_matches_column_loop():

@@ -135,15 +135,16 @@ def _port_params(**kw):
 def test_nucl_select_kmers_matches_jax(which):
     """Stage A: canonical k-mers, palindromes dropped, reverse picks stored
     at len-pos-k with bit 63 clear, the duplicate skip on the strand-masked
-    k-mer: the selected (row, k-mer, pos) in selection order are equal."""
+    k-mer: the selected (row, k-mer, pos, range key) in selection order
+    are equal."""
     jdb, _ = _dbs(which)
     codes, lengths, _ = jbackend.db_to_padded(jdb, "kmer")
     n = jdb.size
-    sk, sp, sv, sh, _ = jdk.select_kmers(jnp.asarray(codes),
-                                         jnp.asarray(lengths),
-                                         _jax_params(codes.shape[1]), 67)
+    sk, sp, sv, sh, sh16 = jdk.select_kmers(jnp.asarray(codes),
+                                            jnp.asarray(lengths),
+                                            _jax_params(codes.shape[1]), 67)
     sv = np.asarray(sv)[:n]
-    rows, kmer, pos, seq_hash = pdk.select_kmers(
+    rows, kmer, pos, seq_hash, h16 = pdk.select_kmers(
         torch.from_numpy(codes[:n]), torch.from_numpy(lengths[:n]),
         _port_params(), 67)
     np.testing.assert_array_equal(rows.numpy(), np.nonzero(sv)[0])
@@ -152,6 +153,8 @@ def test_nucl_select_kmers_matches_jax(which):
     np.testing.assert_array_equal(pos.numpy(), np.asarray(sp)[:n][sv])
     np.testing.assert_array_equal(seq_hash.numpy().view(np.uint64),
                                   np.asarray(sh)[:n])
+    # the split path's range keys: the hash of the canonical k-mer
+    np.testing.assert_array_equal(h16.numpy(), np.asarray(sh16)[:n][sv])
     fwd = want_kmer >> np.uint64(63)
     assert 0 < fwd.sum() < len(fwd)   # both strands picked
 

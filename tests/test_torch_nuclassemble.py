@@ -92,10 +92,12 @@ def test_cli_flags_map_to_params():
     assert nuclassemble_params(ns) == NuclAssembleParams(delete_tmp_inc=True)
     ns = parser().parse_args([
         "nuclassemble", "a.fq", "o.fasta", "tmp", "-k", "aa:14,nucl:20",
-        "--min-seq-id", "0.97", "--cycle-check", "0", "--device", "cpu"])
+        "--min-seq-id", "0.97", "--cycle-check", "0",
+        "--split-memory-limit", "3M", "--device", "cpu"])
     p = nuclassemble_params(ns)
     assert (p.kmer_size, p.min_seq_id, p.cycle_check, p.device) == \
         (20, 0.97, False, "cpu")
+    assert p.split_memory_limit == 3 << 20
 
 
 def test_extend_refuses_modes_other_than_end_to_end():
