@@ -53,22 +53,43 @@ Phases, each printing its own lines; any failure exits non-zero:
      its bound); each of the matcher's six scans timed alone;
  12. split-main: the hash-range split matcher on the iteration-0 DBs of
      phases 4 and 10 and the first and last DBs of phase 7, with a budget
-     that gives at least 8 ranges and one an entry below the largest
-     range-key bin, equals the monolithic matcher (flat hits and device
-     hits); the monolithic matcher's device memory by stage, whose largest
-     bytes per table entry the automatic budget must cover;
+     that gives at least 8 ranges and, on phase 4's DB and phase 7's last,
+     one an entry below the largest range-key bin, equals the monolithic
+     matcher (flat hits and device hits); the monolithic matcher's device
+     memory by stage, whose largest bytes per table entry the automatic
+     budget must cover;
  13. nucl-split: phase 7's nuclassemble through the CLI with a
      --split-memory-limit that splits iteration 0 into at least 8 ranges:
      byte-identical to phase 7, with its stage seconds and peak memory;
- 14. nucl-large: the nucleotide matcher at iteration 0 on the fewest
+ 14. linclust-aa: `plass linclust` through the CLI on phase 4's contigs
+     at the defaults and at --min-seq-id 0.95, and on seeded protein
+     families (about 6,000 distinct proteins of a median 300 residues with
+     near and far relatives) at the defaults, each DB made with the port's
+     createdb, each run on the card and with --device cpu: the cluster DBs
+     byte for byte equal; stage seconds, the pairs the device
+     Smith-Waterman (B9) scored and its launches, peak device memory;
+ 15. sw-main: B9 on the candidate pairs of phase 14's align stage (for
+     each input the run with the most) and on edge rows (query length 1,
+     target length 0, lengths at the kernel's lane, register and strip
+     edges, pairs above 4,096 residues) against its plain version and the
+     native striped Smith-Waterman's scores (exact); timed beside its bound
+     (DPX-fused int32 operations per cell over the card's integer rate)
+     and in cells a second;
+ 16. hamming: `plass assemble` and `penguin nuclassemble` with
+     --rescore-mode 0 on the fixture, on the card and with --device cpu,
+     byte for byte; K2's HAMMING forms against their plain version on the
+     iteration-0 hits of phases 4 and 7 (reverse hits included) and on
+     edge rows (exact), timed beside their bound;
+ 17. nucl-large: the nucleotide matcher at iteration 0 on the fewest
      seeded 150-nt reads whose table the monolithic matcher would need more
      than the card's free memory for, with the automatic budget and at half
      of it: equal hits, peak memory under the card's (the matcher only).
-The kernels' launch counters are set to 0 just before phases 4, 7, 10 and
-13 and read just after; every kernel of each path must have run there. The
-last lines are the script's seconds, a JSON summary of the kernels (times,
-launches by path, bytes counted and the bound they give at 3.35 TB/s), the
-card's name and power limit, and {"ok": true, "device": {...}}.
+The kernels' launch counters are set to 0 just before phases 4, 7, 10, 13,
+14 and 16's CLI runs and read just after; every kernel of each path must
+have run there. The last lines are the script's seconds, a JSON summary of
+the kernels (times, launches by path, bytes or operations counted and the
+bound they give at 3.35 TB/s or the card's integer rate), the card's name
+and power limit, and {"ok": true, "device": {...}}.
 
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
@@ -101,12 +122,12 @@ def say(*parts):
     print(*parts, flush=True)
 
 
-def smi():
+def smi(query="name,power.limit", units=True):
     try:
         return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
+            ["nvidia-smi", f"--query-gpu={query}",
+             "--format=csv,noheader" + ("" if units else ",nounits")],
+            capture_output=True, text=True, timeout=60).stdout.strip()
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi unavailable ({e})"
 
@@ -155,12 +176,31 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_OPS_PER_S = 67e12      # H100 SXM, published, outside the tensor cores
 
 
-def bound(n_bytes, n_ops):
+SMS = 132                   # H100 SXM
+INT32_LANES_PER_SM = 64     # Hopper: 4 partitions of 16 INT32 units
+
+
+def bound(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of the bytes over the card's memory
-    rate and the operations over its float32 rate."""
+    rate and the operations over its rate for their type (float32 unless
+    given)."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def int32_ops_per_s(device):
+    """(ops/s, MHz): the card's int32 rate, its SMs x INT32 lanes per SM x
+    the clock nvidia-smi gives as clocks.max.sm. The rehearsal, with no
+    card, takes 1,980 MHz (the H100 SXM's boost clock)."""
+    text = smi("clocks.max.sm", units=False) if device.type == "cuda" else ""
+    try:
+        mhz = float(text.splitlines()[0])
+    except (IndexError, ValueError):
+        if device.type == "cuda":
+            raise AssertionError(f"clocks.max.sm unreadable: {text!r}")
+        mhz = 1980.0
+    return SMS * INT32_LANES_PER_SM * mhz * 1e6, mhz
 
 
 def scan_bytes(n, nvals):
@@ -178,19 +218,20 @@ def copy_ms(n_bytes, reps, device):
     return cuda_ms(lambda: dst.copy_(src), KERNEL_REPS * reps, device, queued=True)
 
 
-def rescore_traffic(args, qrev=None):
+def rescore_traffic(args, qrev=None, ops_per_residue=2):
     """(bytes, operations, residues) of one rescore call: every operand
-    read once, the four outputs written once; two operations (a score and
-    an identity) per window residue of these hits."""
+    read once (the matrix where args hold one), the four outputs written
+    once; ops_per_residue operations per window residue of these hits (two
+    for END_TO_END, a score and an identity; one for HAMMING)."""
     from plass_tpu_torch.ops.rescore_kernel import _overlap
-    rows, offsets, lengths, code_lut, qrow, trow, diag, sub = args
+    lengths, qrow, trow, diag = args[2], args[4], args[5], args[6]
     n_bytes = sum(x.numel() * x.element_size() for x in args)
     if qrev is not None:
         n_bytes += qrev.numel()
     n_bytes += 4 * 4 * qrow.numel()
     residues = int(_overlap(lengths, qrow.long(), trow.long(), diag)[0]
                    .clamp(min=0).sum())
-    return n_bytes, 2 * residues, residues
+    return n_bytes, ops_per_residue * residues, residues
 
 
 def upload_bytes(db, device):
@@ -265,7 +306,7 @@ def phase_env(device, rehearsal):
     say(f"[env] card: {smi()}")
     if not rehearsal:
         # one nvcc per source, all started together
-        names = ("seg_scan", "rescore")
+        names = ("seg_scan", "rescore", "sw_score")
         with ThreadPoolExecutor(len(names)) as pool:
             infos = list(pool.map(build.build, names))
         for name, info in zip(names, infos):
@@ -502,7 +543,7 @@ def phase_scale(device, work, copies):
         if min(launches.values()) == 0:
             raise AssertionError(f"a kernel of the main path never launched: "
                                  f"{launches}")
-    return launches, os.path.join(tmp, "latest", "aa_6f_start_long")
+    return launches, os.path.join(tmp, "latest", "aa_6f_start_long"), out
 
 
 # the protein matcher at iteration 0 (`plass assemble` defaults)
@@ -692,19 +733,24 @@ def phase_main_shapes(device, db_path, reps):
 def _rescore_launches():
     from plass_tpu_torch.ops import rescore_kernel as rk
     return {"rescore_e2e": rk.LAUNCHES, "rescore_e2e_rev": rk.LAUNCHES_REV,
-            "rescore_e2e_rev_uniform": rk.LAUNCHES_REV_UNIFORM}
+            "rescore_e2e_rev_uniform": rk.LAUNCHES_REV_UNIFORM,
+            "rescore_hamming": rk.LAUNCHES_HAMMING,
+            "rescore_hamming_rev": rk.LAUNCHES_HAMMING_REV}
 
 
 def _launches():
-    from plass_tpu_torch.ops import seg_scan
-    return {"seg_scan": seg_scan.LAUNCHES, **_rescore_launches()}
+    from plass_tpu_torch.ops import device_align, seg_scan
+    return {"seg_scan": seg_scan.LAUNCHES, **_rescore_launches(),
+            "sw_score": device_align.LAUNCHES}
 
 
 def _reset_launches():
+    from plass_tpu_torch.ops import device_align, seg_scan
     from plass_tpu_torch.ops import rescore_kernel as rk
-    from plass_tpu_torch.ops import seg_scan
     seg_scan.LAUNCHES = 0
     rk.LAUNCHES = rk.LAUNCHES_REV = rk.LAUNCHES_REV_UNIFORM = 0
+    rk.LAUNCHES_HAMMING = rk.LAUNCHES_HAMMING_REV = 0
+    device_align.LAUNCHES = device_align.PAIRS = 0
 
 
 def nucl_cli(inputs, out_dir, extra, device, stats=None):
@@ -888,6 +934,7 @@ def phase_nucl_main(device, first_db, last_db, reps):
     first and of the last iteration and on edge cases, and are timed
     against it and their bound at iteration 0 and, the kernel alone, at the
     last iteration."""
+    import torch
     from plass_tpu_torch.data import seqdb
     from plass_tpu_torch.ops import device_kmer
     from plass_tpu_torch.ops.backend import kmermatcher_torch
@@ -954,7 +1001,11 @@ def phase_nucl_main(device, first_db, last_db, reps):
     del hits
     say(f"[nucl-main] the matcher's scans at the last iteration: "
         f"{scans_text(scans)}")
+    t0 = time.perf_counter()
     want = rescore_e2e_plain(*args, **rkw)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    last_plain_ms = (time.perf_counter() - t0) * 1e3
     n_rev = int(rkw["qrev"].sum())
     n_bytes, n_ops, residues = rescore_traffic(args, rkw["qrev"])
     bms, bby = bound(n_bytes, n_ops)
@@ -974,7 +1025,8 @@ def phase_nucl_main(device, first_db, last_db, reps):
         f"{int(args[2].max())} nt, {residues} window residues): equal to the "
         f"plain version; kernel "
         + ", ".join(f"{last_ms[k]:.4f} ms" for k in NUCL_K2)
-        + f", bound {bms:.4f} ms by {bby} ({n_bytes} bytes)")
+        + f", plain {last_plain_ms:.1f} ms (one call), bound {bms:.4f} ms "
+        f"by {bby} ({n_bytes} bytes)")
     say(f"[nucl-main] rescore upload per call at the last iteration: {flat} "
         f"bytes (flat rows, offsets, lengths, code table); the padded codes "
         f"and chars took {padded} bytes ({padded / 2**30:.2f} GiB)")
@@ -1314,18 +1366,19 @@ def _same_hits(a, b):
 
 def phase_split_main(device, inputs, rehearsal):
     """The split matcher against the monolithic one at the main paths'
-    shapes: for each (name, DB path, k, matcher keywords), the monolithic
-    call, a split into at least 8 ranges and a split whose budget is one
-    entry below the largest range-key bin give equal flat hits and device
-    hits; the monolithic matcher's memory by stage gives its bytes per
-    table entry, which the automatic budget assumes. Returns the largest
-    bytes per entry measured."""
+    shapes: for each (name, DB path, k, matcher keywords, edge), the
+    monolithic call, a split into at least 8 ranges and, where edge is
+    true, a split whose budget is one entry below the largest range-key bin
+    (thousands of ranges at about 2 ms each) give equal flat hits and
+    device hits; the monolithic matcher's memory by stage gives its bytes
+    per table entry, which the automatic budget assumes. Returns the
+    largest bytes per entry measured."""
     from plass_tpu_torch.data import seqdb
     from plass_tpu_torch.ops.backend import BYTES_PER_ENTRY, kmermatcher_torch
     from plass_tpu_torch.ops.kmermatch import ENTRY_BYTES
 
     worst = 0.0
-    for name, path, k, kw in inputs:
+    for name, path, k, kw, edge in inputs:
         db = seqdb.SeqDB.open(path)
         mem = matcher_memory(db, k, kw, device)
         _peak_reset(device)
@@ -1335,9 +1388,10 @@ def phase_split_main(device, inputs, rehearsal):
         peaks = {"monolithic": _peak(device)}
         top, largest = mem["largest_bin"]
         # the rehearsal's tables are too small for one range per few bins
-        budgets = {"8+ ranges": mono.table_entries // 10,
-                   "below the largest bin": largest - 1 if not rehearsal
-                   else max(largest - 1, mono.table_entries // 40)}
+        budgets = {"8+ ranges": mono.table_entries // 10}
+        if edge:
+            budgets["below the largest bin"] = largest - 1 if not rehearsal \
+                else max(largest - 1, mono.table_entries // 40)
         ranges = {}
         for label, budget in budgets.items():
             _peak_reset(device)
@@ -1352,7 +1406,7 @@ def phase_split_main(device, inputs, rehearsal):
                                      f"hits differ from the monolithic ones")
             del split
         if ranges["8+ ranges"] < 8 or len(mono.hit_slots) == 0 or (
-                largest <= budgets["below the largest bin"]
+                largest <= budgets.get("below the largest bin", 0)
                 and not rehearsal):
             raise AssertionError(f"split-main {name}: {ranges} ranges, "
                                  f"largest bin {largest}")
@@ -1529,16 +1583,456 @@ def phase_nucl_large(device, rehearsal):
         f"iterations are left out")
 
 
-def kernels_summary(k1, k2, rev, launches):
-    """The entries of the `kernels` line. k1, k2 and rev[name] hold a
-    kernel's measurements (max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    bytes); launches maps each main path to its {kernel: launches}."""
+# ---------------------------------------------------------------------------
+# the amino-acid aligner: `plass linclust` on the assembled proteins
+
+# `plass linclust` runs: (input, label, flags). "contigs" are phase 4's;
+# "families" is family_fasta's DB of distinct proteins
+LINCLUST_RUNS = (("contigs", "defaults", ()),
+                 ("contigs", "--min-seq-id 0.95", ("--min-seq-id", "0.95")),
+                 ("families", "defaults", ()))
+# families in family_fasta's DB: about 6,000 proteins, 1.9M residues
+FAMILIES = 1500
+
+
+def family_fasta(path, n_fam, seed=17):
+    """A seeded FASTA of protein families, the kind of input `plass
+    linclust` clusters after an assembly: many distinct proteins of
+    hundreds of residues with near and far relatives. A family's root has
+    a log-normal length (median 300 residues, 80 to 1,500), its letters
+    drawn from BLOSUM62's background frequencies; 1 + Poisson(3) members,
+    all but the root with 1-20% substitutions, Poisson(L / 200) indels of 1
+    to 5 residues and up to 15% cut from the ends; records shuffled.
+    Returns the number of records."""
+    from plass_tpu_torch import constants
+    mat = constants.blosum62()
+    freq = np.asarray(mat.pback[:20], dtype=np.float64)
+    freq /= freq.sum()
+    letters = mat.num2aa[:20]
+    rng = np.random.default_rng(seed)
+
+    def draw(n):
+        return letters[rng.choice(20, n, p=freq)]
+
+    recs = []
+    for _ in range(n_fam):
+        root = draw(int(np.clip(rng.lognormal(np.log(300), 0.5), 80, 1500)))
+        recs.append(root)
+        for _ in range(rng.poisson(3)):
+            s = root.copy()
+            mut = rng.random(len(s)) < rng.uniform(0.01, 0.2)
+            s[mut] = draw(int(mut.sum()))
+            for _ in range(rng.poisson(len(root) / 200)):
+                at, n = int(rng.integers(0, len(s))), int(rng.integers(1, 6))
+                s = np.delete(s, slice(at, at + n)) if rng.random() < 0.5 \
+                    else np.insert(s, at, draw(n))
+            cut = int(rng.integers(0, max(1, int(0.15 * len(s)))))
+            a = int(rng.integers(0, cut + 1))
+            recs.append(s[a:len(s) - (cut - a)])
+    with open(path, "w") as fh:
+        for i in rng.permutation(len(recs)):
+            fh.write(f">f{i}\n{recs[i].tobytes().decode()}\n")
+    return len(recs)
+
+
+def linclust_cli(db_path, out_dir, extra, device, stats=None):
+    from plass_tpu_torch.cli.plass import run
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "clu")
+    rc = run(["linclust", db_path, out, os.path.join(out_dir, "tmp"),
+              "--device", str(device), *extra], stats=stats)
+    if rc != 0:
+        raise AssertionError(f"CLI exit code {rc}")
+    return out
+
+
+def db_bytes(prefix):
+    """A DB's data, index and dbtype files, one after the other."""
+    return b"".join(open(prefix + ext, "rb").read()
+                    for ext in ("", ".index", ".dbtype"))
+
+
+def seconds_text(seconds):
+    return ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+
+
+def phase_linclust_aa(device, work, fasta, rehearsal):
+    """`plass linclust` through the CLI at each of LINCLUST_RUNS, on the
+    device and with --device cpu: the cluster DBs byte for byte equal. The
+    inputs are phase 4's contigs and family_fasta's proteins, each made
+    into a DB with the port's createdb. The align stage's candidate pairs
+    (the arguments of protein_align._maybe_device_prefilter) of each
+    device run are recorded for phase sw-main. Returns (the launches of the
+    device runs, summed, and {input: the recorded call with the most
+    candidate pairs})."""
+    from plass_tpu_torch.data.createdb import create_db
+    from plass_tpu_torch.ops import device_align, protein_align
+
+    paths = {}
+    for name, src in (("contigs", fasta), ("families", None)):
+        t0 = time.perf_counter()
+        if src is None:
+            src = os.path.join(work, "families.fasta")
+            family_fasta(src, 12 if rehearsal else FAMILIES)
+        db, hdb = create_db([src])
+        paths[name] = os.path.join(work, name + "_db", name)
+        os.makedirs(os.path.dirname(paths[name]))
+        db.save(paths[name])
+        hdb.save(paths[name] + "_h")
+        lens = db.seq_lens()
+        what = (f"phase 4's {db.size} contigs" if name == "contigs" else
+                f"{db.size} proteins of family_fasta")
+        say(f"[linclust-aa] {what} made into a DB with createdb in "
+            f"{time.perf_counter() - t0:.1f} s: {int(lens.sum())} residues, "
+            f"median {int(np.median(lens))}, longest {int(lens.max())}")
+    calls = {}
+    real = protein_align._maybe_device_prefilter
+
+    def spy(*args):
+        pdb, tdb, hits, _mat, bias_corr, gapo, gape, incl, same = args[:9]
+        spied.append(dict(db=pdb, tdb=tdb, hits=hits,
+                          comp_bias_corr=bias_corr, gap_open=gapo,
+                          gap_extend=gape, include_identity=incl,
+                          same_db=same, pairs=protein_align.candidate_pairs(
+                              hits, incl, same)))
+        return real(*args)
+
+    total = {}
+    for name, label, flags in LINCLUST_RUNS:
+        tag = name + "".join(c for c in label if c.isalnum())
+        stats, cpu_stats, spied = {}, {}, []
+        _reset_launches()
+        _peak_reset(device)
+        protein_align._maybe_device_prefilter = spy
+        try:
+            t0 = time.perf_counter()
+            out = linclust_cli(paths[name], os.path.join(work, "lc_" + tag),
+                               flags, device, stats)
+            wall = time.perf_counter() - t0
+        finally:
+            protein_align._maybe_device_prefilter = real
+        peak = _peak(device)
+        launches = _launches()
+        scored = device_align.PAIRS
+        c = spied[-1]
+        if len(c["pairs"]) >= len(calls.get(name, c)["pairs"]):
+            calls[name] = c
+        t0 = time.perf_counter()
+        cpu_out = linclust_cli(paths[name], os.path.join(work, "lccpu_" + tag),
+                               flags, "cpu", cpu_stats)
+        cpu_wall = time.perf_counter() - t0
+        data = db_bytes(out)
+        if data != db_bytes(cpu_out):
+            raise AssertionError(f"linclust-aa {name} {label}: the cluster DB "
+                                 f"differs from the run with --device cpu")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        say(f"[linclust-aa] {name} {label}: {stats['clusters']} clusters of "
+            f"{stats['sequences']} sequences in {wall:.1f} s (--device cpu "
+            f"{cpu_wall:.1f} s), cluster DB sha256 "
+            f"{hashlib.sha256(data).hexdigest()}, byte-identical to the run "
+            f"with --device cpu")
+        say(f"[linclust-aa] {name} {label}: seconds per stage: "
+            f"{seconds_text(stats['seconds'])}; with --device cpu: "
+            f"{seconds_text(cpu_stats['seconds'])}")
+        say(f"[linclust-aa] {name} {label}: {len(c['db'].keys)} "
+            f"representatives, {len(c['pairs'])} candidate pairs in the align "
+            f"stage, {scored} scored by B9 in {launches['sw_score']} "
+            f"launches; peak device memory {peak / 2**30:.2f} GiB")
+        if device.type == "cuda" and name == "families" \
+                and not launches["sw_score"]:
+            raise AssertionError("linclust-aa: B9 never launched on the "
+                                 "families (under 512 candidate pairs)")
+    if device.type == "cuda" and not total["sw_score"]:
+        raise AssertionError("linclust-aa: B9 never launched through the CLI")
+    return total, calls
+
+
+# B9's edge rows: a row per lane up to 32, the edges of the register tiers
+# (32 * R rows, R = 1, 2, 4, 8, 16), the strip edge at 512 and its
+# multiples, pairs above 4,096 residues; the rehearsal's are shorter
+SW_EDGE_LENS = ((1, 2, 31, 32, 33, 64, 65, 128, 129, 256, 257, 511, 512, 513,
+                 1024, 1025, 5000), (0, 1, 31, 32, 33, 700, 6000))
+SW_REHEARSAL_LENS = ((1, 2, 31, 32, 33, 65, 513), (0, 1, 33, 100))
+SW_NATIVE_PAIRS = 4000   # real pairs also held against the native ssw
+# The least int32 work of a DP cell of the affine local score, with the
+# bias folded into the query's profile and every add-and-max and three-way
+# max one Hopper DPX instruction: H = max(Hdiag + p, E, F, 0) 2 (an add,
+# a __vimax3_s32_relu), H - gapo 1, E and F one __viaddmax_s32 each, the
+# best 1. NVIDIA publishes no DPX rate; counted at the INT32 rate, the
+# bound can only come out below what the card can reach. Without DPX the
+# same cell takes 10.
+SW_OPS_PER_CELL = 6
+SW_OPS_PER_CELL_NO_DPX = 10
+
+
+def _sw_edge_dbs(lens):
+    """(query DB, target DB, pairs): seeded rows of the given lengths, the
+    targets copies of queries with 8% substitutions so that they score,
+    every (query, target) pair."""
+    from plass_tpu_torch.data import seqdb
+    rng = np.random.default_rng(5)
+    letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX", dtype=np.uint8)
+    queries = [letters[rng.integers(0, 20, n)] for n in lens[0]]
+    targets = []
+    for i, n in enumerate(lens[1]):
+        t = letters[rng.integers(0, 21, n)]
+        src = queries[-1 - (i % 5)]
+        m = min(n, len(src))
+        t[:m] = src[:m]
+        mut = rng.random(n) < 0.08
+        t[mut] = letters[rng.integers(0, 20, int(mut.sum()))]
+        targets.append(t)
+    qdb, tdb = (seqdb.SeqDB.from_records([x.tobytes() for x in rows],
+                                         dbtype=seqdb.AMINO_ACIDS)
+                for rows in (queries, targets))
+    pairs = [(int(a), int(b)) for a in qdb.keys for b in tdb.keys]
+    return qdb, tdb, pairs
+
+
+def _native_scores(db, tdb, pairs, comp_bias_corr, gap_open, gap_extend):
+    """The native striped Smith-Waterman's best score of each pair (the
+    host aligner, ProteinAligner.ssw_align score only)."""
+    from plass_tpu_torch import constants
+    from plass_tpu_torch.ops.evalue import EvalueComputer
+    from plass_tpu_torch.ops.protein_align import ProteinAligner
+
+    mat = constants.blosum62()
+    aligner = ProteinAligner(mat, comp_bias_corr)
+    ev = EvalueComputer.for_matrix("blosum62_11_1", tdb.total_residues())
+    by_query = {}
+    for i, (q, t) in enumerate(pairs):
+        by_query.setdefault(q, []).append((i, t))
+    scores = np.zeros(len(pairs), dtype=np.int64)
+    for q, items in by_query.items():
+        qnum = mat.aa2num[np.asarray(db.get_seq(db.key_to_id(q)))]
+        if not len(qnum):
+            continue
+        aligner.init_query(qnum)
+        for i, t in items:
+            tnum = mat.aa2num[np.asarray(tdb.get_seq(tdb.key_to_id(t)))]
+            if len(tnum):
+                scores[i] = aligner.ssw_align(
+                    tnum, gap_open, gap_extend, 0, 1e-3, ev, 0, 0.0,
+                    len(qnum) // 2)["score1"]
+    return scores
+
+
+def _sw_check(db, tdb, pairs, comp_bias_corr, gaps, device, n_native):
+    """B9 on (db, tdb, pairs) against its plain version and, on the first
+    n_native pairs, against the native ssw. Returns (operands, scores)."""
+    from plass_tpu_torch import constants
+    from plass_tpu_torch.ops import protein_align as pa
+    from plass_tpu_torch.ops.device_align import (pair_operands, sw_score,
+                                                  sw_score_plain)
+    mat = constants.blosum62()
+    args = pair_operands(
+        db, tdb, pairs,
+        lambda qid: pa.query_profile_row(db, qid, mat, comp_bias_corr),
+        device)
+    got = sw_score(*args, *gaps)
+    err = max_abs_err([got], [sw_score_plain(*args, *gaps, budget=1 << 25)])
+    native = _native_scores(db, tdb, pairs[:n_native], comp_bias_corr, *gaps)
+    nerr = int(np.abs(got.cpu().numpy()[:n_native].astype(np.int64)
+                      - native).max(initial=0))
+    if err or nerr:
+        raise AssertionError(f"B9: max |err| {err} against the plain "
+                             f"version, {nerr} against the native ssw")
+    return args, got
+
+
+def _sw_time(args, gaps, reps, device):
+    """B9's kernel ms (launches queued), its plain version's (one call),
+    the cells, GCUPS and bound of one call on these operands."""
+    import torch
+    from plass_tpu_torch.ops.device_align import sw_score, sw_score_plain
+    ms = cuda_ms(lambda: sw_score(*args, *gaps), KERNEL_REPS * reps, device,
+                 queued=True)
+    pms = cuda_ms(lambda: sw_score_plain(*args, *gaps, budget=1 << 25), 1,
+                  device)
+    qlen = args[2][args[8].long()].long()
+    tlen = args[6][args[9].long()].long()
+    cells = int((qlen * tlen).sum())
+    rate, mhz = int32_ops_per_s(device)
+    n_bytes = sum(x.numel() * x.element_size() for x in args
+                  if isinstance(x, torch.Tensor)) + 4 * args[8].numel()
+    n_ops = SW_OPS_PER_CELL * cells
+    bms, bby = bound(n_bytes, n_ops, rate)
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": bby, "bytes": n_bytes, "operations": n_ops,
+            "cells": cells, "gcups": cells / (ms * 1e-3) / 1e9,
+            "pairs": args[8].numel(), "mhz": mhz, "rate": rate,
+            "no_dpx_bound_ms": bound(n_bytes, SW_OPS_PER_CELL_NO_DPX * cells,
+                                     rate)[0]}
+
+
+def phase_sw_main(device, calls, rehearsal):
+    """B9 on the candidate pairs of each linclust-aa input's align stage
+    (the run with the most) and on edge rows: equal to its plain version
+    and to the native ssw's scores; timed against its plain version and its
+    bound. Returns the measurements on the families' pairs, with the
+    contigs' under "contigs"."""
+    from plass_tpu_torch.ops.device_align import sw_score
+    from plass_tpu_torch.ops.evalue import EvalueComputer
+
+    reps = 1 if rehearsal else 20
+    out = {}
+    for name in ("contigs", "families"):
+        call = calls[name]
+        pairs = call["pairs"]
+        gaps = (call["gap_open"], call["gap_extend"])
+        if not pairs:
+            raise AssertionError(f"sw-main: the {name}' align stage had no "
+                                 f"pairs")
+        args, got = _sw_check(call["db"], call["tdb"], pairs,
+                              call["comp_bias_corr"], gaps, device,
+                              SW_NATIVE_PAIRS)
+        m = out[name] = _sw_time(args, gaps, reps, device)
+        qlen = args[2][args[8].long()]
+        tlen = args[6][args[9].long()]
+        ev = EvalueComputer.for_matrix("blosum62_11_1",
+                                       call["tdb"].total_residues())
+        fail = sum(float(ev.evalue(int(sc), int(ql))) > 1e-3   # linclust -e
+                   for sc, ql in zip(got.tolist(), qlen.tolist()))
+        say(f"[sw-main] B9 on the {len(pairs)} candidate pairs of linclust's "
+            f"align stage on the {name} ({call['db'].size} representatives, "
+            f"queries of median {int(qlen.median())} and up to "
+            f"{int(qlen.max())}, targets of median {int(tlen.median())} and "
+            f"up to {int(tlen.max())} residues, {m['cells']} cells, gaps "
+            f"{gaps[0]}/{gaps[1]}, {int((got > 0).sum())} scores above 0, "
+            f"{fail} failing the E-value test, whose host ssw B9 spares): "
+            f"equal to the plain version, and to the native ssw on the first "
+            f"{min(len(pairs), SW_NATIVE_PAIRS)}")
+        say(f"[sw-main] B9 on the {name}' {len(pairs)} pairs: kernel "
+            f"{m['ms']:.4f} ms ({m['gcups']:.1f} GCUPS), plain "
+            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by "
+            f"{m['bound_by']} ({100 * m['bound_ms'] / m['ms']:.1f}% of it "
+            f"reached; {SW_OPS_PER_CELL} DPX-fused int32 operations a cell "
+            f"over {SMS} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
+            f"{m['mhz']:.0f} MHz clocks.max.sm = {m['rate'] / 1e12:.2f} "
+            f"Tops/s; without DPX, {SW_OPS_PER_CELL_NO_DPX} a cell, "
+            f"{m['no_dpx_bound_ms']:.4f} ms; {m['bytes']} bytes)")
+    edb, etdb, epairs = _sw_edge_dbs(SW_REHEARSAL_LENS if rehearsal
+                                     else SW_EDGE_LENS)
+    for egaps in ((11, 1), (5, 2)):
+        eargs, egot = _sw_check(edb, etdb, epairs, True, egaps, device,
+                                len(epairs))
+    ecells = int((edb.seq_lens()[:, None].astype(np.int64)
+                  * etdb.seq_lens()[None, :]).sum())
+    ems = cuda_ms(lambda: sw_score(*eargs, *egaps), reps, device)
+    say(f"[sw-main] B9 on {len(epairs)} edge pairs (queries of "
+        f"{', '.join(str(n) for n in edb.seq_lens())}, targets of "
+        f"{', '.join(str(n) for n in etdb.seq_lens())} residues; gaps 11/1 "
+        f"and 5/2; best {int(egot.max())}): equal to the plain version and "
+        f"to the native ssw; {ecells} cells in {ems:.4f} ms a call "
+        f"({ecells / (ems * 1e-3) / 1e9:.1f} GCUPS)")
+    return dict(out["families"], contigs=out["contigs"])
+
+
+# `--rescore-mode 0` on the fixture: the protein loop cut to 3 iterations
+# without the coding filter, the nucleotide one to 2, every contig written
+HAMMING_PROTEIN = ("--rescore-mode", "0", "--num-iterations", "3",
+                   "--filter-proteins", "0")
+HAMMING_NUCL = ("--rescore-mode", "0", "--num-iterations", "2",
+                "--min-contig-len", "1", "--contig-output-mode", "0")
+
+
+def _check_hamming(name, args, kw, edge, edge_kw, what, reps, device):
+    """A HAMMING form against its plain version on real hits and edge
+    rows (exact); timed beside its bound, one operation (an identity) a
+    window residue."""
+    from plass_tpu_torch.ops.rescore_kernel import (rescore_hamming,
+                                                    rescore_hamming_plain)
+    err = max_abs_err(rescore_hamming(*args, **kw),
+                      rescore_hamming_plain(*args, **kw))
+    e2 = max_abs_err(rescore_hamming(*edge, **edge_kw),
+                     rescore_hamming_plain(*edge, **edge_kw))
+    if err or e2:
+        raise AssertionError(f"{name}: max |err| {err} on real hits, {e2} "
+                             f"on edge cases")
+    ms = cuda_ms(lambda: rescore_hamming(*args, **kw), KERNEL_REPS * reps,
+                 device, queued=True)
+    pms = cuda_ms(lambda: rescore_hamming_plain(*args, **kw), reps, device)
+    n_bytes, n_ops, residues = rescore_traffic(args, kw.get("qrev"), 1)
+    bms, bby = bound(n_bytes, n_ops)
+    say(f"[hamming] {name} on {args[4].numel()} {what} ({residues} window "
+        f"residues) and {edge[4].numel()} edge-case hits: equal to the plain "
+        f"version; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} "
+        f"ms by {bby} ({n_bytes} bytes)")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": pms, "bytes": n_bytes,
+            "bound_ms": bms, "bound_by": bby}
+
+
+def phase_hamming(device, work, protein_db, nucl_db, reps):
+    """--rescore-mode 0 through both CLIs on the fixture, the device's
+    output byte for byte the CPU's; the HAMMING forms at the iteration-0
+    hits of phases 4 and 7 and on edge rows. Returns (launches of the
+    device runs, measurements by kernel)."""
+    import torch
+    from plass_tpu_torch.data import seqdb
+    from plass_tpu_torch.ops.backend import flat_rows as db_rows
+    from plass_tpu_torch.ops.backend import kmermatcher_torch
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    outs = [fixture_cli(os.path.join(work, "ham_p"), HAMMING_PROTEIN, device),
+            nucl_cli(READS, os.path.join(work, "ham_n"), HAMMING_NUCL,
+                     device)]
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    cpu_outs = [fixture_cli(os.path.join(work, "ham_pcpu"), HAMMING_PROTEIN,
+                            "cpu"),
+                nucl_cli(READS, os.path.join(work, "ham_ncpu"), HAMMING_NUCL,
+                         "cpu")]
+    for name, flags, out, cpu_out in zip(
+            ("plass assemble", "penguin nuclassemble"),
+            (HAMMING_PROTEIN, HAMMING_NUCL), outs, cpu_outs):
+        data = open(out, "rb").read()
+        if not data or data != open(cpu_out, "rb").read():
+            raise AssertionError(f"hamming: {name} on the device differs from "
+                                 f"the run with --device cpu (or is empty)")
+        say(f"[hamming] {name} {' '.join(flags)}: {data.count(b'>')} "
+            f"contigs, sha256 {hashlib.sha256(data).hexdigest()}, "
+            f"byte-identical to the run with --device cpu")
+    say(f"[hamming] both device runs in {secs:.1f} s; launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    if device.type == "cuda" and not (launches["seg_scan"]
+                                      and launches["rescore_hamming"]
+                                      and launches["rescore_hamming_rev"]):
+        raise AssertionError(f"a kernel of the --rescore-mode 0 path never "
+                             f"launched: {launches}")
+    out = {}
+    db = seqdb.SeqDB.open(protein_db)
+    rep, tgt, diag, _ = kmermatcher_torch(db, 14, device, **PROTEIN_MATCH).dev
+    lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
+    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
+            lut[tgt.long()].to(torch.int32), diag.contiguous())
+    out["rescore_hamming"] = _check_hamming(
+        "rescore_hamming", args, {}, _edge_case_rows(device), {},
+        "iteration-0 hits of phase 4", reps, device)
+    db = seqdb.SeqDB.open(nucl_db)
+    _, args, rkw, _, _ = _nucl_rescore_inputs(db, device)
+    edge = _nucl_edge_case_rows(device)
+    out["rescore_hamming_rev"] = _check_hamming(
+        "rescore_hamming_rev", args[:7], rkw, edge[:7],
+        dict(rkw, qrev=edge[7]),
+        f"iteration-0 hits of phase 7 ({int(rkw['qrev'].sum())} reverse)",
+        reps, device)
+    return launches, out
+
+
+def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
+    """The entries of the `kernels` line. k1, k2, rev[name], sw and
+    hamming[name] hold a kernel's measurements (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, bytes); launches maps each main path to its
+    {kernel: launches}. Without sw or hamming their entries are left out."""
     def entry(name, source, replaces, m, **extra):
         paths = {path: counts.get(name, 0)
                  for path, counts in launches.items()}
         # library_ms: no single PyTorch call computes a segmented scan with
-        # these combine functions (torch.cummax is unsegmented) or a
-        # gathered diagonal rescore
+        # these combine functions (torch.cummax is unsegmented), a gathered
+        # diagonal rescore or identity count, or a batch of local
+        # alignment scores
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(paths.values()),
                 "launches_by_path": paths, "max_abs_err": m["max_abs_err"],
@@ -1558,6 +2052,19 @@ def kernels_summary(k1, k2, rev, launches):
         # workflow has one, so no main path launches it
         kernels.append(entry(name, *k2_src, rev[name],
                              main_path=name == "rescore_e2e_rev_uniform"))
+    if sw is not None:
+        kernels.append(entry(
+            "sw_score", "plass_tpu_torch/csrc/sw_score.cu",
+            "plass_tpu/ops/device_align.py:32", sw,
+            operations=sw["operations"], cells=sw["cells"],
+            gcups=sw["gcups"], pairs=sw["pairs"],
+            contigs={k: sw["contigs"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "cells", "gcups", "pairs")}))
+    for name in ("rescore_hamming", "rescore_hamming_rev") \
+            if hamming is not None else ():
+        kernels.append(entry(name, k2_src[0],
+                             "plass_tpu/ops/device_rescore.py:107",
+                             hamming[name]))
     return kernels
 
 
@@ -1609,7 +2116,8 @@ def main():
         timed_sizes=(5000,) if rehearsal else (14725883,))
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as work:
         phase_fixture(device, work)
-        launches, db_path = phase_scale(device, work, 4 if rehearsal else 400)
+        launches, db_path, assembly = phase_scale(
+            device, work, 4 if rehearsal else 400)
         (k1_main_err, k1), k2 = phase_main_shapes(device, db_path, reps)
         phase_nucl_fixture(device, work)
         nlaunches, ndb_paths, nrun = phase_nucl_scale(
@@ -1622,12 +2130,19 @@ def main():
         k1_guided_err, k2_guided_err = phase_guided_main(device, *gdb_paths,
                                                          reps)
         phase_split_main(device, [
-            ("protein x400 iteration 0", db_path, 14, PROTEIN_MATCH),
-            ("nucl-scale iteration 0", ndb_paths[0], 22, NUCL_MATCH),
-            ("nucl-scale last iteration", ndb_paths[1], 22, NUCL_MATCH),
-            ("guided-scale aa iteration 0", gdb_paths[0], 14, AA_MATCH)],
+            ("protein x400 iteration 0", db_path, 14, PROTEIN_MATCH, True),
+            ("nucl-scale iteration 0", ndb_paths[0], 22, NUCL_MATCH, False),
+            ("nucl-scale last iteration", ndb_paths[1], 22, NUCL_MATCH, True),
+            ("guided-scale aa iteration 0", gdb_paths[0], 14, AA_MATCH,
+             False)],
             rehearsal)
         slaunches = phase_nucl_split(device, work, nrun)
+        llaunches, lcalls = phase_linclust_aa(device, work, assembly,
+                                              rehearsal)
+        sw = phase_sw_main(device, lcalls, rehearsal)
+        del lcalls
+        hlaunches, hamming = phase_hamming(device, work, db_path,
+                                           ndb_paths[0], reps)
     phase_nucl_large(device, rehearsal)
     k1_err = max(k1_err, k1_main_err, k1_nucl_err, k1_guided_err)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_guided_err)
@@ -1640,7 +2155,8 @@ def main():
     kernels = kernels_summary(
         dict(k1, max_abs_err=k1_err), k2, rev,
         {"assemble": launches, "nuclassemble": nlaunches,
-         "guided_nuclassemble": glaunches, "split": slaunches})
+         "guided_nuclassemble": glaunches, "split": slaunches,
+         "linclust": llaunches, "rescore_mode_0": hlaunches}, sw, hamming)
     say(json.dumps({"kernels": kernels}))
     say(smi())
     say(json.dumps({"ok": True, "device": {

@@ -1,18 +1,21 @@
-"""plass_tpu_torch — `plass assemble`, `penguin nuclassemble` and
-`penguin guided_nuclassemble` in PyTorch and CUDA.
+"""plass_tpu_torch — `plass assemble`, `penguin nuclassemble`,
+`penguin guided_nuclassemble` and `linclust` in PyTorch and CUDA.
 
 A port of `plass_tpu` (JAX/Pallas) to PyTorch on an NVIDIA Hopper GPU. The
 JAX package stays beside it as the reference the port is held against.
 
  - the device k-mer matcher (ops/device_kmer.py) is plain torch around a
    hand-written CUDA segmented-scan kernel (csrc/seg_scan.cu)
- - the END_TO_END diagonal rescore runs in a hand-written CUDA kernel
-   (csrc/rescore.cu) on the device-resident hits
+ - the END_TO_END and HAMMING diagonal rescores run in a hand-written
+   CUDA kernel (csrc/rescore.cu) on the device-resident hits
+ - the amino-acid aligner (ops/protein_align.py) scores its candidate
+   pairs in a hand-written CUDA Smith-Waterman kernel (csrc/sw_score.cu)
  - the cycle check (assembler/cyclecheck.py) is a batched sort, carries
    and sparse histogram in torch and numpy
  - host layers (data/, the greedy extenders, proteinaln2nucl, the linclust
-   tail, the workflow engine) are copies of the JAX package's numpy/ctypes
-   code
+   tail, the aligner's native striped Smith-Waterman, the CLI's flag
+   registry, the workflow engine) are copies of the JAX package's
+   numpy/ctypes code
 
 Nothing here imports jax or plass_tpu: `import plass_tpu` turns on jax at
 import time, and the GPU machine has no jax. The port reads two kinds of

@@ -1,0 +1,87 @@
+"""Command shell of the port's `plass` and `penguin` CLIs.
+
+Each command takes the flag list of its JAX counterpart (cli/params.py, a
+copy of the JAX package's registry, so a command line that `plass_tpu`
+accepts parses to the same values here) plus `--device`. A bare boolean
+flag toggles its value (Parameters.cpp:1670-1677). `--threads` and
+`--backend` are accepted and ignored: the port's device is `--device`, and
+its host stages take their threads from OpenMP and torch. `<command>
+--help` lists a command's flags with their defaults.
+"""
+import dataclasses
+import sys
+
+from ..utils.log import setup
+from . import params as P
+
+IGNORED = {
+    "--threads": "Accepted and ignored (host stages use OpenMP's and "
+                 "torch's own thread counts)",
+    "--backend": "Accepted and ignored (the port's device is --device)",
+}
+
+
+def port_flags(flags):
+    """The JAX command's flags, --threads and --backend marked ignored, and
+    --device."""
+    out = [dataclasses.replace(f, description=IGNORED[f.name])
+           if f.name in IGNORED else f for f in flags]
+    return out + [P.Flag(
+        "--device", "device", str, "cuda",
+        "Device of the kernels: cuda, cuda:<i>, or cpu for their plain "
+        "PyTorch versions (cuda without a card is an error)")]
+
+
+@dataclasses.dataclass
+class Command:
+    name: str
+    fn: object          # fn(positional, space, stats) -> exit code
+    params_fn: object   # () -> ParamSpace with the command's defaults
+    usage: str
+    description: str
+    hidden: bool = False
+
+
+def _value_text(v):
+    return v.format() if isinstance(v, P.MultiParam) else str(v)
+
+
+def _command_help(binary, cmd):
+    space = cmd.params_fn()
+    lines = [f"usage: {binary} {cmd.name} {cmd.usage} [options]", "",
+             cmd.description, "", "options:"]
+    for f in space.flags.values():
+        lines.append(f"  {f.name:28s} {f.description} "
+                     f"[{_value_text(space.values[f.attr])}]")
+    return "\n".join(lines)
+
+
+def run_app(binary, commands, argv, stats=None):
+    """Parse argv (a command, its flags and positional arguments) and run
+    the command; returns the exit code. `stats` is handed to the command's
+    workflow."""
+    argv = list(argv)
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        print(f"usage: {binary} <command> [<args>]\n\nCommands:")
+        for c in commands:
+            if not c.hidden:
+                print(f"  {c.name:24s} {c.description}")
+        return 0
+    byname = {c.name: c for c in commands}
+    if argv[0] not in byname:
+        print(f"Invalid command '{argv[0]}'. Commands: "
+              f"{', '.join(byname)}", file=sys.stderr)
+        return 1
+    cmd = byname[argv[0]]
+    if "-h" in argv[1:] or "--help" in argv[1:]:
+        print(_command_help(binary, cmd))
+        return 0
+    space = cmd.params_fn()
+    try:
+        positional = space.parse_args(argv[1:])
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        print(f"usage: {binary} {cmd.name} {cmd.usage}", file=sys.stderr)
+        return 1
+    setup(space.values["verbosity"])
+    return cmd.fn(positional, space, {} if stats is None else stats) or 0

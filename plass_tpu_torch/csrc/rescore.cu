@@ -10,13 +10,23 @@
 //   rescore_e2e_rev, uniform 1   has_rev=True with the `fast` uniform
 //                                matrix (pallas_rescore.py:74-86), the
 //                                nucleotide path
+// and, from the same template, the HAMMING rescore of --rescore-mode 0
+// (plass_tpu/ops/device_rescore.py:107-110, mode 0 of rescore_pairs, which
+// XLA ran there):
+//   rescore_hamming, qrev null   forward hits (protein)
+//   rescore_hamming, qrev given  with reverse hits (nucleotide)
+// HAMMING counts the identical raw chars over the whole overlap window (no
+// case folding, no '*' skip; a reverse hit's query chars are the canonical
+// chars of its complemented codes, as above) and returns it as both score
+// and idents, with first = last = -1.
 //
 // Operands: rows uint8[total] holds every sequence back to back (record
 // terminators included, never scored); row r is the lengths[r] bytes from
 // rows[offsets[r]]. A residue's char is its byte, its code
 // code_lut[byte]. There is no padded [N, W] copy of the database.
 //
-// Per hit, over the overlap window of length ov (pallas_rescore.py:150-171):
+// END_TO_END, per hit, over the overlap window of length ov
+// (pallas_rescore.py:150-171):
 //   s[j]  = sub[q[qoff + j], t[toff + j]]
 //   first = 1 if either char at j = 0 is '*', else 0
 //   last  = ov - 1, less 1 if either char there is '*' (and ov - 1 > 0)
@@ -124,10 +134,10 @@ constexpr uint32_t kNoMatch = 0xff;
 
 // Codes are clamped to the alphabet so that no table index leaves shared
 // memory whatever the operands hold.
-template <bool kRev, bool kUniform>
+template <bool kRev, bool kUniform, bool kHamming>
 __device__ __forceinline__ void load_tables(const Args& a, Tables& tb) {
   const uint32_t top = a.alpha - 1;
-  if (!kUniform)
+  if (!kUniform && !kHamming)
     for (int i = threadIdx.x; i < a.alpha * a.alpha; i += blockDim.x) tb.sub[i] = a.sub[i];
   for (int i = threadIdx.x; i < (kRev ? 512 : 256); i += blockDim.x) {
     const uint32_t byte = i & 255;
@@ -231,8 +241,9 @@ __device__ __forceinline__ uint32_t byte_at(const uint32_t (&w)[4], int k) {
 // s gets the lane's share of the score sum; pk its share of the identity
 // count plus kStarFirst / kStarLast where it met a '*' at j = 0 / j = ov-1.
 // The residues at j = 0 and j = ov-1 are scored with the rest and taken
-// out again by the lane that holds them when they are '*'.
-template <bool kRev, bool kUniform>
+// out again by the lane that holds them when they are '*'. kHamming: pk
+// counts equal raw chars over the whole window, s stays 0.
+template <bool kRev, bool kUniform, bool kHamming>
 __device__ __forceinline__ void score_window(const Args& a, const Tables& tb, const Window& w,
                                              int team_lane, int team_size, int& s, int& pk) {
   const bool rv = kRev && w.rv;
@@ -259,14 +270,19 @@ __device__ __forceinline__ void score_window(const Args& a, const Tables& tb, co
       const uint32_t qb = (qw[k >> 2] >> (8 * (k & 3))) & 0xffu;
       const uint32_t tch = (tw[k >> 2] >> (8 * (k & 3))) & 0xffu;
       const uint32_t e = qtab[qb];
-      const uint32_t tcode = tb.lut[tch];
       const bool in = k < n_in;
+      if (kHamming) {
+        pk += (in && (e >> 16) == tch) ? 1 : 0;
+        continue;
+      }
+      const uint32_t tcode = tb.lut[tch];
       if (kUniform)
         hits += (in && (e & 0xffffu) == tcode) ? 1 : 0;
       else
         s += in ? tb.sub[(e & 0xffffu) + tcode] : 0;
       pk += (in && (((e >> 16) ^ tch) & kFold) == 0) ? 1 : 0;
     }
+    if (kHamming) continue;
     if (kUniform) s += a.mismatch * n_in + (a.match - a.mismatch) * hits;
     bool idm, star;
     if (j0 == 0) {
@@ -288,12 +304,13 @@ __device__ __forceinline__ void score_window(const Args& a, const Tables& tb, co
   }
 }
 
+template <bool kHamming>
 __device__ __forceinline__ void store_hit(const Args& a, int64_t hit, int ov, int s, int pk) {
-  if (ov <= 0) {
-    a.score[hit] = 0;
+  if (ov <= 0 || kHamming) {
+    a.score[hit] = ov <= 0 ? 0 : pk & kIdentMask;
     a.first[hit] = -1;
     a.last[hit] = -1;
-    a.idents[hit] = 0;
+    a.idents[hit] = ov <= 0 ? 0 : pk & kIdentMask;
     return;
   }
   a.score[hit] = max(s, 0);
@@ -304,10 +321,10 @@ __device__ __forceinline__ void store_hit(const Args& a, int64_t hit, int ov, in
 
 // kLongPass = false: 32 hits per warp, windows up to kLongWindow scored by
 // kGroup-lane groups, longer ones queued. kLongPass = true: a warp per queued hit.
-template <bool kRev, bool kUniform, bool kLongPass>
+template <bool kRev, bool kUniform, bool kHamming, bool kLongPass>
 __global__ void __launch_bounds__(kThreads) rescore_e2e_kernel(const Args a) {
   __shared__ Tables tb;
-  load_tables<kRev, kUniform>(a, tb);
+  load_tables<kRev, kUniform, kHamming>(a, tb);
   const int lane = threadIdx.x & 31;
   const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
 
@@ -318,14 +335,14 @@ __global__ void __launch_bounds__(kThreads) rescore_e2e_kernel(const Args a) {
       const int64_t hit = a.queue[1 + i];
       const Window w = window_of<kRev>(a, hit);
       int s = 0, pk = 0;
-      score_window<kRev, kUniform>(a, tb, w, lane, 32, s, pk);
+      score_window<kRev, kUniform, kHamming>(a, tb, w, lane, 32, s, pk);
       __syncwarp();
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
         s += __shfl_xor_sync(kFull, s, o);
         pk += __shfl_xor_sync(kFull, pk, o);
       }
-      if (lane == 0) store_hit(a, hit, w.ov, s, pk);
+      if (lane == 0) store_hit<kHamming>(a, hit, w.ov, s, pk);
     }
   } else {
     const int64_t hit = warp * 32 + lane;
@@ -346,7 +363,7 @@ __global__ void __launch_bounds__(kThreads) rescore_e2e_kernel(const Args a) {
       w.taddr = __shfl_sync(kFull, mine.taddr, src);
       w.rv = __shfl_sync(kFull, static_cast<int>(mine.rv), src) != 0;
       int s = 0, pk = 0;
-      score_window<kRev, kUniform>(a, tb, w, lane % kGroup, kGroup, s, pk);
+      score_window<kRev, kUniform, kHamming>(a, tb, w, lane % kGroup, kGroup, s, pk);
       __syncwarp();
 #pragma unroll
       for (int o = kGroup / 2; o > 0; o >>= 1) {
@@ -370,11 +387,11 @@ __global__ void __launch_bounds__(kThreads) rescore_e2e_kernel(const Args a) {
       if (is_long)
         a.queue[1 + slot + __popc(long_mask & ((1u << lane) - 1u))] = static_cast<int32_t>(hit);
     }
-    if (valid && !is_long) store_hit(a, hit, mine.ov, my_s, my_pk);
+    if (valid && !is_long) store_hit<kHamming>(a, hit, mine.ov, my_s, my_pk);
   }
 }
 
-template <bool kRev, bool kUniform>
+template <bool kRev, bool kUniform, bool kHamming = false>
 int launch(const Args& a, void* stream) {
   if (a.alpha < 1 || a.alpha > kMaxAlpha || a.h > INT32_MAX) return -1;
   if (reinterpret_cast<uintptr_t>(a.rows) % 4 != 0) return -2;
@@ -383,10 +400,10 @@ int launch(const Args& a, void* stream) {
   cudaError_t err = cudaMemsetAsync(a.queue, 0, sizeof(int32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t blocks = (a.h + kThreads - 1) / kThreads;
-  rescore_e2e_kernel<kRev, kUniform, false><<<blocks, kThreads, 0, s>>>(a);
+  rescore_e2e_kernel<kRev, kUniform, kHamming, false><<<blocks, kThreads, 0, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rescore_e2e_kernel<kRev, kUniform, true><<<kLongBlocks, kThreads, 0, s>>>(a);
+  rescore_e2e_kernel<kRev, kUniform, kHamming, true><<<kLongBlocks, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -423,4 +440,20 @@ extern "C" int rescore_e2e_rev(const uint8_t* rows, int64_t total, const int64_t
   const Args a{rows, total, offsets, lengths, code_lut, qrow, trow, diag, qrev, sub,
                comp, code2char, alpha, match, mismatch, h, score, first, last, idents, queue};
   return uniform ? launch<true, true>(a, stream) : launch<true, false>(a, stream);
+}
+
+// HAMMING (--rescore-mode 0) on the same operands: qrev null for forward
+// hits only; with qrev, comp and code2char as rescore_e2e_rev takes them.
+// No matrix. score = idents = identical raw chars over the window, first
+// = last = -1. Returns as rescore_e2e.
+extern "C" int rescore_hamming(const uint8_t* rows, int64_t total, const int64_t* offsets,
+                               const int32_t* lengths, const uint8_t* code_lut,
+                               const int32_t* qrow, const int32_t* trow, const int32_t* diag,
+                               const uint8_t* qrev, const int32_t* comp,
+                               const uint8_t* code2char, int alpha, int64_t h, int32_t* score,
+                               int32_t* first, int32_t* last, int32_t* idents, int32_t* queue,
+                               void* stream) {
+  const Args a{rows, total, offsets, lengths, code_lut, qrow, trow, diag, qrev, nullptr,
+               comp, code2char, alpha, 0, 0, h, score, first, last, idents, queue};
+  return qrev ? launch<true, false, true>(a, stream) : launch<false, false, true>(a, stream);
 }

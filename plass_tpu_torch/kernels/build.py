@@ -37,6 +37,13 @@ SIGNATURES = {
                          _P, _P, _P, _P], _I),
         "rescore_e2e_rev": ([_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P], _I),
+        "rescore_hamming": ([_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _L, _P, _P, _P, _P, _P, _P], _I),
+    },
+    "sw_score": {
+        "sw_score": ([_P] * 11 + [_L, _P, _I, _I, _I, _P, _P, _P, _L, _P], _I),
+        "sw_score_warps": ([_L], _L),
+        "sw_score_strip_rows": ([], _I),
     },
 }
 

@@ -4,8 +4,10 @@ slices, built on demand with g++ and loaded via ctypes.
 The sources are the reference package's own (`plass_tpu/native/`), read by
 path: `extend.cpp` (protein greedy extender), `nucl_extend.cpp` (nucleotide
 greedy extender and its protein-guided variant), `finish.cpp` (rescore
-post-processing), `gather.cpp` (record padding and gathers) and
-`aln2nucl.cpp` (proteinaln2nucl window scoring). The library is built into
+post-processing), `gather.cpp` (record padding and gathers),
+`aln2nucl.cpp` (proteinaln2nucl window scoring), `ssw.cpp` (the striped
+Smith-Waterman of the amino-acid aligner) and `banded.cpp` (its banded
+backtrace). The library is built into
 the port's build directory; the reference package's tracked `_native.so` is
 never written.
 """
@@ -20,7 +22,7 @@ from .. import BUILD_DIR, REFERENCE_DIR
 
 SOURCE_DIR = os.path.join(REFERENCE_DIR, "native")
 _SOURCES = ["extend.cpp", "nucl_extend.cpp", "finish.cpp", "gather.cpp",
-            "aln2nucl.cpp"]
+            "aln2nucl.cpp", "ssw.cpp", "banded.cpp"]
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -59,6 +61,8 @@ def lib():
             _build(so_path)
         _LIB = ctypes.CDLL(so_path)
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        i8p = ctypes.POINTER(ctypes.c_int8)
         i16p = ctypes.POINTER(ctypes.c_int16)
         i32p = ctypes.POINTER(ctypes.c_int32)
         i64p = ctypes.POINTER(ctypes.c_int64)
@@ -92,4 +96,18 @@ def lib():
         _LIB.aln2nucl_score.argtypes = [
             ctypes.c_int64, u8p, i64p, i32p, i32p, i32p, i32p, i32p,
             i16p, i32p, f64p]
+        _LIB.ssw_byte.argtypes = [u8p, ctypes.c_int, ctypes.c_int32,
+                                  ctypes.c_int32, ctypes.c_uint8,
+                                  ctypes.c_uint8, u8p, ctypes.c_uint8,
+                                  ctypes.c_uint8, ctypes.c_int32, u8p, i32p]
+        _LIB.ssw_word.argtypes = [u8p, ctypes.c_int, ctypes.c_int32,
+                                  ctypes.c_int32, ctypes.c_uint16,
+                                  ctypes.c_uint16, u16p, ctypes.c_uint16,
+                                  ctypes.c_int32, u16p, i32p]
+        _LIB.banded_backtrace.argtypes = [
+            u8p, ctypes.c_int32, u8p, ctypes.c_int32, i8p, i8p,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, u8p, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
+        _LIB.banded_backtrace.restype = ctypes.c_int64
         return _LIB

@@ -19,7 +19,7 @@ from ..data import seqdb
 from . import device_kmer
 from .device_kmer import KmerParams, ksel_capacity
 from .kmermatch import ENTRY_BYTES, estimate_kmer_count, parse_memory_limit
-from .rescore_kernel import rescore_e2e, uniform_pattern
+from .rescore_kernel import rescore_e2e, rescore_hamming, uniform_pattern
 
 # The automatic split budget on the card (split_memory_limit 0). The
 # monolithic matcher's peak device memory per table entry in its pair and
@@ -69,7 +69,7 @@ def flat_rows(db, device, alphabet="score"):
 def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
                       kmers_per_sequence_scale=None, hash_shift=67,
                       ignore_multi_kmer=False, include_only_extendable=False,
-                      cov_thr=0.0, split_memory_limit=0):
+                      cov_thr=0.0, cov_mode=0, split_memory_limit=0):
     """Device k-mer matcher on `device`, protein or nucleotide.
 
     split_memory_limit (bytes of k-mer table at ENTRY_BYTES per entry, or
@@ -84,7 +84,8 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
         db, k, kmers_per_sequence=kmers_per_sequence,
         kmers_per_sequence_scale=kmers_per_sequence_scale,
         ignore_multi_kmer=ignore_multi_kmer,
-        include_only_extendable=include_only_extendable, cov_thr=cov_thr)
+        include_only_extendable=include_only_extendable, cov_thr=cov_thr,
+        cov_mode=cov_mode)
     rows = flat_rows(db, device, "kmer")
     budget = split_budget(db, params, device, split_memory_limit)
     rep, tgt, score, diag, table_entries, ranges = \
@@ -102,7 +103,7 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
 
 def matcher_params(db, k, kmers_per_sequence=21,
                    kmers_per_sequence_scale=None, ignore_multi_kmer=False,
-                   include_only_extendable=False, cov_thr=0.0):
+                   include_only_extendable=False, cov_thr=0.0, cov_mode=0):
     """The device matcher's KmerParams for `db` (kmermatcher_torch's
     arguments), after checking the DB's lengths and keys against what its
     packed sort keys hold."""
@@ -121,6 +122,7 @@ def matcher_params(db, k, kmers_per_sequence=21,
         kmers_per_sequence_scale=kmers_per_sequence_scale, is_nucl=is_nucl,
         ignore_multi_kmer=ignore_multi_kmer,
         include_only_extendable=include_only_extendable, cov_thr=cov_thr,
+        cov_mode=cov_mode,
         ksel=ksel_capacity(kmers_per_sequence, kmers_per_sequence_scale,
                            max(longest, k)))
 
@@ -197,14 +199,18 @@ def _insert_self_hits(db, rep, tgt, score, diag):
     return out
 
 
-def _self_rescore_host(db):
-    """END_TO_END rescoring of the (k, k, diag 0) self rows, analytic on
-    the host: first/last from the '*'-skip on the raw chars, score = clipped
-    sum of diagonal substitution scores over the window (the DB's own
-    matrix), idents = window size."""
-    mat = _matrix(db, "score")
+def _self_rescore_host(db, hamming=False):
+    """Rescoring of the (k, k, diag 0) self rows, analytic on the host.
+    END_TO_END: first/last from the '*'-skip on the raw chars, score =
+    clipped sum of diagonal substitution scores over the window (the DB's
+    own matrix), idents = window size. HAMMING: score = idents = the
+    sequence's length, first = last = -1."""
     lens = db.seq_lens().astype(np.int64)
     ov = lens.astype(np.int32)
+    if hamming:
+        ends = np.full(db.size, -1, dtype=np.int32)
+        return lens, ends, ends, ov, lens
+    mat = _matrix(db, "score")
     sub = mat.sub.astype(np.int64)
     offsets = db.offsets.astype(np.int64)
     data = db.data
@@ -233,22 +239,28 @@ def _self_rescore_host(db):
 
 def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
                            return_flat=False):
-    """END_TO_END rescorediagonal of kmermatcher_torch's KmerHits.
+    """END_TO_END (--rescore-mode 3) or HAMMING (0) rescorediagonal of
+    kmermatcher_torch's KmerHits.
 
     The self rows are analytic on the host; every other hit is rescored on
-    the device that holds the hits (kernel K2), addressed by index into the
-    matcher's device-resident arrays. On a nucleotide DB a reverse-strand
-    hit reads the query reverse-complemented, and the nucleotide matrix's
-    uniform match/mismatch form selects K2's uniform variant. Returns
+    the device that holds the hits (kernel K2, or its HAMMING variant),
+    addressed by index into the matcher's device-resident arrays. On a
+    nucleotide DB a reverse-strand hit reads the query reverse-complemented,
+    and the nucleotide matrix's uniform match/mismatch form selects K2's
+    uniform variant. Modes 1 and 2 raise, as on the JAX package's device
+    path. Returns
     {key: RESULT_DTYPE records}, or with return_flat {"qk": int64[M],
     "rec": RESULT_DTYPE[M]} of the surviving records grouped by query — the
     native extenders' input."""
     from .evalue import EvalueComputer
-    from .rescore import RESCORE_END_TO_END, RESULT_DTYPE, RescoreParams
+    from .rescore import (RESCORE_END_TO_END, RESCORE_HAMMING, RESULT_DTYPE,
+                          RescoreParams)
 
     params = params or RescoreParams()
-    if params.rescore_mode != RESCORE_END_TO_END:
-        raise NotImplementedError("only the END_TO_END rescore is ported")
+    if params.rescore_mode not in (RESCORE_END_TO_END, RESCORE_HAMMING):
+        raise NotImplementedError("only the END_TO_END and HAMMING rescores "
+                                  "are ported")
+    hamming = params.rescore_mode == RESCORE_HAMMING
     if not isinstance(hits, KmerHits) or hits.dev is None:
         raise TypeError("rescore_diagonal_torch takes the KmerHits of "
                         "kmermatcher_torch")
@@ -277,7 +289,7 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
 
     self_mask = (qk == tk) & (dg == 0) & (pref == 0)
     if self_mask.any():
-        s_sc, s_f, s_l, s_ov, s_id = _self_rescore_host(db)
+        s_sc, s_f, s_l, s_ov, s_id = _self_rescore_host(db, hamming)
         rows = qrow[self_mask]
         score[self_mask] = s_sc[rows]
         first[self_mask] = s_f[rows]
@@ -305,9 +317,13 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
                 qrev=dev_rev[didx].contiguous(),
                 comp=torch.from_numpy(mat.reverse.astype(np.int32)).to(device),
                 code2char=torch.from_numpy(
-                    mat.num2aa.astype(np.uint8)).to(device),
-                uniform=uniform_pattern(mat.sub))
-        sc, f, la, idn = rescore_e2e(*rows, q, t, d, sub, **rev_kw)
+                    mat.num2aa.astype(np.uint8)).to(device))
+        if hamming:
+            sc, f, la, idn = rescore_hamming(*rows, q, t, d, **rev_kw)
+        else:
+            if is_nucl:
+                rev_kw["uniform"] = uniform_pattern(mat.sub)
+            sc, f, la, idn = rescore_e2e(*rows, q, t, d, sub, **rev_kw)
         score[idxs] = sc.cpu().numpy()
         first[idxs] = f.cpu().numpy()
         last[idxs] = la.cpu().numpy()

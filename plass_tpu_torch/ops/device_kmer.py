@@ -74,6 +74,7 @@ class KmerParams:
     ignore_multi_kmer: bool = True
     include_only_extendable: bool = True
     cov_thr: float = 0.0
+    cov_mode: int = 0
     ksel: int = 64  # per-row selection capacity
 
 
@@ -353,10 +354,15 @@ def pairs_from_table(kmer, sid, pos, slen, params: KmerParams):
         diagonal = rep_pos - pos_s
     if params.include_only_extendable:
         keep &= (diagonal < 0) | (diagonal > (rep_len - len_s))
-    elif params.cov_thr > 0.0:
+    elif params.cov_thr > 0.0 and params.cov_mode in (0, 2):
+        # Util::canBeCovered: bidirectional (0) and query (2) coverage test
+        # the lengths; target coverage (1) and the modes above 2 keep all
         big = torch.maximum(rep_len, len_s).to(torch.float32)
         small = torch.minimum(rep_len, len_s).to(torch.float32)
-        keep &= small / big >= params.cov_thr
+        if params.cov_mode == 0:
+            keep &= small / big >= params.cov_thr
+        else:
+            keep &= big * params.cov_thr <= small
     keep = keep.nonzero()[:, 0]     # one host sync for the four columns
     return rep_id[keep], sid_s[keep], diagonal[keep], rev[keep]
 

@@ -33,9 +33,16 @@ Returns (score, first, last, idents) int32[H], relative to the overlap
 window; a hit with no overlap gives (0, -1, -1, 0). The overlap length and
 |diag| are host-derivable from the lengths and are not returned.
 
-On a CUDA tensor the call launches the CUDA kernel (csrc/rescore.cu) or
-raises; on a CPU tensor it runs `rescore_e2e_plain`, the oracle of every
-variant.
+`rescore_hamming(rows, offsets, lengths, code_lut, qrow, trow, diag[,
+qrev, comp, code2char])` is the HAMMING rescore of --rescore-mode 0 (the
+JAX package's device_rescore.rescore_pairs, mode 0) on the same operands:
+the count of identical raw chars over the overlap window (no case
+folding; a reverse hit's query chars from code2char as above) as score
+and idents, first = last = -1. It takes no matrix.
+
+On a CUDA tensor each call launches the CUDA kernel (csrc/rescore.cu) or
+raises; on a CPU tensor it runs `rescore_e2e_plain` or
+`rescore_hamming_plain`, the oracles of the kernel's variants.
 """
 import numpy as np
 import torch
@@ -45,12 +52,15 @@ from ..kernels import build
 STAR = ord("*")
 FOLD = ~0x20 & 0xFF
 
-# launches of the CUDA kernel in this process, one per rescore_e2e call on
-# a CUDA tensor, by variant: forward-only with the matrix (protein), with
-# reverse hits, and with reverse hits and the uniform matrix (nucleotide)
+# launches of the CUDA kernel in this process, one per call on a CUDA
+# tensor, by variant: END_TO_END forward-only with the matrix (protein),
+# with reverse hits, and with reverse hits and the uniform matrix
+# (nucleotide); HAMMING forward-only and with reverse hits
 LAUNCHES = 0
 LAUNCHES_REV = 0
 LAUNCHES_REV_UNIFORM = 0
+LAUNCHES_HAMMING = 0
+LAUNCHES_HAMMING_REV = 0
 
 
 def uniform_pattern(sub):
@@ -82,24 +92,16 @@ def _overlap(lengths, qrow, trow, diag):
     return ov, qoff, toff, qlen
 
 
-def rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
-                      sub, qrev=None, comp=None, code2char=None, uniform=None,
-                      budget=1 << 24):
-    """Plain PyTorch version: the JAX package's device_rescore.rescore_pairs
-    (mode 3; has_rev when qrev is given) as [hits, window] gathers from the
-    flat rows, in chunks of at most `budget` window cells. It scores through
-    `sub` for both matrix variants (`uniform` only picks the kernel's
-    variant)."""
-    _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub, qrev,
-           comp, code2char, uniform)
+def _windows(rows, offsets, lengths, code_lut, qrow, trow, diag, qrev,
+             comp, code2char, budget):
+    """The hits' overlap windows as [hits, width] gathers from the flat
+    rows, in chunks of at most `budget` window cells: yields (lo, hi, ov,
+    j, qch, tch, qc, tc) per chunk of hits [lo, hi) — the query's and the
+    target's chars and codes, a reverse hit's query read back to front and
+    complemented, its chars from code2char."""
     h = qrow.numel()
     dev = rows.device
-    outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
-    if h == 0:
-        return tuple(outs)
     top = max(rows.numel() - 1, 0)
-    alpha = sub.shape[0]
-    sub_flat = sub.reshape(-1).to(torch.int64)
     lut = code_lut.long()
     ov_all = _overlap(lengths, qrow.long(), trow.long(), diag)[0]
     width = max(int(ov_all.max()), 1)
@@ -114,8 +116,8 @@ def rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
         if qrev is not None:
             rv = qrev[lo:hi, None]
             qpos = torch.where(rv, qlen[:, None] - 1 - qpos, qpos)
-        # cells past the window are masked below; their index only has to
-        # stay inside the array
+        # cells past the window are masked by the callers; their index
+        # only has to stay inside the array
         qch = rows[(offsets[q][:, None] + qpos).clamp(0, top)]
         tch = rows[(offsets[t][:, None] + toff[:, None] + j).clamp(0, top)]
         qc = lut[qch.long()]
@@ -123,6 +125,30 @@ def rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
         if qrev is not None:
             qc = torch.where(rv, comp.long()[qc], qc)
             qch = torch.where(rv, code2char[qc], qch)
+        yield lo, hi, ov, j, qch, tch, qc, tc
+
+
+def rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
+                      sub, qrev=None, comp=None, code2char=None, uniform=None,
+                      budget=1 << 24):
+    """Plain PyTorch version: the JAX package's device_rescore.rescore_pairs
+    (mode 3; has_rev when qrev is given) as [hits, window] gathers from the
+    flat rows, in chunks of at most `budget` window cells. It scores through
+    `sub` for both matrix variants (`uniform` only picks the kernel's
+    variant)."""
+    _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub, qrev,
+           comp, code2char, uniform)
+    h = qrow.numel()
+    outs = [torch.empty(h, dtype=torch.int32, device=rows.device)
+            for _ in range(4)]
+    if h == 0:
+        return tuple(outs)
+    alpha = sub.shape[0]
+    sub_flat = sub.reshape(-1).to(torch.int64)
+    for lo, hi, ov, j, qch, tch, qc, tc in _windows(
+            rows, offsets, lengths, code_lut, qrow, trow, diag, qrev, comp,
+            code2char, budget):
+        width = j.numel()
         s = sub_flat[qc * alpha + tc]
         first = ((qch[:, 0] == STAR) | (tch[:, 0] == STAR)).int()
         last_idx = (ov - 1).clamp(min=0)
@@ -140,6 +166,24 @@ def rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
     return tuple(outs)
 
 
+def rescore_hamming_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
+                          qrev=None, comp=None, code2char=None,
+                          budget=1 << 24):
+    """Plain PyTorch version of the HAMMING rescore: the JAX package's
+    device_rescore.rescore_pairs, mode 0, on the flat rows."""
+    _check(rows, offsets, lengths, code_lut, qrow, trow, diag, None, qrev,
+           comp, code2char)
+    h = qrow.numel()
+    dev = rows.device
+    idents = torch.empty(h, dtype=torch.int32, device=dev)
+    for lo, hi, ov, j, qch, tch, _, _ in _windows(
+            rows, offsets, lengths, code_lut, qrow, trow, diag, qrev, comp,
+            code2char, budget):
+        idents[lo:hi] = ((qch == tch) & (j < ov[:, None])).sum(dim=1)
+    ends = torch.full((h,), -1, dtype=torch.int32, device=dev)
+    return idents, ends, ends.clone(), idents.clone()
+
+
 def _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
            qrev=None, comp=None, code2char=None, uniform=None):
     if rows.dtype != torch.uint8 or rows.dim() != 1:
@@ -153,15 +197,20 @@ def _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
     for name, x in (("qrow", qrow), ("trow", trow), ("diag", diag)):
         if x.dtype != torch.int32 or x.dim() != 1 or x.shape != qrow.shape:
             raise TypeError(f"{name} must be int32[H] like qrow")
-    if (sub.dtype != torch.int32 or sub.dim() != 2
-            or sub.shape[0] != sub.shape[1] or not 1 <= sub.shape[0] <= 32):
-        raise TypeError("sub must be int32[A, A] with A <= 32")
-    tensors = [rows, offsets, lengths, code_lut, qrow, trow, diag, sub]
+    tensors = [rows, offsets, lengths, code_lut, qrow, trow, diag]
+    if sub is not None:   # HAMMING takes no matrix
+        if (sub.dtype != torch.int32 or sub.dim() != 2
+                or sub.shape[0] != sub.shape[1]
+                or not 1 <= sub.shape[0] <= 32):
+            raise TypeError("sub must be int32[A, A] with A <= 32")
+        tensors.append(sub)
     rev_ops = (qrev, comp, code2char)
     if any(x is None for x in rev_ops) != all(x is None for x in rev_ops):
         raise ValueError("qrev, comp and code2char come together")
     if qrev is not None:
-        alpha = sub.shape[0]
+        alpha = sub.shape[0] if sub is not None else comp.numel()
+        if not 1 <= alpha <= 32:
+            raise TypeError("the alphabet must have 1 to 32 codes")
         if qrev.dtype != torch.bool or qrev.shape != qrow.shape:
             raise TypeError("qrev must be bool[H] like qrow")
         if comp.dtype != torch.int32 or comp.shape != (alpha,):
@@ -222,4 +271,47 @@ def rescore_e2e(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
         LAUNCHES_REV += 1
     else:
         LAUNCHES_REV_UNIFORM += 1
+    return tuple(outs)
+
+
+def rescore_hamming(rows, offsets, lengths, code_lut, qrow, trow, diag,
+                    qrev=None, comp=None, code2char=None):
+    """HAMMING rescore; see the module docstring."""
+    if rows.device.type == "cpu":
+        return rescore_hamming_plain(rows, offsets, lengths, code_lut, qrow,
+                                     trow, diag, qrev, comp, code2char)
+    if rows.device.type != "cuda":
+        raise ValueError(f"rescore_hamming: unsupported device {rows.device}")
+    tensors = _check(rows, offsets, lengths, code_lut, qrow, trow, diag,
+                     None, qrev, comp, code2char)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("rescore_hamming: tensors must be contiguous")
+    if rows.data_ptr() % 4:
+        raise ValueError("rescore_hamming: rows must be 4-byte aligned")
+    global LAUNCHES_HAMMING, LAUNCHES_HAMMING_REV
+    h = qrow.numel()
+    dev = rows.device
+    outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
+    queue = torch.empty(h + 1, dtype=torch.int32, device=dev)
+    # the alphabet bounds the codes the kernel's tables take (comp's size
+    # on reverse hits; forward hits read no code)
+    alpha = comp.numel() if comp is not None else 32
+    lib = build.load("rescore")
+    with torch.cuda.device(dev):
+        rc = lib.rescore_hamming(
+            build.ptr(rows), rows.numel(), build.ptr(offsets),
+            build.ptr(lengths), build.ptr(code_lut), build.ptr(qrow),
+            build.ptr(trow), build.ptr(diag), build.ptr(qrev),
+            build.ptr(comp), build.ptr(code2char), alpha, h,
+            *[build.ptr(o) for o in outs], build.ptr(queue),
+            build.stream_of(dev))
+    if rc != 0:
+        raise RuntimeError(f"rescore_hamming kernel launch failed "
+                           f"(CUDA error {rc})")
+    if h == 0:
+        return tuple(outs)
+    if qrev is None:
+        LAUNCHES_HAMMING += 1
+    else:
+        LAUNCHES_HAMMING_REV += 1
     return tuple(outs)

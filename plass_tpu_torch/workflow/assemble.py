@@ -170,6 +170,7 @@ def run_assemble(input_files, out_fasta, tmp_base, params=None, stats=None):
                 kmers_per_sequence_scale=p.kmers_per_sequence_scale,
                 hash_shift=shift, ignore_multi_kmer=p.ignore_multi_kmer,
                 include_only_extendable=only_ext, cov_thr=p.cov_thr,
+                cov_mode=p.cov_mode,
                 split_memory_limit=p.split_memory_limit)
         stats.setdefault("ranges", []).append(len(hits.ranges))
         if iteration == 0 and "hits" not in stats:

@@ -1,4 +1,5 @@
-"""Linear-time clustering workflow (`linclust`) for nucleotide DBs.
+"""Linear-time clustering workflow (`linclust`) for nucleotide and
+amino-acid DBs.
 
 Reference: lib/mmseqs/data/workflow/linclust.sh + src/workflow/Linclust.cpp:
 kmermatcher -> HAMMING rescorediagonal (thresholds raised to max(0.5, thr))
@@ -10,10 +11,11 @@ GREEDY for query/target cov modes (Linclust.cpp:67-76); k-mer length and
 alphabet auto-resolve from the identity threshold when k=0
 (kmermatcher.cpp setKmerLengthAndAlphabet:1200-1228).
 
-Every stage runs on the host whatever the device of the assembly (numpy
-matcher, HAMMING rescore, per-pair ksw2), as in the JAX package. The
-amino-acid branch needs the gapped protein aligner (ops/protein_align.py in
-the JAX package), which the port does not have: an amino-acid DB raises.
+The matcher, the HAMMING rescore and the SUBSTITUTION filter run on the
+host whatever the device, as in the JAX package; so does the nucleotide
+aligner (per-pair ksw2). The amino-acid aligner (ops/protein_align.py)
+scores its candidate pairs on `device` first (ops/device_align.py, kernel
+B9) when there are enough of them.
 """
 import contextlib
 import math
@@ -27,7 +29,11 @@ from ..assembler.cluster import (alignment_adjacency,
 from ..data import seqdb
 from ..ops.kmermatch import kmermatcher
 from ..ops.nucl_align import align_nucl
-from ..ops.rescore import RESCORE_HAMMING, RescoreParams, rescore_diagonal
+from ..ops.protein_align import align_protein
+from ..ops.rescore import (RESCORE_HAMMING, RESCORE_SUBSTITUTION,
+                           RescoreParams, parse_precision_lib,
+                           rescore_diagonal)
+from ..utils.device import pick_device
 from ..utils.log import logger
 
 CLUSTER_SET_COVER = 0
@@ -77,19 +83,18 @@ def _cluster(db, adjacency, mode):
         db, {q: [t for (t, _s) in adjacency.get(q, [])] for q in adjacency})
 
 
-def run_linclust(db, params=None, intermediates=None, seconds=None):
-    """Cluster a nucleotide DB; returns {rep_key: [member keys]} in
-    mergeclusters layout (rep first in each member list).
+def run_linclust(db, params=None, intermediates=None, seconds=None,
+                 device="cuda"):
+    """Cluster a DB; returns {rep_key: [member keys]} in mergeclusters
+    layout (rep first in each member list).
 
     seconds: an optional dict that receives the wall seconds per stage
-    (kmermatch, rescore, precluster, align, cluster)."""
+    (kmermatch, rescore, precluster, filter on an amino-acid DB, align,
+    cluster). device: where the amino-acid aligner scores its candidate
+    pairs ("cuda", "cuda:<i>" or "cpu"); a nucleotide DB stays on the
+    host."""
     p = params or LinclustParams()
     is_nucl = db.dbtype == seqdb.NUCLEOTIDES
-    if not is_nucl:
-        raise NotImplementedError(
-            "linclust of an amino-acid DB needs the gapped protein aligner "
-            "ops/protein_align.py (align_protein), which the port does not "
-            "have yet; only nucleotide DBs are clustered")
     seconds = {} if seconds is None else seconds
 
     @contextlib.contextmanager
@@ -118,7 +123,7 @@ def run_linclust(db, params=None, intermediates=None, seconds=None):
                        seq_id_thr=max(0.5, p.seq_id_thr),
                        cov_thr=max(0.5, p.cov_thr), cov_mode=p.cov_mode,
                        eval_thr=p.eval_thr,
-                       wrapped_scoring=p.wrapped_scoring)
+                       wrapped_scoring=p.wrapped_scoring and is_nucl)
     with timed("rescore"):
         rescore1 = rescore_diagonal(db, pref, rp)
 
@@ -131,13 +136,37 @@ def run_linclust(db, params=None, intermediates=None, seconds=None):
         pref_filter2 = {k2: [h for h in pref.get(k2, []) if h[0] in rep_set]
                         for k2 in rep_keys}
 
+    result_db = pref_filter2
+    rescore2 = None
+    if not is_nucl:
+        # FILTER stage (linclust.sh step 3, AA only): SUBSTITUTION rescore
+        # with the embedded precision calibration
+        logger.info("linclust: ungapped alignment filter")
+        with timed("filter"):
+            spc = parse_precision_lib(p.cov_mode, p.seq_id_thr, p.cov_thr,
+                                      0.99)
+            rp2 = RescoreParams(rescore_mode=RESCORE_SUBSTITUTION,
+                                seq_id_thr=p.seq_id_thr, cov_thr=p.cov_thr,
+                                cov_mode=p.cov_mode, eval_thr=p.eval_thr,
+                                filter_hits=True, score_per_col_thr=spc)
+            rescore2 = rescore_diagonal(reps, result_db, rp2)
+        result_db = rescore2
+
     logger.info("linclust: gapped align on %d representatives", len(rep_keys))
     with timed("align"):
-        aln = align_nucl(reps, pref_filter2, seq_id_thr=p.seq_id_thr,
-                         cov_thr=p.cov_thr, cov_mode=p.cov_mode,
-                         eval_thr=p.eval_thr, gapo=p.gap_open,
-                         gape=p.gap_extend, zdrop=p.zdrop,
-                         wrapped_scoring=p.wrapped_scoring)
+        if is_nucl:
+            aln = align_nucl(reps, result_db, seq_id_thr=p.seq_id_thr,
+                             cov_thr=p.cov_thr, cov_mode=p.cov_mode,
+                             eval_thr=p.eval_thr, gapo=p.gap_open,
+                             gape=p.gap_extend, zdrop=p.zdrop,
+                             wrapped_scoring=p.wrapped_scoring)
+        else:
+            aln = align_protein(reps, result_db, seq_id_thr=p.seq_id_thr,
+                                cov_thr=p.cov_thr, cov_mode=p.cov_mode,
+                                eval_thr=p.eval_thr, gap_open=p.gap_open,
+                                gap_extend=p.gap_extend,
+                                comp_bias_corr=p.comp_bias_corr,
+                                device=pick_device(device))
 
     logger.info("linclust: clustering (mode %d)", mode)
     with timed("cluster"):
@@ -146,11 +175,12 @@ def run_linclust(db, params=None, intermediates=None, seconds=None):
     if intermediates is not None:
         intermediates.update(pref=pref, pref_rescore1=rescore1,
                              pre_clust=pre_clust, reps=reps,
-                             pref_filter2=pref_filter2, rescore2=None,
+                             pref_filter2=pref_filter2, rescore2=rescore2,
                              aln=aln, clust=clust)
     logger.info("linclust: %d clusters", len(merged))
     return merged
 
 
-def run_linclust_nucl(db, params=None, intermediates=None, seconds=None):
-    return run_linclust(db, params, intermediates, seconds)
+def run_linclust_nucl(db, params=None, intermediates=None, seconds=None,
+                      device="cuda"):
+    return run_linclust(db, params, intermediates, seconds, device)

@@ -121,7 +121,8 @@ def run_nuclassemble(input_files, out_file, tmp_base, params=None,
                 kmers_per_sequence_scale=p.kmers_per_sequence_scale,
                 hash_shift=p.hash_shift, ignore_multi_kmer=p.ignore_multi_kmer,
                 include_only_extendable=p.include_only_extendable,
-                cov_thr=p.cov_thr, split_memory_limit=p.split_memory_limit)
+                cov_thr=p.cov_thr, cov_mode=p.cov_mode,
+                split_memory_limit=p.split_memory_limit)
         stats.setdefault("ranges", []).append(len(hits.ranges))
         if it == 0 and "hits" not in stats:
             stats["table_entries"] = hits.table_entries

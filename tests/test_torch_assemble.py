@@ -57,16 +57,20 @@ def test_cli_entry_point(tmp_path):
 
 
 def test_cli_flags_map_to_params():
-    from plass_tpu_torch.cli.plass import assemble_params, parser
+    from plass_tpu_torch.cli import params
+    from plass_tpu_torch.cli.plass import assemble_params, plass_defaults
 
-    ns = parser().parse_args(["assemble", "a.fq", "o.fas", "tmp"])
-    p = assemble_params(ns)
+    def parse(argv):
+        space = plass_defaults(params.assemble_flags)()
+        assert space.parse_args(argv) == ["a.fq", "o.fas", "tmp"]
+        return space
+
+    p = assemble_params(parse(["a.fq", "o.fas", "tmp"]))
     assert p == AssembleParams(delete_tmp_inc=True)   # the CLI default is 1
-    ns = parser().parse_args([
-        "assemble", "a.fq", "o.fas", "tmp", "-k", "aa:12,nucl:22",
+    p = assemble_params(parse([
+        "a.fq", "o.fas", "tmp", "-k", "aa:12,nucl:22",
         "--min-seq-id", "0.95", "--include-only-extendable", "0",
-        "--split-memory-limit", "1.5K", "--device", "cpu"])
-    p = assemble_params(ns)
+        "--split-memory-limit", "1.5K", "--device", "cpu"]))
     assert (p.kmer_size, p.min_seq_id, p.device) == (12, 0.95, "cpu")
     assert p.split_memory_limit == 1536
     assert p.include_only_extendable_set and not p.include_only_extendable
@@ -80,3 +84,18 @@ def test_cuda_without_a_card_raises(tmp_path):
         run_assemble(READS, str(tmp_path / "x.fas"), str(tmp_path / "tmp"),
                      AssembleParams(device="cuda"))
     assert not (tmp_path / "x.fas").exists()
+
+
+def test_rescore_mode_0_equals_jax(tmp_path):
+    """--rescore-mode 0: the HAMMING rescore and the Python extender,
+    default parameters otherwise, equal the JAX package's run."""
+    want = str(tmp_path / "jax.fas")
+    jax_run_assemble(READS, want, str(tmp_path / "jtmp"),
+                     JaxParams(backend="jax", rescore_mode=0))
+    got = str(tmp_path / "port.fas")
+    stats = {}
+    run_assemble(READS, got, str(tmp_path / "ptmp"),
+                 AssembleParams(device="cpu", rescore_mode=0), stats=stats)
+    data = open(got, "rb").read()
+    assert data == open(want, "rb").read()
+    assert data.count(b">") >= 1 and stats["hits"] > 0

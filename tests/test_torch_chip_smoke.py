@@ -48,6 +48,17 @@ def test_cpu_rehearsal_runs_every_phase():
                 "[split-main] guided-scale aa iteration 0:",
                 "equal to the monolithic matcher",
                 "[nucl-split] --split-memory-limit", "equal to nucl-scale's",
+                "[linclust-aa] phase 4's", "proteins of family_fasta made",
+                "[linclust-aa] contigs defaults:",
+                "[linclust-aa] contigs --min-seq-id 0.95:",
+                "[linclust-aa] families defaults:", "candidate pairs in the "
+                "align stage", "[sw-main] B9 on the contigs' ",
+                "[sw-main] B9 on the families' ", "[sw-main] B9 on 28 "
+                "edge pairs", "equal to the plain version and to the native "
+                "ssw", "[hamming] plass assemble --rescore-mode 0",
+                "[hamming] penguin nuclassemble --rescore-mode 0",
+                "[hamming] rescore_hamming on", "[hamming] "
+                "rescore_hamming_rev on",
                 "[nucl-large] 3000 reads", "equal hits, sha256",
                 "[done] all phases in", "[rehearsal]"):
         assert tag in out, out
@@ -103,3 +114,52 @@ def test_kernels_line_has_every_key_for_every_kernel():
         "assemble": 13, "nuclassemble": 0, "guided_nuclassemble": 5,
         "split": 0}
     assert by_name["rescore_e2e_rev"]["launches"] == 0
+
+
+def test_kernels_line_with_the_aligner_and_hamming_kernels():
+    """With B9's and the HAMMING forms' measurements the line also lists
+    sw_score, rescore_hamming and rescore_hamming_rev, each replacing the
+    JAX package's device function, with every key and the new paths."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    m = {"max_abs_err": 0, "ms": 0.05, "plain_ms": 3.0, "bound_ms": 0.01,
+         "bound_by": "bytes", "bytes": 1000}
+    sw = dict(m, bound_by="operations", operations=6000, cells=1000,
+              gcups=20.0, pairs=10)
+    sw["contigs"] = dict(sw)
+    launches = {
+        "assemble": {"seg_scan": 78, "rescore_e2e": 13},
+        "linclust": {"sw_score": 2},
+        "rescore_mode_0": {"seg_scan": 30, "rescore_hamming": 3,
+                           "rescore_hamming_rev": 2}}
+    kernels = chip_smoke.kernels_summary(
+        dict(m, copy_ms=0.06, elements=100), m,
+        {n: m for n in ("rescore_e2e_rev", "rescore_e2e_rev_uniform")},
+        launches, sw, {n: m for n in ("rescore_hamming",
+                                      "rescore_hamming_rev")})
+    line = json.loads(json.dumps({"kernels": kernels}))["kernels"]
+    by_name = {k["name"]: k for k in line}
+    assert list(by_name)[-3:] == ["sw_score", "rescore_hamming",
+                                  "rescore_hamming_rev"]
+    wants = {"sw_score": ("plass_tpu/ops/device_align.py", "def sw_score_batch"),
+             "rescore_hamming": ("plass_tpu/ops/device_rescore.py",
+                                 "mode == 0"),
+             "rescore_hamming_rev": ("plass_tpu/ops/device_rescore.py",
+                                     "mode == 0")}
+    for name, (ref_file, code) in wants.items():
+        k = by_name[name]
+        assert KERNEL_KEYS <= set(k) and k["library_ms"] is None
+        assert k["replaces"].split(":")[0] == ref_file
+        text = open(os.path.join(ROOT, ref_file)).read().splitlines()
+        line_no = int(k["replaces"].split(":")[1])
+        assert code in "".join(text[line_no - 1:line_no + 1]), name
+        assert os.path.exists(os.path.join(ROOT, k["source"]))
+        assert set(k["launches_by_path"]) == set(launches)
+    assert by_name["sw_score"]["launches"] == 2
+    assert by_name["sw_score"]["bound_by"] == "operations"
+    assert by_name["sw_score"]["contigs"]["gcups"] == 20.0
+    assert by_name["rescore_hamming"]["launches_by_path"]["rescore_mode_0"] \
+        == 3
+    assert by_name["seg_scan"]["launches"] == 108

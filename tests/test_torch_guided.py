@@ -283,9 +283,14 @@ def test_linclust_nucl_equals_jax_package():
 
 
 def test_linclust_refuses_amino_acids():
-    db = seqdb.SeqDB.from_records([b"MKV" * 20], dbtype=seqdb.AMINO_ACIDS)
-    with pytest.raises(NotImplementedError, match="protein_align"):
-        port_linclust.run_linclust(db)
+    """An amino-acid DB is clustered on the device it names: `cuda`
+    without a card is refused, never run on the CPU instead."""
+    db = seqdb.SeqDB.from_records([b"MKV" * 20, b"MKV" * 19 + b"MKA"],
+                                  dbtype=seqdb.AMINO_ACIDS)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_linclust.run_linclust(db)
+    assert port_linclust.run_linclust(db, device="cpu") == {0: [0, 1]}
 
 
 @pytest.mark.parametrize("wrapped", [True, False])
@@ -306,7 +311,12 @@ def test_align_nucl_equals_jax_package(wrapped):
 
 def test_cli_flags_map_to_params():
     from plass_tpu.cli import penguin as ref_cli
-    from plass_tpu_torch.cli.penguin import guided_params, parser
+    from plass_tpu_torch.cli.penguin import _guided_defaults, guided_params
+
+    def parse(argv):
+        space = _guided_defaults()
+        assert space.parse_args(argv[1:]) == argv[1:4]
+        return space
 
     from plass_tpu.ops.kmermatch import parse_memory_limit
 
@@ -319,7 +329,7 @@ def test_cli_flags_map_to_params():
                        name)
 
     base = ["guided_nuclassemble", "a.fq", "o.fasta", "tmp"]
-    p = guided_params(parser().parse_args(base))
+    p = guided_params(parse(base))
     assert p == port_guided.GuidedNuclAssembleParams(delete_tmp_inc=True)
     space = ref_cli._guided_defaults()
     for name, value in vars(p).items():
@@ -331,7 +341,7 @@ def test_cli_flags_map_to_params():
              "aa:0.3,nucl:0.2", "--clust-min-seq-id", "0.9",
              "--clust-min-cov", "0.8", "--min-contig-len", "150",
              "--chop-cycle", "0", "--split-memory-limit", "2G"]
-    p = guided_params(parser().parse_args(base + flags + ["--device", "cpu"]))
+    p = guided_params(parse(base + flags + ["--device", "cpu"]))
     space = ref_cli._guided_defaults()
     space.parse_args(flags)
     assert (p.aa_num_iterations, p.nucl_num_iterations) == (2, 3)
@@ -343,10 +353,10 @@ def test_cli_flags_map_to_params():
         if name != "device":
             assert ref_value(space, name) == value, name
     # a bare value sets both parts
-    p = guided_params(parser().parse_args(base + ["--num-iterations", "4"]))
+    p = guided_params(parse(base + ["--num-iterations", "4"]))
     assert (p.aa_num_iterations, p.nucl_num_iterations) == (4, 4)
-    with pytest.raises(SystemExit):
-        parser().parse_args(base + ["--num-iterations", "aa:2"])
+    with pytest.raises(ValueError, match="both aa: and nucl:"):
+        parse(base + ["--num-iterations", "aa:2"])
 
 
 def test_fixture_run_equals_live_jax_run(tmp_path):

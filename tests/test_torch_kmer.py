@@ -152,3 +152,41 @@ def test_block_selection_equals_single_block(monkeypatch):
     for g, w in zip(blocks, whole):
         np.testing.assert_array_equal(g, w)
     assert blocks.table_entries == whole.table_entries
+
+
+def _dict_to_flat(hits):
+    """The host matcher's {query: [(target, score, diag), ...]} as flat
+    (qk, tk, score, diag) arrays in its own order."""
+    rows = [(q, t, s, d) for q in sorted(hits) for (t, s, d) in hits[q]]
+    return [np.asarray(c, dtype=np.int64) for c in zip(*rows)]
+
+
+@pytest.mark.parametrize("cov_mode", [0, 1, 2])
+def test_coverage_modes_match_host_matcher(cov_mode):
+    """With include_only_extendable off and -c 0.8 the length test follows
+    Util::canBeCovered per mode: bidirectional (0) and query (2) coverage
+    drop pairs, target coverage (1) keeps all, as the JAX package's host
+    matcher does; at mode 0 the JAX device matcher agrees too."""
+    from plass_tpu.ops.kmermatch import kmermatcher
+
+    db = _db("synthetic")
+    kw = dict(kmers_per_sequence=60, hash_shift=67, ignore_multi_kmer=True,
+              include_only_extendable=False, cov_thr=0.8)
+    want = _dict_to_flat(kmermatcher(db, 14, cov_mode=cov_mode, **kw))
+    got = kmermatcher_torch(_port(db), 14, torch.device("cpu"),
+                            cov_mode=cov_mode, **kw)
+    for name, g, w in zip(("qk", "tk", "score", "diag"), got, want):
+        np.testing.assert_array_equal(np.asarray(g, np.int64), w,
+                                      err_msg=name)
+    # the coverage test's effect on the synthetic DB (929 vs 2,857 hits)
+    assert len(got.hit_slots) == {0: 929, 1: 2857, 2: 929}[cov_mode]
+    split = kmermatcher_torch(_port(db), 14, torch.device("cpu"),
+                              cov_mode=cov_mode, split_memory_limit="4K",
+                              **kw)
+    assert len(split.ranges) >= 8
+    for g, w in zip(split, got):
+        np.testing.assert_array_equal(g, w)
+    if cov_mode == 0:
+        jax_hits = kmermatcher_jax(db, 14, return_arrays=True, **kw)
+        for g, w in zip(got, jax_hits):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))

@@ -33,9 +33,11 @@ def test_port_imports_no_jax():
     lines = proc.stdout.splitlines()
     assert int(lines[0].split()[0]) >= 45, lines
     assert lines[1] == "BAD []", lines
-    # the guided slice's modules are among those imported
+    # the guided slice's modules and the aligner's are among those imported
     for name in ("workflow.guided", "workflow.linclust", "ops.kmermatch",
                  "ops.ksw2", "ops.nucl_align", "ops.proteinaln2nucl",
                  "assembler.guided_extend", "assembler.cluster",
-                 "assembler.cyclecheck", "cli.penguin"):
+                 "assembler.cyclecheck", "cli.penguin", "cli.plass",
+                 "cli.app", "cli.params", "ops.protein_align",
+                 "ops.device_align"):
         assert f"'plass_tpu_torch.{name}'" in lines[2], name

@@ -32,6 +32,7 @@ from plass_tpu_torch.ops.backend import (kmermatcher_torch,
 from plass_tpu_torch.ops.rescore import RescoreParams as PortRescoreParams
 from plass_tpu_torch.ops.rescore_kernel import (rescore_e2e,
                                                 rescore_e2e_plain,
+                                                rescore_hamming,
                                                 uniform_pattern)
 from test_torch_nucl_kmer import ACGT, RC, sample_reads
 from test_torch_rescore import flat_rows, port_args
@@ -352,3 +353,46 @@ def test_rev_operands_rejected():
                     code2char=torch.zeros(5, dtype=torch.uint8))
     with pytest.raises(ValueError):
         rescore_e2e(*head, uniform=(2, -3))
+
+
+@pytest.mark.parametrize("which", list(INPUTS))
+def test_hamming_rev_plain_matches_xla(which):
+    """The plain HAMMING rescore with reverse hits equals the JAX package's
+    rescore_pairs(mode=0, has_rev=True): a reverse hit's query chars are
+    the canonical chars of its complemented codes."""
+    codes, chars, lengths, q, t, d, rv, (rows, offsets) = INPUTS[which]()
+    args = port_args(rows, offsets, lengths, q, t, d, NUCL)
+    kw = _port_rev_kw(None)
+    del kw["uniform"]
+    got = [x.numpy() for x in rescore_hamming(
+        *args[:7], qrev=torch.from_numpy(rv), **kw)]
+    jdb = seqdb.SeqDB.from_records([b"A"], dbtype=seqdb.NUCLEOTIDES)
+    sub_flat, comp, c2c, alpha = _score_tables(jdb)
+    xla = rescore_pairs(jnp.asarray(codes), jnp.asarray(chars),
+                        jnp.asarray(lengths), jnp.asarray(q), jnp.asarray(t),
+                        jnp.asarray(d), jnp.asarray(rv), jnp.asarray(sub_flat),
+                        jnp.asarray(comp), jnp.asarray(c2c), alpha, mode=0,
+                        has_rev=True)
+    for name, g, x in zip(("score", "first", "last", "idents"), got,
+                          (xla[0], xla[1], xla[2], xla[5])):
+        np.testing.assert_array_equal(g, np.asarray(x), err_msg=name)
+    assert (got[0][rv] > 20).any() and (got[0][~rv] > 20).any()
+
+
+@pytest.mark.parametrize("which", list(DBS))
+def test_nucl_hamming_records_match_jax(which):
+    """rescore_diagonal_torch at --rescore-mode 0 (self rows analytic,
+    the rest through the HAMMING rescore) against rescore_diagonal_jax."""
+    jdb, pdb = DBS[which]()
+    rp = dict(rescore_mode=0, seq_id_thr=0.99, eval_thr=1e-5)
+    ev = EvalueComputer.for_matrix("nucleotide_ungapped",
+                                   jdb.total_residues())
+    want = rescore_diagonal_jax(
+        jdb, kmermatcher_jax(jdb, 22, return_arrays=True, **KW),
+        RescoreParams(**rp), ev, return_flat=True)
+    hits = kmermatcher_torch(pdb, 22, torch.device("cpu"), **KW)
+    got = rescore_diagonal_torch(pdb, hits, PortRescoreParams(**rp),
+                                 return_flat=True)
+    np.testing.assert_array_equal(got["qk"], want["qk"])
+    np.testing.assert_array_equal(got["rec"], want["rec"])
+    assert len(got["rec"]) > pdb.size

@@ -86,15 +86,19 @@ def test_resume_and_db_mode(tmp_path):
 
 
 def test_cli_flags_map_to_params():
-    from plass_tpu_torch.cli.penguin import nuclassemble_params, parser
+    from plass_tpu_torch.cli.penguin import _nucl_defaults, nuclassemble_params
 
-    ns = parser().parse_args(["nuclassemble", "a.fq", "o.fasta", "tmp"])
-    assert nuclassemble_params(ns) == NuclAssembleParams(delete_tmp_inc=True)
-    ns = parser().parse_args([
-        "nuclassemble", "a.fq", "o.fasta", "tmp", "-k", "aa:14,nucl:20",
+    def parse(argv):
+        space = _nucl_defaults()
+        assert space.parse_args(argv) == ["a.fq", "o.fasta", "tmp"]
+        return space
+
+    assert nuclassemble_params(parse(["a.fq", "o.fasta", "tmp"])) == \
+        NuclAssembleParams(delete_tmp_inc=True)
+    p = nuclassemble_params(parse([
+        "a.fq", "o.fasta", "tmp", "-k", "aa:14,nucl:20",
         "--min-seq-id", "0.97", "--cycle-check", "0",
-        "--split-memory-limit", "3M", "--device", "cpu"])
-    p = nuclassemble_params(ns)
+        "--split-memory-limit", "3M", "--device", "cpu"]))
     assert (p.kmer_size, p.min_seq_id, p.cycle_check, p.device) == \
         (20, 0.97, False, "cpu")
     assert p.split_memory_limit == 3 << 20
@@ -102,11 +106,11 @@ def test_cli_flags_map_to_params():
 
 def test_extend_refuses_modes_other_than_end_to_end():
     from plass_tpu_torch.assembler.nucl_extend import nucl_assemble
-    from plass_tpu_torch.ops.rescore import RESCORE_HAMMING
+    from plass_tpu_torch.ops.rescore import RESCORE_SUBSTITUTION
 
     reads, _ = merge_reads(READS)
     with pytest.raises(NotImplementedError, match="END_TO_END"):
-        nucl_assemble(reads, {}, rescore_mode=RESCORE_HAMMING)
+        nucl_assemble(reads, {}, rescore_mode=RESCORE_SUBSTITUTION)
 
 
 def test_cuda_without_a_card_raises(tmp_path):
@@ -118,3 +122,23 @@ def test_cuda_without_a_card_raises(tmp_path):
                          str(tmp_path / "tmp"),
                          NuclAssembleParams(device="cuda"))
     assert not (tmp_path / "x.fasta").exists()
+
+
+def test_rescore_mode_0_equals_jax(tmp_path):
+    """--rescore-mode 0 (HAMMING rescore, the Python extender) through the
+    port's CLI equals the JAX package's run; every contig is written
+    (--contig-output-mode 0, --min-contig-len 1)."""
+    from plass_tpu_torch.cli.penguin import run
+
+    want = str(tmp_path / "jax.fasta")
+    jax_run(READS, want, str(tmp_path / "jtmp"),
+            JaxParams(rescore_mode=0, num_iterations=2, min_contig_len=1,
+                      contig_output_mode=0, backend="jax"))
+    got = str(tmp_path / "port.fasta")
+    assert run(["nuclassemble", *READS, got, str(tmp_path / "ptmp"),
+                "--rescore-mode", "0", "--num-iterations", "2",
+                "--min-contig-len", "1", "--contig-output-mode", "0",
+                "--device", "cpu"]) == 0
+    data = open(got, "rb").read()
+    assert data == open(want, "rb").read()
+    assert data.count(b">") > 10

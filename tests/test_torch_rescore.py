@@ -22,7 +22,8 @@ from plass_tpu.ops.backend import db_to_padded
 from plass_tpu.ops.device_rescore import rescore_pairs
 from plass_tpu.ops.kmermatch import kmermatcher
 from plass_tpu.ops.pallas_rescore import rescore_pairs_pallas
-from plass_tpu_torch.ops.rescore_kernel import rescore_e2e, rescore_e2e_plain
+from plass_tpu_torch.ops.rescore_kernel import (rescore_e2e, rescore_e2e_plain,
+                                                rescore_hamming)
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 READS = [os.path.join(FIX, "mini_1.fastq.gz"),
@@ -236,3 +237,26 @@ def test_rescore_rejects_bad_operands():
                     torch.zeros((40, 40), dtype=torch.int32))
     out = rescore_e2e_plain(rows, offs, lens, lut, h[:0], h[:0], h[:0], sub)
     assert all(o.numel() == 0 for o in out)
+
+
+@pytest.mark.parametrize("which", list(INPUTS))
+def test_hamming_plain_matches_xla(which):
+    """The plain HAMMING rescore (--rescore-mode 0) equals the JAX
+    package's rescore_pairs(mode=0) on protein hits: identical raw chars
+    (lower case counts as different) over the window, first = last = -1."""
+    codes, chars, lengths, q, t, d, (rows, offsets) = INPUTS[which]()
+    args = port_args(rows, offsets, lengths, q, t, d, constants.blosum62())
+    got = [x.numpy() for x in rescore_hamming(*args[:7])]
+    alpha = 21
+    xla = rescore_pairs(jnp.asarray(codes), jnp.asarray(chars),
+                        jnp.asarray(lengths), jnp.asarray(q), jnp.asarray(t),
+                        jnp.asarray(d), jnp.zeros(len(q), bool),
+                        jnp.asarray(constants.blosum62().sub.astype(np.int32)
+                                    .reshape(-1)),
+                        jnp.arange(alpha, dtype=jnp.int32),
+                        jnp.asarray(constants.blosum62().num2aa), alpha,
+                        mode=0, has_rev=False)
+    for name, g, x in zip(("score", "first", "last", "idents"), got,
+                          (xla[0], xla[1], xla[2], xla[5])):
+        np.testing.assert_array_equal(g, np.asarray(x), err_msg=name)
+    assert (got[0] > 10).any() and (got[1] == -1).all()
