@@ -68,25 +68,40 @@ Phases, each printing its own lines; any failure exits non-zero:
      createdb, each run on the card and with --device cpu: the cluster DBs
      byte for byte equal; stage seconds, the pairs the device
      Smith-Waterman (B9) scored and its launches, peak device memory;
- 15. sw-main: B9 on the candidate pairs of phase 14's align stage (for
-     each input the run with the most) and on edge rows (query length 1,
-     target length 0, lengths at the kernel's lane, register and strip
-     edges, pairs above 4,096 residues) against its plain version and the
-     native striped Smith-Waterman's scores (exact); timed beside its bound
-     (DPX-fused int32 operations per cell over the card's integer rate)
-     and in cells a second;
- 16. hamming: `plass assemble` and `penguin nuclassemble` with
+ 15. search-aa: `plass search` through the CLI with default parameters
+     (-s 5.7, --max-seqs 300): every 15th of phase 14's family proteins
+     (made with `plass createsubdb` from the target DB `plass createdb`
+     made) against all of them, on the card; the same align stage with
+     --device cpu on the same prefilter DB: the alignment DBs byte for
+     byte equal; stage seconds, candidate pairs, the pairs B9 scored and
+     rejected, its launches, peak device memory;
+ 16. cluster-aa: `plass cluster --min-seq-id 0.9 -c 0.9` (the paper's
+     setting) through the CLI on the family proteins, on the card and with
+     --device cpu: the cluster DBs byte for byte equal; seconds per stage
+     and step, B9's launches and pairs, the cluster count;
+ 17. easy-aa: `plass easy-search` and `plass easy-cluster` on 100 family
+     records, on the card and with --device cpu: the BLAST-tab file and
+     the cluster TSV and FASTA files byte for byte equal;
+ 18. sw-main: B9 on the candidate pairs of phase 14's align stage (for
+     each input the run with the most) and of phase 15's, and on edge rows
+     (query length 1, target length 0, lengths at the kernel's lane,
+     register and strip edges, pairs above 4,096 residues) against its
+     plain version and the native striped Smith-Waterman's scores (exact);
+     timed beside its bound (DPX-fused int32 operations per cell over the
+     card's integer rate) and in cells a second, with the share of the
+     pairs failing the E-value test (which B9 spares a host ssw);
+ 19. hamming: `plass assemble` and `penguin nuclassemble` with
      --rescore-mode 0 on the fixture, on the card and with --device cpu,
      byte for byte; K2's HAMMING forms against their plain version on the
      iteration-0 hits of phases 4 and 7 (reverse hits included) and on
      edge rows (exact), timed beside their bound;
- 17. nucl-large: the nucleotide matcher at iteration 0 on the fewest
+ 20. nucl-large: the nucleotide matcher at iteration 0 on the fewest
      seeded 150-nt reads whose table the monolithic matcher would need more
      than the card's free memory for, with the automatic budget and at half
      of it: equal hits, peak memory under the card's (the matcher only).
 The kernels' launch counters are set to 0 just before phases 4, 7, 10, 13,
-14 and 16's CLI runs and read just after; every kernel of each path must
-have run there. The last lines are the script's seconds, a JSON summary of
+14, 15, 16, 17 and 19's CLI runs and read just after; every kernel of each
+path must have run there. The last lines are the script's seconds, a JSON summary of
 the kernels (times, launches by path, bytes or operations counted and the
 bound they give at 3.35 TB/s or the card's integer rate), the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -98,6 +113,7 @@ assemble, nuclassemble, guided_nuclassemble it names) at full size on the
 CPU, for the sha256 of their outputs. Neither prints a result; both exit with code 2.
 """
 import argparse
+import contextlib
 import gzip
 import hashlib
 import json
@@ -1656,6 +1672,31 @@ def seconds_text(seconds):
     return ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
 
 
+@contextlib.contextmanager
+def recorded_align_calls():
+    """Within the block, each call of protein_align._maybe_device_prefilter
+    (the aligner's candidate pairs, before B9 scores them) is recorded in
+    the yielded list: its DBs, hits, scoring parameters and pairs."""
+    from plass_tpu_torch.ops import protein_align
+    real = protein_align._maybe_device_prefilter
+    spied = []
+
+    def spy(*args):
+        pdb, tdb, hits, _mat, bias_corr, gapo, gape, incl, same = args[:9]
+        spied.append(dict(db=pdb, tdb=tdb, hits=hits,
+                          comp_bias_corr=bias_corr, gap_open=gapo,
+                          gap_extend=gape, include_identity=incl,
+                          same_db=same, pairs=protein_align.candidate_pairs(
+                              hits, incl, same)))
+        return real(*args)
+
+    protein_align._maybe_device_prefilter = spy
+    try:
+        yield spied
+    finally:
+        protein_align._maybe_device_prefilter = real
+
+
 def phase_linclust_aa(device, work, fasta, rehearsal):
     """`plass linclust` through the CLI at each of LINCLUST_RUNS, on the
     device and with --device cpu: the cluster DBs byte for byte equal. The
@@ -1663,10 +1704,10 @@ def phase_linclust_aa(device, work, fasta, rehearsal):
     into a DB with the port's createdb. The align stage's candidate pairs
     (the arguments of protein_align._maybe_device_prefilter) of each
     device run are recorded for phase sw-main. Returns (the launches of the
-    device runs, summed, and {input: the recorded call with the most
-    candidate pairs})."""
+    device runs, summed, {input: the recorded call with the most
+    candidate pairs}, and the path of family_fasta's FASTA)."""
     from plass_tpu_torch.data.createdb import create_db
-    from plass_tpu_torch.ops import device_align, protein_align
+    from plass_tpu_torch.ops import device_align
 
     paths = {}
     for name, src in (("contigs", fasta), ("families", None)):
@@ -1686,31 +1727,17 @@ def phase_linclust_aa(device, work, fasta, rehearsal):
             f"{time.perf_counter() - t0:.1f} s: {int(lens.sum())} residues, "
             f"median {int(np.median(lens))}, longest {int(lens.max())}")
     calls = {}
-    real = protein_align._maybe_device_prefilter
-
-    def spy(*args):
-        pdb, tdb, hits, _mat, bias_corr, gapo, gape, incl, same = args[:9]
-        spied.append(dict(db=pdb, tdb=tdb, hits=hits,
-                          comp_bias_corr=bias_corr, gap_open=gapo,
-                          gap_extend=gape, include_identity=incl,
-                          same_db=same, pairs=protein_align.candidate_pairs(
-                              hits, incl, same)))
-        return real(*args)
-
     total = {}
     for name, label, flags in LINCLUST_RUNS:
         tag = name + "".join(c for c in label if c.isalnum())
-        stats, cpu_stats, spied = {}, {}, []
+        stats, cpu_stats = {}, {}
         _reset_launches()
         _peak_reset(device)
-        protein_align._maybe_device_prefilter = spy
-        try:
+        with recorded_align_calls() as spied:
             t0 = time.perf_counter()
             out = linclust_cli(paths[name], os.path.join(work, "lc_" + tag),
                                flags, device, stats)
             wall = time.perf_counter() - t0
-        finally:
-            protein_align._maybe_device_prefilter = real
         peak = _peak(device)
         launches = _launches()
         scored = device_align.PAIRS
@@ -1745,7 +1772,173 @@ def phase_linclust_aa(device, work, fasta, rehearsal):
                                  "families (under 512 candidate pairs)")
     if device.type == "cuda" and not total["sw_score"]:
         raise AssertionError("linclust-aa: B9 never launched through the CLI")
-    return total, calls
+    return total, calls, os.path.join(work, "families.fasta")
+
+
+# ---------------------------------------------------------------------------
+# the sensitive prefilter: `plass search`, `plass cluster` and the easy-*
+# forms on family_fasta's proteins
+
+# search-aa's queries: every SEARCH_EVERY-th record of the families' DB
+SEARCH_EVERY = 15
+# easy-aa's input: the first EASY_RECORDS records of family_fasta's FASTA
+EASY_RECORDS = 100
+CLUSTER_FLAGS = ("--min-seq-id", "0.9", "-c", "0.9")   # the paper's
+
+
+def plass_cli(args, device, stats=None):
+    """`plass <args> --device <device>`; raises unless it exits 0."""
+    from plass_tpu_torch.cli.plass import run
+    rc = run([*args, "--device", str(device)], stats=stats)
+    if rc != 0:
+        raise AssertionError(f"plass {args[0]}: CLI exit code {rc}")
+
+
+def pairs_text(stats):
+    """The aligner's pair counts of a CLI run (align_protein's counts)."""
+    c = stats.get("pairs", {})
+    return (f"{c.get('candidate_pairs', 0)} candidate pairs, "
+            f"{c.get('device_pairs', 0)} scored by B9, "
+            f"{c.get('device_rejected', 0)} of them rejected by it")
+
+
+def phase_search_aa(device, work, fasta):
+    """`plass search` through the CLI: the families' DB made with `plass
+    createdb` as the target, every SEARCH_EVERY-th record of it taken with
+    `plass createsubdb` as the queries, default parameters (-s 5.7,
+    --max-seqs 300), on the device; then the same align stage with
+    --device cpu on the same prefilter DB (the tmp dir's prefilter step is
+    reused, the align step's sentinel removed): the alignment DBs byte for
+    byte equal. Returns (the device run's launches, its recorded align
+    call, the target DB's path)."""
+    from plass_tpu_torch.data import seqdb
+    d = os.path.join(work, "search_aa")
+    os.makedirs(d)
+    tpath, qpath = os.path.join(d, "famDB"), os.path.join(d, "qDB")
+    t0 = time.perf_counter()
+    plass_cli(["createdb", fasta, tpath], device)
+    keys = np.sort(seqdb.SeqDB.open(tpath).keys)[::SEARCH_EVERY]
+    subset = os.path.join(d, "subset.txt")
+    with open(subset, "w") as fh:
+        fh.writelines(f"{k}\n" for k in keys)
+    plass_cli(["createsubdb", subset, tpath, qpath], device)
+    tdb, qdb = seqdb.SeqDB.open(tpath), seqdb.SeqDB.open(qpath)
+    say(f"[search-aa] target DB of {tdb.size} proteins "
+        f"({int(tdb.seq_lens().sum())} residues) with `plass createdb`, "
+        f"{qdb.size} queries (every {SEARCH_EVERY}th) with `plass "
+        f"createsubdb`, in {time.perf_counter() - t0:.1f} s")
+    aln, cpu_aln = os.path.join(d, "aln"), os.path.join(d, "aln_cpu")
+    tmp = os.path.join(d, "tmp")
+    stats, cpu_stats = {}, {}
+    _reset_launches()
+    _peak_reset(device)
+    with recorded_align_calls() as spied:
+        t0 = time.perf_counter()
+        plass_cli(["search", qpath, tpath, aln, tmp], device, stats)
+        wall = time.perf_counter() - t0
+    peak = _peak(device)
+    launches = _launches()
+    os.unlink(os.path.join(tmp, "latest", "aln_0.done"))
+    t0 = time.perf_counter()
+    plass_cli(["search", qpath, tpath, cpu_aln, tmp], "cpu", cpu_stats)
+    cpu_wall = time.perf_counter() - t0
+    data = db_bytes(aln)
+    if data != db_bytes(cpu_aln):
+        raise AssertionError("search-aa: the alignment DB differs from the "
+                             "align stage with --device cpu")
+    say(f"[search-aa] {qdb.size} queries against {tdb.size} targets in "
+        f"{wall:.1f} s; alignment DB sha256 "
+        f"{hashlib.sha256(data).hexdigest()}, byte-identical to the align "
+        f"stage with --device cpu ({cpu_wall:.1f} s, the prefilter reused)")
+    say(f"[search-aa] seconds per stage: {seconds_text(stats['seconds'])}; "
+        f"with --device cpu: {seconds_text(cpu_stats['seconds'])}")
+    say(f"[search-aa] {pairs_text(stats)}; B9 launches "
+        f"{launches['sw_score']}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    if device.type == "cuda" and not launches["sw_score"]:
+        raise AssertionError("search-aa: B9 never launched through the CLI")
+    return launches, spied[-1], tpath
+
+
+def phase_cluster_aa(device, work, famdb):
+    """`plass cluster` through the CLI on the families' DB at
+    CLUSTER_FLAGS, on the device and with --device cpu: the cluster DBs
+    byte for byte equal. Returns the device run's launches."""
+    from plass_tpu_torch.data import seqdb
+    d = os.path.join(work, "cluster_aa")
+    stats, cpu_stats = {}, {}
+    _reset_launches()
+    _peak_reset(device)
+    t0 = time.perf_counter()
+    plass_cli(["cluster", famdb, os.path.join(d, "clu"),
+               os.path.join(d, "tmp"), *CLUSTER_FLAGS], device, stats)
+    wall = time.perf_counter() - t0
+    peak = _peak(device)
+    launches = _launches()
+    t0 = time.perf_counter()
+    plass_cli(["cluster", famdb, os.path.join(d, "clu_cpu"),
+               os.path.join(d, "tmp_cpu"), *CLUSTER_FLAGS], "cpu", cpu_stats)
+    cpu_wall = time.perf_counter() - t0
+    data = db_bytes(os.path.join(d, "clu"))
+    if data != db_bytes(os.path.join(d, "clu_cpu")):
+        raise AssertionError("cluster-aa: the cluster DB differs from the "
+                             "run with --device cpu")
+    n_clu = seqdb.SeqDB.open(os.path.join(d, "clu")).size
+    say(f"[cluster-aa] `plass cluster {' '.join(CLUSTER_FLAGS)}`: {n_clu} "
+        f"clusters of {seqdb.SeqDB.open(famdb).size} proteins in "
+        f"{wall:.1f} s (--device cpu {cpu_wall:.1f} s); cluster DB sha256 "
+        f"{hashlib.sha256(data).hexdigest()}, byte-identical to the run "
+        f"with --device cpu")
+    say(f"[cluster-aa] seconds per stage and step: "
+        f"{seconds_text(stats['seconds'])}; with --device cpu: "
+        f"{seconds_text(cpu_stats['seconds'])}")
+    say(f"[cluster-aa] {pairs_text(stats)}; B9 launches "
+        f"{launches['sw_score']}; peak device memory {peak / 2**30:.2f} GiB")
+    if device.type == "cuda" and not launches["sw_score"]:
+        raise AssertionError("cluster-aa: B9 never launched through the CLI")
+    return launches
+
+
+def phase_easy_aa(device, work, fasta):
+    """`plass easy-search` (the records against themselves) and `plass
+    easy-cluster` on the first EASY_RECORDS records of family_fasta's FASTA,
+    on the device and with --device cpu: the BLAST-tab file and the
+    cluster TSV and FASTA files byte for byte equal. Returns the device
+    runs' launches, summed."""
+    d = os.path.join(work, "easy_aa")
+    os.makedirs(d)
+    src = os.path.join(d, "input.fasta")
+    with open(fasta) as fh, open(src, "w") as out:
+        out.writelines(fh.readlines()[:2 * EASY_RECORDS])
+    names = ("m8", "_cluster.tsv", "_rep_seq.fasta", "_all_seqs.fasta")
+    total, outputs = {}, {}
+    for tag, dev in (("dev", device), ("cpu", "cpu")):
+        stats = {}
+        _reset_launches()
+        t0 = time.perf_counter()
+        m8, prefix = os.path.join(d, tag + ".m8"), os.path.join(d, tag)
+        plass_cli(["easy-search", src, src, m8, os.path.join(d, tag + "_st")],
+                  dev, stats)
+        plass_cli(["easy-cluster", src, prefix, os.path.join(d, tag + "_ct")],
+                  dev, stats)
+        wall = time.perf_counter() - t0
+        if tag == "dev":
+            total = _launches()
+        outputs[tag] = [open(p, "rb").read() for p in (
+            m8, prefix + "_cluster.tsv", prefix + "_rep_seq.fasta",
+            prefix + "_all_seqs.fasta")]
+        say(f"[easy-aa] {tag}: easy-search and easy-cluster on "
+            f"{EASY_RECORDS} records in {wall:.1f} s; {pairs_text(stats)}")
+    for name, a, b in zip(names, outputs["dev"], outputs["cpu"]):
+        if a != b:
+            raise AssertionError(f"easy-aa: {name} differs from the run "
+                                 f"with --device cpu")
+    digests = ", ".join(f"{n} {len(a)} bytes sha256 "
+                        f"{hashlib.sha256(a).hexdigest()[:16]}"
+                        for n, a in zip(names, outputs["dev"]))
+    say(f"[easy-aa] {digests}: byte-identical to the runs with --device "
+        f"cpu; B9 launches {total['sw_score']}")
+    return total
 
 
 # B9's edge rows: a row per lane up to 32, the edges of the register tiers
@@ -1866,24 +2059,33 @@ def _sw_time(args, gaps, reps, device):
                                      rate)[0]}
 
 
+# sw-main's inputs: the recorded align calls of linclust-aa (the run with
+# the most pairs of each input) and of search-aa; (name, owner, stage)
+SW_INPUTS = (("contigs", "the contigs'",
+              "linclust's align stage on the contigs"),
+             ("families", "the families'",
+              "linclust's align stage on the families"),
+             ("search", "search-aa's", "search-aa's align stage"))
+
+
 def phase_sw_main(device, calls, rehearsal):
-    """B9 on the candidate pairs of each linclust-aa input's align stage
-    (the run with the most) and on edge rows: equal to its plain version
-    and to the native ssw's scores; timed against its plain version and its
-    bound. Returns the measurements on the families' pairs, with the
-    contigs' under "contigs"."""
+    """B9 on the candidate pairs of each of SW_INPUTS and on edge rows:
+    equal to its plain version and to the native ssw's scores; timed
+    against its plain version and its bound; the share of the pairs that
+    fail the E-value test (-e 0.001 in linclust and search), which B9
+    spares a host ssw. Returns the measurements on the families' pairs,
+    with the contigs' and search-aa's under "contigs" and "search"."""
     from plass_tpu_torch.ops.device_align import sw_score
     from plass_tpu_torch.ops.evalue import EvalueComputer
 
     reps = 1 if rehearsal else 20
     out = {}
-    for name in ("contigs", "families"):
+    for name, owner, what in SW_INPUTS:
         call = calls[name]
         pairs = call["pairs"]
         gaps = (call["gap_open"], call["gap_extend"])
         if not pairs:
-            raise AssertionError(f"sw-main: the {name}' align stage had no "
-                                 f"pairs")
+            raise AssertionError(f"sw-main: {what} had no pairs")
         args, got = _sw_check(call["db"], call["tdb"], pairs,
                               call["comp_bias_corr"], gaps, device,
                               SW_NATIVE_PAIRS)
@@ -1892,18 +2094,20 @@ def phase_sw_main(device, calls, rehearsal):
         tlen = args[6][args[9].long()]
         ev = EvalueComputer.for_matrix("blosum62_11_1",
                                        call["tdb"].total_residues())
-        fail = sum(float(ev.evalue(int(sc), int(ql))) > 1e-3   # linclust -e
-                   for sc, ql in zip(got.tolist(), qlen.tolist()))
-        say(f"[sw-main] B9 on the {len(pairs)} candidate pairs of linclust's "
-            f"align stage on the {name} ({call['db'].size} representatives, "
+        fail = m["rejected"] = sum(
+            float(ev.evalue(int(sc), int(ql))) > 1e-3
+            for sc, ql in zip(got.tolist(), qlen.tolist()))
+        say(f"[sw-main] B9 on the {len(pairs)} candidate pairs of {what} "
+            f"({call['db'].size} queries, "
             f"queries of median {int(qlen.median())} and up to "
             f"{int(qlen.max())}, targets of median {int(tlen.median())} and "
             f"up to {int(tlen.max())} residues, {m['cells']} cells, gaps "
             f"{gaps[0]}/{gaps[1]}, {int((got > 0).sum())} scores above 0, "
-            f"{fail} failing the E-value test, whose host ssw B9 spares): "
-            f"equal to the plain version, and to the native ssw on the first "
+            f"{fail} ({100 * fail / len(pairs):.1f}%) failing the E-value "
+            f"test, whose host ssw B9 spares): equal to the plain version, "
+            f"and to the native ssw on the first "
             f"{min(len(pairs), SW_NATIVE_PAIRS)}")
-        say(f"[sw-main] B9 on the {name}' {len(pairs)} pairs: kernel "
+        say(f"[sw-main] B9 on {owner} {len(pairs)} pairs: kernel "
             f"{m['ms']:.4f} ms ({m['gcups']:.1f} GCUPS), plain "
             f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by "
             f"{m['bound_by']} ({100 * m['bound_ms'] / m['ms']:.1f}% of it "
@@ -1926,7 +2130,8 @@ def phase_sw_main(device, calls, rehearsal):
         f"and 5/2; best {int(egot.max())}): equal to the plain version and "
         f"to the native ssw; {ecells} cells in {ems:.4f} ms a call "
         f"({ecells / (ems * 1e-3) / 1e9:.1f} GCUPS)")
-    return dict(out["families"], contigs=out["contigs"])
+    return dict(out["families"], contigs=out["contigs"],
+                search=out["search"])
 
 
 # `--rescore-mode 0` on the fixture: the protein loop cut to 3 iterations
@@ -2025,7 +2230,9 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
     """The entries of the `kernels` line. k1, k2, rev[name], sw and
     hamming[name] hold a kernel's measurements (max_abs_err, ms, plain_ms,
     bound_ms, bound_by, bytes); launches maps each main path to its
-    {kernel: launches}. Without sw or hamming their entries are left out."""
+    {kernel: launches}. Without sw or hamming their entries are left out;
+    sw's measurements on the contigs' and search-aa's pairs, where given
+    under "contigs" and "search", go into B9's entry."""
     def entry(name, source, replaces, m, **extra):
         paths = {path: counts.get(name, 0)
                  for path, counts in launches.items()}
@@ -2058,8 +2265,10 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
             "plass_tpu/ops/device_align.py:32", sw,
             operations=sw["operations"], cells=sw["cells"],
             gcups=sw["gcups"], pairs=sw["pairs"],
-            contigs={k: sw["contigs"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "cells", "gcups", "pairs")}))
+            **{name: {k: v for k, v in sw[name].items() if k in (
+                "ms", "plain_ms", "bound_ms", "cells", "gcups", "pairs",
+                "rejected")} for name in ("contigs", "search")
+               if name in sw}))
     for name in ("rescore_hamming", "rescore_hamming_rev") \
             if hamming is not None else ():
         kernels.append(entry(name, k2_src[0],
@@ -2137,8 +2346,12 @@ def main():
              False)],
             rehearsal)
         slaunches = phase_nucl_split(device, work, nrun)
-        llaunches, lcalls = phase_linclust_aa(device, work, assembly,
-                                              rehearsal)
+        llaunches, lcalls, fam_fasta = phase_linclust_aa(device, work,
+                                                         assembly, rehearsal)
+        salaunches, lcalls["search"], famdb = phase_search_aa(
+            device, work, fam_fasta)
+        calaunches = phase_cluster_aa(device, work, famdb)
+        ealaunches = phase_easy_aa(device, work, fam_fasta)
         sw = phase_sw_main(device, lcalls, rehearsal)
         del lcalls
         hlaunches, hamming = phase_hamming(device, work, db_path,
@@ -2156,7 +2369,8 @@ def main():
         dict(k1, max_abs_err=k1_err), k2, rev,
         {"assemble": launches, "nuclassemble": nlaunches,
          "guided_nuclassemble": glaunches, "split": slaunches,
-         "linclust": llaunches, "rescore_mode_0": hlaunches}, sw, hamming)
+         "linclust": llaunches, "search": salaunches, "cluster": calaunches,
+         "easy": ealaunches, "rescore_mode_0": hlaunches}, sw, hamming)
     say(json.dumps({"kernels": kernels}))
     say(smi())
     say(json.dumps({"ok": True, "device": {

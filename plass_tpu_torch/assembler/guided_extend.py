@@ -28,7 +28,7 @@ import ctypes
 import numpy as np
 
 from .. import constants, native
-from ..ops.rescore import RESCORE_END_TO_END
+from ..ops.rescore import RESCORE_END_TO_END, format_seq_id
 from .extend import _flat_seqs, _native_output_db, _native_ptr as ptr
 
 
@@ -52,6 +52,29 @@ def guided_assemble(nucl_db, aa_db, alignments, seq_id_thr=0.99,
                         "protein_aln_to_nucl")
     return _guided_assemble_native(nucl_db, aa_db, alignments, seq_id_thr,
                                    max_seq_len, keep_target)
+
+
+def records_to_flat(nucl_db, alignments):
+    """protein_aln_to_nucl's flat format from per-query record dicts
+    ({query_key: [record dict]}, as an alignment DB is read back): the
+    queries in `nucl_db`'s order, each seqId through its 3-digit text round
+    trip (Matcher::parseAlignmentRecord), "n_aln_raw" the records a query
+    had."""
+    lut = nucl_db.id_lookup_array()
+    recs = [(int(k), r) for k in nucl_db.keys
+            for r in alignments.get(int(k), [])]
+    col = {name: np.array([r[field] for _, r in recs], dtype=np.int64)
+           for name, field in (("dbkey", "dbKey"), ("score", "score"),
+                               ("qs", "qStartPos"), ("qe", "qEndPos"),
+                               ("qlen", "qLen"), ("ts", "dbStartPos"),
+                               ("te", "dbEndPos"), ("tlen", "dbLen"))}
+    return dict(
+        col, qk=np.array([k for k, _ in recs], dtype=np.int64),
+        dbid=lut[col["dbkey"]] if len(recs) else col["dbkey"],
+        seqid=np.array([float(format_seq_id(r["seqId"])) for _, r in recs],
+                       dtype=np.float64),
+        n_aln_raw=np.array([len(alignments.get(int(k), []))
+                            for k in nucl_db.keys], dtype=np.int32))
 
 
 def _guided_assemble_native(nucl_db, aa_db, alignments, seq_id_thr,

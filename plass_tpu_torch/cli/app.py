@@ -11,7 +11,7 @@ its host stages take their threads from OpenMP and torch. `<command>
 import dataclasses
 import sys
 
-from ..utils.log import setup
+from ..utils.log import logger, setup
 from . import params as P
 
 IGNORED = {
@@ -84,4 +84,11 @@ def run_app(binary, commands, argv, stats=None):
         print(f"usage: {binary} {cmd.name} {cmd.usage}", file=sys.stderr)
         return 1
     setup(space.values["verbosity"])
-    return cmd.fn(positional, space, {} if stats is None else stats) or 0
+    try:
+        return cmd.fn(positional, space,
+                      {} if stats is None else stats) or 0
+    except (FileExistsError, FileNotFoundError, ValueError) as e:
+        # a usage error or a missing or existing file, as the JAX
+        # package's shell reports them
+        logger.error("Error: %s", e)
+        return 1

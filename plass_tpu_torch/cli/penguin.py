@@ -1,5 +1,6 @@
 """`penguin` CLI of the port: the `nuclassemble` and `guided_nuclassemble`
-workflows and `linclust`.
+workflows, `linclust`, the hidden tools of the assemblies and the base
+tools (cli/tools.py).
 
     python -m plass_tpu_torch.cli.penguin nuclassemble reads_1.fq.gz \\
         reads_2.fq.gz out.fasta tmp [--num-iterations N ... --device cuda]
@@ -17,11 +18,14 @@ part, `guided_nuclassemble` keeps both where the workflow has both
 """
 import sys
 
+from ..data import seqdb
 from ..ops.kmermatch import parse_memory_limit
 from ..utils.log import logger
 from . import params as P
 from .app import Command, port_flags, run_app
-from .plass import ASSEMBLE_USAGE, run_linclust_command
+from .plass import ASSEMBLE_USAGE, createhdb, mergereads, run_linclust_command
+from .tools import (BASE_COMMANDS, load_alignments,
+                    load_alignments_with_backtrace)
 
 
 def _nucl_defaults():
@@ -146,16 +150,77 @@ def _linclust(positional, space, stats):
     return run_linclust_command(positional, space, stats, linclust_params)
 
 
+def _nuclassembleresults(positional, space, stats):
+    from ..assembler.nucl_extend import nucl_assemble
+    if len(positional) != 3:
+        raise ValueError("usage: nuclassembleresults <seqDB> <alnDB> <outDB>")
+    db = seqdb.SeqDB.open(positional[0])
+    alns = load_alignments(positional[1])
+    out, _ = nucl_assemble(db, alns,
+                           seq_id_thr=space.values["min_seq_id"].nucleotides,
+                           max_seq_len=space.values["max_seq_len"],
+                           keep_target=space.values["keep_target"])
+    out.save(positional[2])
+    return 0
+
+
+def _guidedassembleresults(positional, space, stats):
+    from ..assembler.guided_extend import guided_assemble, records_to_flat
+    if len(positional) != 5:
+        raise ValueError("usage: guidedassembleresults <i:nuclDB> <i:aaDB> "
+                         "<i:alnDB> <o:nuclDB> <o:aaDB>")
+    nucl_db = seqdb.SeqDB.open(positional[0])
+    aa_db = seqdb.SeqDB.open(positional[1])
+    alns = load_alignments_with_backtrace(positional[2])
+    nucl_out, aa_out, _ = guided_assemble(
+        nucl_db, aa_db, records_to_flat(nucl_db, alns),
+        seq_id_thr=space.values["min_seq_id"].nucleotides,
+        max_seq_len=space.values["max_seq_len"],
+        keep_target=space.values["keep_target"])
+    nucl_out.save(positional[3])
+    aa_out.save(positional[4])
+    return 0
+
+
+def _cyclecheck(positional, space, stats):
+    from ..assembler.cyclecheck import cycle_check_db
+    from ..utils.device import pick_device
+    if len(positional) != 2:
+        raise ValueError("usage: cyclecheck <seqDB> <outDB>")
+    db = seqdb.SeqDB.open(positional[0])
+    cyc, _ = cycle_check_db(db, chop_cycle=space.values["chop_cycle"],
+                            max_seq_len=space.values["max_seq_len"],
+                            device=pick_device(space.values["device"]))
+    cyc.save(positional[1])
+    return 0
+
+
 def commands():
     return [
         Command("guided_nuclassemble", _guided, _guided_defaults,
                 ASSEMBLE_USAGE, "Protein-guided nucleotide assembly"),
         Command("nuclassemble", _nuclassemble, _nucl_defaults,
                 ASSEMBLE_USAGE, "Iterative greedy nucleotide assembly"),
+        Command("nuclassembleresults", _nuclassembleresults,
+                _nucl_defaults, "<i:seqDB> <i:alnDB> <o:seqDB>",
+                "Extend nucleotide sequences", hidden=True),
+        Command("cyclecheck", _cyclecheck, _nucl_defaults,
+                "<i:seqDB> <o:seqDB>", "Detect circular contigs",
+                hidden=True),
         Command("linclust", _linclust, _guided_defaults,
                 "<i:seqDB> <o:cluDB> <tmpDir>", "Linear-time clustering",
                 hidden=True),
-    ]
+        Command("guidedassembleresults", _guidedassembleresults,
+                _guided_defaults,
+                "<i:nuclDB> <i:aaDB> <i:alnDB> <o:nuclDB> <o:aaDB>",
+                "Protein-guided nucleotide extension", hidden=True),
+        Command("mergereads", mergereads, _nucl_defaults,
+                "<i:fastq> <i:fastq> <o:seqDB>", "Merge paired-end reads",
+                hidden=True),
+        Command("createhdb", createhdb, _nucl_defaults,
+                "<i:seqDB> [<i:cycleDB>] <o:hdb>", "Generate header DB",
+                hidden=True),
+    ] + BASE_COMMANDS
 
 
 def run(argv, stats=None):

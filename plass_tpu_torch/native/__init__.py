@@ -6,8 +6,10 @@ path: `extend.cpp` (protein greedy extender), `nucl_extend.cpp` (nucleotide
 greedy extender and its protein-guided variant), `finish.cpp` (rescore
 post-processing), `gather.cpp` (record padding and gathers),
 `aln2nucl.cpp` (proteinaln2nucl window scoring), `ssw.cpp` (the striped
-Smith-Waterman of the amino-acid aligner) and `banded.cpp` (its banded
-backtrace). The library is built into
+Smith-Waterman of the amino-acid aligner), `banded.cpp` (its banded
+backtrace), `tantan.cpp` (the prefilter's low-complexity masking) and
+`ungapped.cpp` (the ungapped-diagonal scores of `ungapped_prefilter`, AVX2
+as in the JAX package's build). The library is built into
 the port's build directory; the reference package's tracked `_native.so` is
 never written.
 """
@@ -22,7 +24,10 @@ from .. import BUILD_DIR, REFERENCE_DIR
 
 SOURCE_DIR = os.path.join(REFERENCE_DIR, "native")
 _SOURCES = ["extend.cpp", "nucl_extend.cpp", "finish.cpp", "gather.cpp",
-            "aln2nucl.cpp", "ssw.cpp", "banded.cpp"]
+            "aln2nucl.cpp", "ssw.cpp", "banded.cpp", "tantan.cpp",
+            "ungapped.cpp"]
+# sources written with AVX2 intrinsics; only they are compiled with -mavx2
+_AVX2_SOURCES = {"ungapped.cpp"}
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -30,18 +35,21 @@ _LIB = None
 def _build(so_path):
     """Compile into a temporary file and rename it into place, so that
     processes building at the same time never load a half-written file."""
-    srcs = [os.path.join(SOURCE_DIR, s) for s in _SOURCES]
     os.makedirs(os.path.dirname(so_path), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so_path))
-    os.close(fd)
-    try:
-        cmd = ["g++", "-O3", "-std=c++14", "-fopenmp", "-shared", "-fPIC",
-               *srcs, "-o", tmp]
-        subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, so_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    flags = ["-O3", "-std=c++14", "-fopenmp", "-fPIC"]
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(so_path)) as tmp:
+        objs = []
+        for src in _SOURCES:
+            obj = os.path.join(tmp, src + ".o")
+            extra = ["-mavx2"] if src in _AVX2_SOURCES else []
+            subprocess.run(["g++", *flags, *extra, "-c",
+                            os.path.join(SOURCE_DIR, src), "-o", obj],
+                           check=True, capture_output=True)
+            objs.append(obj)
+        out = os.path.join(tmp, "lib.so")
+        subprocess.run(["g++", "-shared", "-fopenmp", *objs, "-o", out],
+                       check=True, capture_output=True)
+        os.replace(out, so_path)
 
 
 def lib():
@@ -110,4 +118,16 @@ def lib():
             ctypes.c_int32, ctypes.c_int32, u8p, ctypes.c_int64,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
         _LIB.banded_backtrace.restype = ctypes.c_int64
+        _LIB.tantan_mask.argtypes = [
+            u8p, ctypes.c_int64, f64p, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_double, ctypes.c_double, ctypes.c_double,
+            ctypes.c_double, ctypes.c_uint8]
+        _LIB.tantan_mask.restype = ctypes.c_int64
+        _LIB.ungapped_max_score.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8, u8p,
+            ctypes.c_int64]
+        _LIB.ungapped_max_score.restype = ctypes.c_int32
+        _LIB.ungapped_all.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8, u8p,
+            i64p, i64p, ctypes.c_int64, i32p]
         return _LIB

@@ -290,7 +290,7 @@ def align_protein(db, hits, seq_id_thr=0.0, cov_thr=0.0, cov_mode=0,
                   alignment_mode=2, add_backtrace=False,
                   include_identity=False, seq_id_mode=0, realign=False,
                   realign_max_seqs=2**31 - 1, device_prefilter=None,
-                  device="cuda"):
+                  device="cuda", counts=None):
     """`align` for amino-acid DBs (Alignment.cpp:250-470 semantics).
 
     db: query DB; tdb: target DB (None = same DB, enables identity
@@ -307,6 +307,11 @@ def align_protein(db, hits, seq_id_thr=0.0, cov_thr=0.0, cov_mode=0,
     still run the native path for positions/backtraces. True on the CPU
     runs the kernel's plain version. device: "cuda" (the default; without
     a card it raises), "cuda:<i>" or "cpu".
+
+    counts: an optional dict to which the call adds its distinct
+    non-identity candidate pairs ("candidate_pairs"), the pairs scored on
+    `device` first ("device_pairs") and those rejected by that score
+    without a host ssw call ("device_rejected").
     """
     if db.dbtype == seqdb.HMM_PROFILE:
         raise NotImplementedError(
@@ -346,6 +351,7 @@ def align_protein(db, hits, seq_id_thr=0.0, cov_thr=0.0, cov_mode=0,
     pre_scores = _maybe_device_prefilter(
         db, tdb, hits, mat, comp_bias_corr, gap_open, gap_extend,
         include_identity, same_db, device_prefilter, device)
+    device_rejected = 0
     for qkey in sorted(hits):
         hlist = hits[qkey]
         if not hlist:
@@ -376,6 +382,7 @@ def align_protein(db, hits, seq_id_thr=0.0, cov_thr=0.0, cov_mode=0,
                 if sc is not None and \
                         float(evaluer.evalue(sc, L)) > eval_thr:
                     rejected += 1
+                    device_rejected += 1
                     continue
             r = sw_pair(aligner, evaluer, tnum, tkey, is_identity, sw_mode,
                         seq_id_mode, gap_open, gap_extend, eval_thr,
@@ -426,6 +433,133 @@ def align_protein(db, hits, seq_id_thr=0.0, cov_thr=0.0, cov_mode=0,
         results.sort(key=lambda r: (r["eval"], -r["score"], r["dbLen"],
                                     r["dbKey"]))
         out[qkey] = results
+    if counts is not None:
+        for name, n in (
+                ("candidate_pairs",
+                 len(candidate_pairs(hits, include_identity, same_db))),
+                ("device_pairs", len(pre_scores or ())),
+                ("device_rejected", device_rejected)):
+            counts[name] = counts.get(name, 0) + n
+    return out
+
+
+def lca_align_protein(db, hits, tdb=None, alignment_mode=0, cov_thr=0.0,
+                      cov_mode=0, seq_id_thr=0.0, eval_thr=1e-3,
+                      aln_len_thr=0, gap_open=11, gap_extend=1,
+                      comp_bias_corr=True, max_accept=2**31 - 1,
+                      max_reject=2**31 - 1, seq_id_mode=0,
+                      include_identity=False, evaluer=None):
+    """`lcaalign` — approximate 2bLCA (Alignment.cpp:39-45 ctor config,
+    run() lca block :451-506): align candidates score-only, realign the
+    top hit with coordinates, then re-align the top hit's *target
+    fragment* against every candidate, keeping hits whose E-value beats
+    the top hit's. Returns {query_key: [result dict]}."""
+    mat = constants.blosum62()
+    same_db = tdb is None
+    if tdb is None:
+        tdb = db
+    if evaluer is None:
+        evaluer = EvalueComputer.for_matrix("blosum62_11_1",
+                                            tdb.total_residues())
+    # ctor: lcaSwMode from max(mode, SCORE_ONLY) at zero thresholds;
+    # realign forces realignSwMode from max(mode, SCORE_COV), member
+    # covThr zeroed, realignCov keeps the requested coverage
+    lca_sw_mode = init_sw_mode(max(alignment_mode, 1), 0.0, 0.0)
+    realign_sw_mode = init_sw_mode(max(alignment_mode, 2), 0.0, 0.0)
+    # swMode = initSWMode(lcaSwMode, covThr, seqIdThr) — the Matcher-mode
+    # value is re-interpreted as an ALIGNMENT_MODE (reference quirk)
+    sw_mode = init_sw_mode(lca_sw_mode, cov_thr, seq_id_thr)
+    realign_cov = cov_thr
+    flt_max = 3.4028234663852886e38
+    aligner = ProteinAligner(mat, comp_bias_corr)
+    out = {}
+    for qkey in sorted(hits):
+        hlist = hits[qkey]
+        if not hlist:
+            out[qkey] = []
+            continue
+        qid = db.key_to_id(qkey)
+        qnum = mat.aa2num[np.asarray(db.get_seq(qid))]
+        aligner.init_query(qnum)
+        mask_len = len(qnum) // 2
+        results = []
+        passed = rejected = 0
+        for (tkey, _score, _diag) in hlist:
+            if passed >= max_accept or rejected >= max_reject:
+                break
+            tid = tdb.key_to_id(tkey)
+            tnum = mat.aa2num[np.asarray(tdb.get_seq(tid))]
+            # canBeCovered uses canCovThr = the original covThr even
+            # though the realign path zeroes the member covThr
+            if not _can_be_covered(cov_thr, cov_mode, len(qnum),
+                                   len(tnum)):
+                rejected += 1
+                continue
+            is_identity = (qkey == tkey) and (include_identity or same_db)
+            r = sw_pair(aligner, evaluer, tnum, tkey, is_identity, sw_mode,
+                        seq_id_mode, gap_open, gap_extend, eval_thr,
+                        cov_mode, 0.0, mask_len)
+            if is_identity:
+                # main-pass identity overwrite (Alignment.cpp:389-394)
+                r["qcov"] = r["tcov"] = 1.0
+                r["seqId"] = 1.0
+            ok = is_identity or (
+                (r["eval"] <= eval_thr) and (r["seqId"] >= seq_id_thr)
+                and r["alnLength"] >= aln_len_thr)
+            if ok:
+                results.append(r)
+                passed += 1
+                rejected = 0
+            else:
+                rejected += 1
+        results.sort(key=lambda r: (r["eval"], -r["score"], r["dbLen"],
+                                    r["dbKey"]))
+        if not results:
+            out[qkey] = []
+            continue
+        # realign pass, realignMaxSeqs=1: top hit only, coordinates via
+        # SCORE_COV; covMode arg receives (int)realignCov (reference
+        # quirk, Alignment.cpp:429)
+        top = results[0]
+        tid = tdb.key_to_id(top["dbKey"])
+        tnum = mat.aa2num[np.asarray(tdb.get_seq(tid))]
+        is_identity = (qkey == top["dbKey"]) and (include_identity
+                                                  or same_db)
+        rtop = sw_pair(aligner, evaluer, tnum, top["dbKey"], is_identity,
+                       realign_sw_mode, seq_id_mode, gap_open, gap_extend,
+                       flt_max, int(realign_cov), 0.0, mask_len)
+        if not (_has_cov(realign_cov, cov_mode, rtop["qcov"], rtop["tcov"])
+                or is_identity):
+            out[qkey] = []
+            continue
+        rtop["score"] = top["score"]
+        rtop["eval"] = top["eval"]
+        # lca pass: query becomes the top hit's aligned target fragment
+        frag = tnum[rtop["dbStartPos"]:rtop["dbEndPos"] + 1]
+        aligner.init_query(frag)
+        mask_len = len(frag) // 2
+        top_eval = rtop["eval"]
+        final = []
+        rejected = 0
+        for (tkey, _score, _diag) in hlist:
+            if rejected >= max_reject:
+                break
+            tid2 = tdb.key_to_id(tkey)
+            tnum2 = mat.aa2num[np.asarray(tdb.get_seq(tid2))]
+            r = sw_pair(aligner, evaluer, tnum2, tkey, False, lca_sw_mode,
+                        seq_id_mode, gap_open, gap_extend, top_eval,
+                        cov_mode, realign_cov, mask_len)
+            ok = ((r["eval"] <= top_eval) and (r["seqId"] >= seq_id_thr)
+                  and _has_cov(realign_cov, cov_mode, r["qcov"], r["tcov"])
+                  and r["alnLength"] >= aln_len_thr)
+            if ok:
+                final.append(r)
+                rejected = 0
+            else:
+                rejected += 1
+        final.sort(key=lambda r: (r["eval"], -r["score"], r["dbLen"],
+                                  r["dbKey"]))
+        out[qkey] = final
     return out
 
 

@@ -84,7 +84,7 @@ def _cluster(db, adjacency, mode):
 
 
 def run_linclust(db, params=None, intermediates=None, seconds=None,
-                 device="cuda"):
+                 device="cuda", counts=None):
     """Cluster a DB; returns {rep_key: [member keys]} in mergeclusters
     layout (rep first in each member list).
 
@@ -92,7 +92,8 @@ def run_linclust(db, params=None, intermediates=None, seconds=None,
     (kmermatch, rescore, precluster, filter on an amino-acid DB, align,
     cluster). device: where the amino-acid aligner scores its candidate
     pairs ("cuda", "cuda:<i>" or "cpu"); a nucleotide DB stays on the
-    host."""
+    host. counts: an optional dict that receives the amino-acid aligner's
+    pair counts (see align_protein)."""
     p = params or LinclustParams()
     is_nucl = db.dbtype == seqdb.NUCLEOTIDES
     seconds = {} if seconds is None else seconds
@@ -166,7 +167,7 @@ def run_linclust(db, params=None, intermediates=None, seconds=None,
                                 eval_thr=p.eval_thr, gap_open=p.gap_open,
                                 gap_extend=p.gap_extend,
                                 comp_bias_corr=p.comp_bias_corr,
-                                device=pick_device(device))
+                                device=pick_device(device), counts=counts)
 
     logger.info("linclust: clustering (mode %d)", mode)
     with timed("cluster"):
@@ -182,5 +183,5 @@ def run_linclust(db, params=None, intermediates=None, seconds=None,
 
 
 def run_linclust_nucl(db, params=None, intermediates=None, seconds=None,
-                      device="cuda"):
-    return run_linclust(db, params, intermediates, seconds, device)
+                      device="cuda", counts=None):
+    return run_linclust(db, params, intermediates, seconds, device, counts)

@@ -52,8 +52,19 @@ def test_cpu_rehearsal_runs_every_phase():
                 "[linclust-aa] contigs defaults:",
                 "[linclust-aa] contigs --min-seq-id 0.95:",
                 "[linclust-aa] families defaults:", "candidate pairs in the "
-                "align stage", "[sw-main] B9 on the contigs' ",
-                "[sw-main] B9 on the families' ", "[sw-main] B9 on 28 "
+                "align stage", "[search-aa] target DB of 47 proteins",
+                "th) with `plass createsubdb`", "byte-identical to the "
+                "align stage with --device cpu", "[search-aa] seconds per "
+                "stage: prefilter", "[search-aa] ", "scored by B9",
+                "[cluster-aa] `plass cluster --min-seq-id 0.9 -c 0.9`:",
+                "[cluster-aa] seconds per stage and step: linclust",
+                "prefilter_0", "align_0", "clust_0", "[easy-aa] dev: "
+                "easy-search and easy-cluster", "[easy-aa] m8 ",
+                "_all_seqs.fasta", "byte-identical to the runs with --device "
+                "cpu", "[sw-main] B9 on the contigs' ",
+                "[sw-main] B9 on the families' ", "[sw-main] B9 on "
+                "search-aa's ", "candidate pairs of search-aa's align stage",
+                "failing the E-value test", "[sw-main] B9 on 28 "
                 "edge pairs", "equal to the plain version and to the native "
                 "ssw", "[hamming] plass assemble --rescore-mode 0",
                 "[hamming] penguin nuclassemble --rescore-mode 0",
@@ -163,3 +174,36 @@ def test_kernels_line_with_the_aligner_and_hamming_kernels():
     assert by_name["rescore_hamming"]["launches_by_path"]["rescore_mode_0"] \
         == 3
     assert by_name["seg_scan"]["launches"] == 108
+
+
+def test_kernels_line_with_the_search_paths():
+    """B9's entry counts its launches by the search, cluster and easy-*
+    paths too and carries its measurements on search-aa's pairs, the
+    share it rejects included."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    m = {"max_abs_err": 0, "ms": 0.05, "plain_ms": 3.0, "bound_ms": 0.01,
+         "bound_by": "bytes", "bytes": 1000}
+    sw = dict(m, bound_by="operations", operations=6000, cells=1000,
+              gcups=20.0, pairs=10, rejected=0)
+    sw["contigs"] = dict(sw)
+    sw["search"] = dict(sw, pairs=15000, rejected=12000, gcups=150.0)
+    launches = {"assemble": {"seg_scan": 78, "rescore_e2e": 13},
+                "linclust": {"sw_score": 2}, "search": {"sw_score": 1},
+                "cluster": {"sw_score": 2}, "easy": {"sw_score": 0}}
+    kernels = chip_smoke.kernels_summary(
+        dict(m, copy_ms=0.06, elements=100), m,
+        {n: m for n in ("rescore_e2e_rev", "rescore_e2e_rev_uniform")},
+        launches, sw)
+    line = json.loads(json.dumps({"kernels": kernels}))["kernels"]
+    b9 = next(k for k in line if k["name"] == "sw_score")
+    assert KERNEL_KEYS <= set(b9)
+    assert b9["launches"] == 5
+    assert b9["launches_by_path"] == {"assemble": 0, "linclust": 2,
+                                      "search": 1, "cluster": 2, "easy": 0}
+    assert b9["search"] == {"ms": 0.05, "plain_ms": 3.0, "bound_ms": 0.01,
+                            "cells": 1000, "gcups": 150.0, "pairs": 15000,
+                            "rejected": 12000}
+    assert b9["contigs"]["pairs"] == 10

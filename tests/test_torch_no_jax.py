@@ -31,13 +31,16 @@ def test_port_imports_no_jax():
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert int(lines[0].split()[0]) >= 45, lines
+    assert int(lines[0].split()[0]) >= 53, lines
     assert lines[1] == "BAD []", lines
-    # the guided slice's modules and the aligner's are among those imported
+    # the guided slice's modules, the aligner's and the search slice's
+    # are among those imported
     for name in ("workflow.guided", "workflow.linclust", "ops.kmermatch",
                  "ops.ksw2", "ops.nucl_align", "ops.proteinaln2nucl",
                  "assembler.guided_extend", "assembler.cluster",
                  "assembler.cyclecheck", "cli.penguin", "cli.plass",
                  "cli.app", "cli.params", "ops.protein_align",
-                 "ops.device_align"):
+                 "ops.device_align", "ops.prefilter", "ops.tantan",
+                 "data.headers", "data.dbtools", "utils.expr",
+                 "workflow.search", "workflow.cluster", "cli.tools"):
         assert f"'plass_tpu_torch.{name}'" in lines[2], name
