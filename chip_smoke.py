@@ -83,13 +83,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      records, on the card and with --device cpu: the BLAST-tab file and
      the cluster TSV and FASTA files byte for byte equal;
  18. sw-main: B9 on the candidate pairs of phase 14's align stage (for
-     each input the run with the most) and of phase 15's, and on edge rows
-     (query length 1, target length 0, lengths at the kernel's lane,
-     register and strip edges, pairs above 4,096 residues) against its
-     plain version and the native striped Smith-Waterman's scores (exact);
-     timed beside its bound (DPX-fused int32 operations per cell over the
-     card's integer rate) and in cells a second, with the share of the
-     pairs failing the E-value test (which B9 spares a host ssw);
+     each input the run with the most) and of phase 15's, on edge rows
+     (query length 1, target lengths 0, 1 and 33, queries at the edges of
+     the warp-path classes, of a warp's strip and of a block's strips, a
+     query that wraps the block's warps, 5,000 x 6,000) and on 600 long
+     pairs (more than the card holds blocks, launched 50 times, all equal)
+     against its plain version and the native striped Smith-Waterman's
+     scores (exact; the edge and long pairs at gaps 5/2 and 11/1); timed
+     beside its bound (DPX-fused int32 operations per cell over the card's
+     integer rate) and in cells a second, with the pairs on the block
+     path, the share of the pairs failing the E-value test (which B9
+     spares a host ssw), and the kernel's registers and resident warps;
  19. hamming: `plass assemble` and `penguin nuclassemble` with
      --rescore-mode 0 on the fixture, on the card and with --device cpu,
      byte for byte; K2's HAMMING forms against their plain version on the
@@ -766,7 +770,7 @@ def _reset_launches():
     seg_scan.LAUNCHES = 0
     rk.LAUNCHES = rk.LAUNCHES_REV = rk.LAUNCHES_REV_UNIFORM = 0
     rk.LAUNCHES_HAMMING = rk.LAUNCHES_HAMMING_REV = 0
-    device_align.LAUNCHES = device_align.PAIRS = 0
+    device_align.LAUNCHES = device_align.PAIRS = device_align.BLOCK_PAIRS = 0
 
 
 def nucl_cli(inputs, out_dir, extra, device, stats=None):
@@ -1740,7 +1744,7 @@ def phase_linclust_aa(device, work, fasta, rehearsal):
             wall = time.perf_counter() - t0
         peak = _peak(device)
         launches = _launches()
-        scored = device_align.PAIRS
+        scored, blocked = device_align.PAIRS, device_align.BLOCK_PAIRS
         c = spied[-1]
         if len(c["pairs"]) >= len(calls.get(name, c)["pairs"]):
             calls[name] = c
@@ -1765,7 +1769,8 @@ def phase_linclust_aa(device, work, fasta, rehearsal):
         say(f"[linclust-aa] {name} {label}: {len(c['db'].keys)} "
             f"representatives, {len(c['pairs'])} candidate pairs in the align "
             f"stage, {scored} scored by B9 in {launches['sw_score']} "
-            f"launches; peak device memory {peak / 2**30:.2f} GiB")
+            f"launches ({blocked} on the block path); peak device memory "
+            f"{peak / 2**30:.2f} GiB")
         if device.type == "cuda" and name == "families" \
                 and not launches["sw_score"]:
             raise AssertionError("linclust-aa: B9 never launched on the "
@@ -1941,12 +1946,25 @@ def phase_easy_aa(device, work, fasta):
     return total
 
 
-# B9's edge rows: a row per lane up to 32, the edges of the register tiers
-# (32 * R rows, R = 1, 2, 4, 8, 16), the strip edge at 512 and its
-# multiples, pairs above 4,096 residues; the rehearsal's are shorter
-SW_EDGE_LENS = ((1, 2, 31, 32, 33, 64, 65, 128, 129, 256, 257, 511, 512, 513,
-                 1024, 1025, 5000), (0, 1, 31, 32, 33, 700, 6000))
+# B9's edge rows: a row per lane up to 32, the edges of the warp-path
+# classes around 16, 32, 64, 128 and 256 rows, of a warp's strip
+# (STRIP_ROWS, 512) and of a block's 8 warps of 4, 8 and 16 rows a lane
+# (1,024, 2,048, 4,096), and a query that wraps the block's warps (5,000),
+# against targets of 0, 1, 33, 700 and 6,000; the rehearsal's are shorter
+SW_EDGE_LENS = ((1, 2, 16, 17, 31, 32, 33, 64, 65, 128, 129, 256, 257, 511,
+                 512, 513, 1023, 1024, 1025, 2047, 2048, 2049, 4095, 4096,
+                 4097, 5000), (0, 1, 33, 700, 6000))
 SW_REHEARSAL_LENS = ((1, 2, 31, 32, 33, 65, 513), (0, 1, 33, 100))
+# the edge rows timed before the kernel's redesign (119 pairs, 65,135,651
+# cells): the timed "edge" input
+SW_EDGE_TIMED = ((1, 2, 31, 32, 33, 64, 65, 128, 129, 256, 257, 511, 512,
+                  513, 1024, 1025, 5000), (0, 1, 31, 32, 33, 700, 6000))
+# more block-path pairs than the card holds blocks: queries of 513-3,000
+# residues against targets of 300-2,000, launched SW_REPEATS times
+SW_LONG = (600, (513, 3000), (300, 2000))
+SW_REHEARSAL_LONG = (6, (513, 600), (30, 60))
+SW_REPEATS = 50
+SW_LONG_NATIVE = 100   # of them also held against the native ssw
 SW_NATIVE_PAIRS = 4000   # real pairs also held against the native ssw
 # The least int32 work of a DP cell of the affine local score, with the
 # bias folded into the query's profile and every add-and-max and three-way
@@ -1959,28 +1977,70 @@ SW_OPS_PER_CELL = 6
 SW_OPS_PER_CELL_NO_DPX = 10
 
 
-def _sw_edge_dbs(lens):
-    """(query DB, target DB, pairs): seeded rows of the given lengths, the
-    targets copies of queries with 8% substitutions so that they score,
-    every (query, target) pair."""
+def _sw_dbs(queries, targets, pairs_of):
+    """(query DB, target DB, pairs) of these rows; pairs_of(query keys,
+    target keys) gives the pairs."""
     from plass_tpu_torch.data import seqdb
-    rng = np.random.default_rng(5)
+    qdb, tdb = (seqdb.SeqDB.from_records([x.tobytes() for x in rows],
+                                         dbtype=seqdb.AMINO_ACIDS)
+                for rows in (queries, targets))
+    return qdb, tdb, pairs_of([int(k) for k in qdb.keys],
+                              [int(k) for k in tdb.keys])
+
+
+def _sw_rows(rng, qlens, tlens, src_of):
+    """Seeded queries and targets of these lengths, target i a copy of the
+    start of query src_of(i) with 8% substitutions, so that they score."""
     letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX", dtype=np.uint8)
-    queries = [letters[rng.integers(0, 20, n)] for n in lens[0]]
+    queries = [letters[rng.integers(0, 20, n)] for n in qlens]
     targets = []
-    for i, n in enumerate(lens[1]):
+    for i, n in enumerate(tlens):
         t = letters[rng.integers(0, 21, n)]
-        src = queries[-1 - (i % 5)]
+        src = queries[src_of(i)]
         m = min(n, len(src))
         t[:m] = src[:m]
         mut = rng.random(n) < 0.08
         t[mut] = letters[rng.integers(0, 20, int(mut.sum()))]
         targets.append(t)
-    qdb, tdb = (seqdb.SeqDB.from_records([x.tobytes() for x in rows],
-                                         dbtype=seqdb.AMINO_ACIDS)
-                for rows in (queries, targets))
-    pairs = [(int(a), int(b)) for a in qdb.keys for b in tdb.keys]
-    return qdb, tdb, pairs
+    return queries, targets
+
+
+def _sw_edge_dbs(lens):
+    """(query DB, target DB, pairs): seeded rows of the given lengths, the
+    targets copies of queries with 8% substitutions so that they score,
+    every (query, target) pair."""
+    rng = np.random.default_rng(5)
+    queries, targets = _sw_rows(rng, lens[0], lens[1],
+                                lambda i: -1 - (i % 5))
+    return _sw_dbs(queries, targets,
+                   lambda qk, tk: [(a, b) for a in qk for b in tk])
+
+
+def _sw_long_dbs(n, qrange, trange):
+    """(query DB, target DB, pairs): n seeded pairs of a query of qrange
+    and a target of trange residues, the target a relative of its query."""
+    rng = np.random.default_rng(9)
+    queries, targets = _sw_rows(rng, rng.integers(*qrange, n),
+                                rng.integers(*trange, n), lambda i: i)
+    return _sw_dbs(queries, targets, lambda qk, tk: list(zip(qk, tk)))
+
+
+def _sw_kernel_info(args):
+    """(registers a thread, local bytes a thread, resident warps an SM) of
+    the kernel instance these operands take."""
+    import ctypes
+    import torch
+    from plass_tpu_torch.kernels import build
+    lib = build.load("sw_score")
+    plan = args[11]
+    span = int(plan[2]) - int(plan[1]) + 1
+    regs, local, smem = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    lib.sw_score_attributes(args[13].shape[0], span, ctypes.byref(regs),
+                            ctypes.byref(local), ctypes.byref(smem))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = lib.sw_score_resident_blocks(args[13].shape[0], span) // sms \
+        * lib.sw_score_block_warps()
+    return regs.value, local.value, warps
 
 
 def _native_scores(db, tdb, pairs, comp_bias_corr, gap_open, gap_extend):
@@ -2055,6 +2115,7 @@ def _sw_time(args, gaps, reps, device):
             "bound_by": bby, "bytes": n_bytes, "operations": n_ops,
             "cells": cells, "gcups": cells / (ms * 1e-3) / 1e9,
             "pairs": args[8].numel(), "mhz": mhz, "rate": rate,
+            "block_pairs": int(sum(args[11][4:7])),
             "no_dpx_bound_ms": bound(n_bytes, SW_OPS_PER_CELL_NO_DPX * cells,
                                      rate)[0]}
 
@@ -2068,13 +2129,29 @@ SW_INPUTS = (("contigs", "the contigs'",
              ("search", "search-aa's", "search-aa's align stage"))
 
 
+def _sw_line(owner, m):
+    return (f"[sw-main] B9 on {owner} {m['pairs']} pairs: kernel "
+            f"{m['ms']:.4f} ms ({m['gcups']:.1f} GCUPS), plain "
+            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by "
+            f"{m['bound_by']} ({100 * m['bound_ms'] / m['ms']:.1f}% of it "
+            f"reached; {SW_OPS_PER_CELL} DPX-fused int32 operations a cell "
+            f"over {SMS} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
+            f"{m['mhz']:.0f} MHz clocks.max.sm = {m['rate'] / 1e12:.2f} "
+            f"Tops/s; without DPX, {SW_OPS_PER_CELL_NO_DPX} a cell, "
+            f"{m['no_dpx_bound_ms']:.4f} ms; {m['bytes']} bytes); "
+            f"{m['block_pairs']} pairs on the block path")
+
+
 def phase_sw_main(device, calls, rehearsal):
-    """B9 on the candidate pairs of each of SW_INPUTS and on edge rows:
-    equal to its plain version and to the native ssw's scores; timed
-    against its plain version and its bound; the share of the pairs that
-    fail the E-value test (-e 0.001 in linclust and search), which B9
-    spares a host ssw. Returns the measurements on the families' pairs,
-    with the contigs' and search-aa's under "contigs" and "search"."""
+    """B9 on the candidate pairs of each of SW_INPUTS, on edge rows and on
+    more long pairs than the card holds blocks: equal to its plain version
+    and to the native ssw's scores at both gap settings, the long pairs
+    SW_REPEATS times; timed against its plain version and its bound; the
+    share of the pairs that fail the E-value test (-e 0.001 in linclust and
+    search), which B9 spares a host ssw. Returns the measurements on the
+    families' pairs, with the contigs', search-aa's and the edge rows'
+    under "contigs", "search" and "edge"."""
+    import torch
     from plass_tpu_torch.ops.device_align import sw_score
     from plass_tpu_torch.ops.evalue import EvalueComputer
 
@@ -2107,31 +2184,46 @@ def phase_sw_main(device, calls, rehearsal):
             f"test, whose host ssw B9 spares): equal to the plain version, "
             f"and to the native ssw on the first "
             f"{min(len(pairs), SW_NATIVE_PAIRS)}")
-        say(f"[sw-main] B9 on {owner} {len(pairs)} pairs: kernel "
-            f"{m['ms']:.4f} ms ({m['gcups']:.1f} GCUPS), plain "
-            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by "
-            f"{m['bound_by']} ({100 * m['bound_ms'] / m['ms']:.1f}% of it "
-            f"reached; {SW_OPS_PER_CELL} DPX-fused int32 operations a cell "
-            f"over {SMS} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
-            f"{m['mhz']:.0f} MHz clocks.max.sm = {m['rate'] / 1e12:.2f} "
-            f"Tops/s; without DPX, {SW_OPS_PER_CELL_NO_DPX} a cell, "
-            f"{m['no_dpx_bound_ms']:.4f} ms; {m['bytes']} bytes)")
-    edb, etdb, epairs = _sw_edge_dbs(SW_REHEARSAL_LENS if rehearsal
-                                     else SW_EDGE_LENS)
-    for egaps in ((11, 1), (5, 2)):
-        eargs, egot = _sw_check(edb, etdb, epairs, True, egaps, device,
-                                len(epairs))
-    ecells = int((edb.seq_lens()[:, None].astype(np.int64)
-                  * etdb.seq_lens()[None, :]).sum())
-    ems = cuda_ms(lambda: sw_score(*eargs, *egaps), reps, device)
-    say(f"[sw-main] B9 on {len(epairs)} edge pairs (queries of "
-        f"{', '.join(str(n) for n in edb.seq_lens())}, targets of "
-        f"{', '.join(str(n) for n in etdb.seq_lens())} residues; gaps 11/1 "
-        f"and 5/2; best {int(egot.max())}): equal to the plain version and "
-        f"to the native ssw; {ecells} cells in {ems:.4f} ms a call "
-        f"({ecells / (ems * 1e-3) / 1e9:.1f} GCUPS)")
+        say(_sw_line(owner, m))
+    for lens, owner in ((SW_REHEARSAL_LENS, "the edge") if rehearsal else
+                        (SW_EDGE_LENS, "the boundary"),
+                        (SW_REHEARSAL_LENS if rehearsal else SW_EDGE_TIMED,
+                         "the edge")):
+        edb, etdb, epairs = _sw_edge_dbs(lens)
+        for egaps in ((5, 2), (11, 1)):
+            eargs, egot = _sw_check(edb, etdb, epairs, True, egaps, device,
+                                    len(epairs))
+        m = out[owner] = _sw_time(eargs, egaps, 1 if rehearsal else 4,
+                                  device)
+        say(f"[sw-main] B9 on {len(epairs)} {owner[4:]} pairs (queries of "
+            f"{', '.join(str(n) for n in edb.seq_lens())}, targets of "
+            f"{', '.join(str(n) for n in etdb.seq_lens())} residues; gaps "
+            f"5/2 and 11/1; best {int(egot.max())}): equal to the plain "
+            f"version and to the native ssw")
+        say(_sw_line(owner, m))
+    n, qr, tr = SW_REHEARSAL_LONG if rehearsal else SW_LONG
+    ldb, ltdb, lpairs = _sw_long_dbs(n, qr, tr)
+    for lgaps in ((5, 2), (11, 1)):
+        largs, lgot = _sw_check(ldb, ltdb, lpairs, True, lgaps, device,
+                                SW_LONG_NATIVE)
+    differ = sum(int(not torch.equal(sw_score(*largs, *lgaps), lgot))
+                 for _ in range(SW_REPEATS))
+    if differ:
+        raise AssertionError(f"sw-main: {differ} of {SW_REPEATS} launches "
+                             f"on the long pairs differ from the first")
+    m = _sw_time(largs, lgaps, 1 if rehearsal else 4, device)
+    say(f"[sw-main] B9 on {len(lpairs)} long pairs (queries of {qr[0]}-"
+        f"{qr[1]}, targets of {tr[0]}-{tr[1]} residues; gaps 5/2 and 11/1): "
+        f"equal to the plain version, and to the native ssw on the first "
+        f"{min(len(lpairs), SW_LONG_NATIVE)}; {SW_REPEATS} launches all "
+        f"equal")
+    say(_sw_line("the long", m))
+    if device.type == "cuda":
+        regs, local, warps = _sw_kernel_info(args)
+        say(f"[sw-main] B9's folded instance: {regs} registers and {local} "
+            f"bytes of local memory a thread, {warps} warps resident an SM")
     return dict(out["families"], contigs=out["contigs"],
-                search=out["search"])
+                search=out["search"], edge=out["the edge"])
 
 
 # `--rescore-mode 0` on the fixture: the protein loop cut to 3 iterations
@@ -2231,8 +2323,9 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
     hamming[name] hold a kernel's measurements (max_abs_err, ms, plain_ms,
     bound_ms, bound_by, bytes); launches maps each main path to its
     {kernel: launches}. Without sw or hamming their entries are left out;
-    sw's measurements on the contigs' and search-aa's pairs, where given
-    under "contigs" and "search", go into B9's entry."""
+    sw's measurements on the contigs', search-aa's and the edge rows'
+    pairs, where given under "contigs", "search" and "edge", go into B9's
+    entry."""
     def entry(name, source, replaces, m, **extra):
         paths = {path: counts.get(name, 0)
                  for path, counts in launches.items()}
@@ -2267,8 +2360,8 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
             gcups=sw["gcups"], pairs=sw["pairs"],
             **{name: {k: v for k, v in sw[name].items() if k in (
                 "ms", "plain_ms", "bound_ms", "cells", "gcups", "pairs",
-                "rejected")} for name in ("contigs", "search")
-               if name in sw}))
+                "rejected", "block_pairs")}
+               for name in ("contigs", "search", "edge") if name in sw}))
     for name in ("rescore_hamming", "rescore_hamming_rev") \
             if hamming is not None else ():
         kernels.append(entry(name, k2_src[0],

@@ -41,9 +41,16 @@ SIGNATURES = {
                              _L, _P, _P, _P, _P, _P, _P], _I),
     },
     "sw_score": {
-        "sw_score": ([_P] * 11 + [_L, _P, _I, _I, _I, _P, _P, _P, _L, _P], _I),
-        "sw_score_warps": ([_L], _L),
+        "sw_score": ([_P] * 12 + [_L, _P, _I, _I, _I, _P, _P, _P, _L, _P],
+                     _I),
         "sw_score_strip_rows": ([], _I),
+        "sw_score_classes": ([], _I),
+        "sw_score_class_rows": ([_I], _I),
+        "sw_score_plan_size": ([], _I),
+        "sw_score_counters": ([], _I),
+        "sw_score_block_warps": ([], _I),
+        "sw_score_resident_blocks": ([_I, _I], _I),
+        "sw_score_attributes": ([_I, _I, _P, _P, _P], _I),
     },
 }
 

@@ -1,17 +1,23 @@
-"""Times variants of the port's two CUDA kernels on one GPU.
+"""Times variants of the port's CUDA kernels on one GPU.
 
-    python -m plass_tpu_torch.kernels.tune
+    python -m plass_tpu_torch.kernels.tune [k1] [k2] [b9] [rates]
 
 Each variant is the kernel's source with its tuning constants replaced
 (K1: threads per block, 16-byte vectors per thread, resident blocks the
-compiler plans for; K2: lanes per hit, long-window threshold), built with
-the flags of kernels/build.py into the build directory, held against the
-plain PyTorch version (exact) and timed with CUDA events on seeded data of
-the main paths' sizes: 25,165,824-element scans; 317,648 hits on 100,000
-reads of 150 nt, 426,248 hits on 217,020 ORFs of 20-89 aa, and 681,312 hits
-on 100,000 contigs of up to 19,997 nt. The sources' own constants are the
-first variant of each list. Prints one line per variant; needs nvcc and a
-CUDA device.
+compiler plans for; K2: lanes per hit, long-window threshold; B9: warps
+per block, the most rows a lane holds, lanes per pair of the shortest
+queries, and the schedule's block-path threshold), built with the flags of
+kernels/build.py into the build directory, held against the plain PyTorch
+version (exact) and timed with CUDA events on seeded data of the main
+paths' sizes: 25,165,824-element scans; 317,648 hits on 100,000 reads of
+150 nt, 426,248 hits on 217,020 ORFs of 20-89 aa, and 681,312 hits on
+100,000 contigs of up to 19,997 nt; B9 on seeded pairs with the length
+profiles of linclust's contigs and families, search's candidates and long
+edge pairs (B9_PROFILES). The sources' own constants are the first variant
+of each list. Prints one line per variant (B9's also with its registers,
+spills and resident warps an SM); needs nvcc and a CUDA device. "rates"
+measures the int32 instructions B9's cell is made of (DPX included), in
+lanes an SM completes a clock. With nothing named, runs all four.
 """
 import ctypes
 import os
@@ -24,6 +30,7 @@ import torch
 from .. import BUILD_DIR, constants
 from ..ops.rescore_kernel import (rescore_e2e, rescore_e2e_plain,
                                   uniform_pattern)
+from ..ops import device_align
 from ..ops.seg_scan import seg_scan, seg_scan_plain
 from . import build
 
@@ -35,6 +42,26 @@ K2_VARIANTS = [(2, 512), (8, 512), (4, 512), (1, 512), (2, 256), (2, 1024)]
 K1_CONSTANTS = ("constexpr int kThreads = {};", "constexpr int kVecs = {};",
                 "constexpr int kMinBlocks = {};")
 K2_CONSTANTS = ("constexpr int kGroup = {};", "constexpr int kLongWindow = {};")
+# (warps per block, blocks an SM planned for, most rows a lane, lanes per
+# shortest pair; the schedule's tail share (a pair takes the block path
+# from the larger of BLOCK_CELLS and that part of the call's cells, 0 =
+# only queries past a strip) and full warps (from which a block-path pair
+# takes the most rows a lane)); the last two are the schedule's
+B9_VARIANTS = [(8, 2, 16, 1, 512, 2048), (8, 2, 16, 1, 256, 2048),
+               (8, 2, 16, 1, 2048, 2048), (8, 2, 16, 1, 0, 2048),
+               (8, 2, 16, 1, 512, 1 << 40), (8, 2, 16, 1, 512, 0),
+               (8, 1, 16, 1, 512, 2048), (8, 3, 16, 1, 512, 2048),
+               (4, 4, 16, 1, 512, 2048), (16, 1, 16, 1, 512, 2048),
+               (8, 2, 8, 1, 512, 2048), (8, 2, 16, 4, 512, 2048),
+               (8, 2, 16, 8, 512, 2048)]
+B9_CONSTANTS = ("constexpr int kWarps = {};", "constexpr int kMinBlocks = {};",
+                "constexpr int kMaxR = {};", "constexpr int kMinLanes = {};")
+# B9's seeded pairs: (name, pairs, query median, query range, target =
+# query x uniform(lo, hi) or None for an unrelated target of the same
+# profile); the sizes of chip_smoke.py's sw-main inputs
+B9_PROFILES = (("contigs", 1672, 65, (20, 116), (0.85, 1.15)),
+               ("families", 1638, 300, (80, 1166), (0.8, 1.2)),
+               ("search", 13477, 300, (80, 1104), None))
 
 
 def cuda_ms(fn, reps):
@@ -183,7 +210,182 @@ def tune_k2(device, reps):
     del build._LIBS["rescore"]
 
 
-def main():
+def sw_pairs(rng, n_pairs, median, lo_hi, ratio, device, wide_bias=False):
+    """B9's operands (all but the plan's and the gaps) for n_pairs seeded
+    pairs: queries of a lognormal length profile, a query each pair,
+    targets as its ratio or drawn alike; codes 0-19 as the rows' own bytes
+    (an identity code table), bias in [-2, 2] as the families' (or in
+    [-100, 100] with wide_bias, past the folded table's span)."""
+    def lens(n):
+        return np.clip(rng.lognormal(np.log(median), 0.5, n), *lo_hi) \
+            .astype(np.int64)
+    qlens = lens(n_pairs)
+    tlens = lens(n_pairs) if ratio is None else np.maximum(
+        (qlens * rng.uniform(*ratio, n_pairs)).astype(np.int64), 1)
+    return sw_operands(rng, qlens, tlens, device, wide_bias)
+
+
+def sw_operands(rng, qlens, tlens, device, wide_bias=False):
+    """B9's operands for one query and one target a pair, of these
+    lengths, and the pairs' (order, plan, strip_cols) schedule."""
+    n = len(qlens)
+    qoff = np.concatenate([[0], np.cumsum(qlens)[:-1]]).astype(np.int64)
+    toff = np.concatenate([[0], np.cumsum(tlens)[:-1]]).astype(np.int64)
+    span = 100 if wide_bias else 2
+    arrs = (rng.integers(0, 20, int(qlens.sum())).astype(np.uint8), qoff,
+            qlens.astype(np.int32),
+            rng.integers(-span, span + 1, int(qlens.sum())).astype(np.int8),
+            rng.integers(0, 20, int(tlens.sum())).astype(np.uint8), toff,
+            tlens.astype(np.int32), np.arange(256).astype(np.uint8),
+            np.arange(n, dtype=np.int32), np.arange(n, dtype=np.int32))
+    return [torch.from_numpy(a).to(device) for a in arrs], (qlens, tlens)
+
+
+def sw_bound_ms(cells):
+    """B9's bound: 6 DPX-fused int32 operations a cell over 132 SMs x 64
+    INT32 lanes x clocks.max.sm."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.split()[0])
+    return 6 * cells / (132 * 64 * mhz * 1e6) * 1e3
+
+
+def tune_b9(device, reps):
+    rng = np.random.default_rng(3)
+    sub = torch.from_numpy(constants.blosum62().sub.astype(np.int32)) \
+        .to(device)
+    cases = [(name, *sw_pairs(rng, n, med, lo_hi, ratio, device))
+             for name, n, med, lo_hi, ratio in B9_PROFILES]
+    # long pairs: the 5,000 x 6,000 pair alone, and 300 pairs of 1,025 to
+    # 5,000 residues against 700 to 6,000, more than the card's blocks
+    cases.append(("edge", *sw_operands(rng, np.array([5000]),
+                                       np.array([6000]), device)))
+    cases.append(("long", *sw_operands(
+        rng, rng.integers(1025, 5001, 300), rng.integers(700, 6001, 300),
+        device)))
+    cases.append(("wide bias", *sw_pairs(rng, 1638, 300, (80, 1166),
+                                         (0.8, 1.2), device, True)))
+    wants = {}
+    for v, lib in build_variants(
+            "sw_score", B9_CONSTANTS,
+            list(dict.fromkeys(x[:4] for x in B9_VARIANTS))).items():
+        build._LIBS["sw_score"] = lib
+        regs, local, smem = (ctypes.c_int32(), ctypes.c_int32(),
+                             ctypes.c_int32())
+        lib.sw_score_attributes(21, 5, ctypes.byref(regs),
+                                ctypes.byref(local), ctypes.byref(smem))
+        blocks = lib.sw_score_resident_blocks(21, 5)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        for share, full in [x[4:] for x in B9_VARIANTS if x[:4] == v]:
+            bad, times = 0, []
+            for name, ops, (qlens, tlens) in cases:
+                sched = device_align.schedule(
+                    qlens, tlens, (int(ops[3].min()), int(ops[3].max())),
+                    **device_align.kernel_shape(lib),
+                    tail_share=share, full_warps=full)
+                args = (*ops, torch.from_numpy(sched[0]).to(device),
+                        *sched[1:], sub)
+                for gaps in ((11, 1), (5, 2)):
+                    if (name, gaps) not in wants:
+                        wants[name, gaps] = device_align.sw_score_plain(
+                            *args, *gaps, budget=1 << 25)
+                    bad += differs([device_align.sw_score(*args, *gaps)],
+                                   [wants[name, gaps]])
+                run = lambda: device_align.sw_score(*args, 11, 1)
+                ms = cuda_ms(run, reps)
+                cells = int((qlens * tlens).sum())
+                times.append(f"{name} {ms:.4f} ({int(sched[1][4:7].sum())} on the "
+                             f"block path, {cells / ms / 1e6:.1f} "
+                             f"GCUPS, {100 * sw_bound_ms(cells) / ms:.1f}% "
+                             f"of bound)")
+            print(f"B9 warps {v[0]} min blocks {v[1]} max R {v[2]} min "
+                  f"lanes {v[3]} tail share {share} full warps {full}: "
+                  f"{bad} outputs differ; "
+                  f"{regs.value} registers, {local.value} B local, "
+                  f"{smem.value} B shared, {blocks // sms} blocks "
+                  f"({blocks // sms * v[0]} warps) an SM; ms: "
+                  + ", ".join(times), flush=True)
+    del build._LIBS["sw_score"]
+
+
+# The int32 instructions B9's cell is made of, each in 8 independent
+# chains a thread at full occupancy: how many lanes an SM completes a
+# clock (NVIDIA publishes no DPX rate).
+RATE_SOURCE = r"""
+#define CHAINS(OP)                                                             \
+  int x0 = a + threadIdx.x, x1 = x0 ^ 1, x2 = x0 ^ 2, x3 = x0 ^ 3, x4 = x0 ^ 4, \
+      x5 = x0 ^ 5, x6 = x0 ^ 6, x7 = x0 ^ 7;                                   \
+  for (int i = 0; i < n; ++i) {                                                \
+    OP(x0); OP(x1); OP(x2); OP(x3); OP(x4); OP(x5); OP(x6); OP(x7);            \
+  }                                                                            \
+  out[blockIdx.x * blockDim.x + threadIdx.x] = x0 + x1 + x2 + x3 + x4 + x5 + x6 + x7;
+#define ADDMAX(x) x = __viaddmax_s32(x, b, c)
+#define ADDMAXR(x) x = __viaddmax_s32_relu(x, b, c)
+#define MAD(x) x = x * b + c
+extern "C" __global__ void k_addmax(int a, int b, int c, int n, int* out) { CHAINS(ADDMAX) }
+extern "C" __global__ void k_addmax_relu(int a, int b, int c, int n, int* out) { CHAINS(ADDMAXR) }
+extern "C" __global__ void k_mad(int a, int b, int c, int n, int* out) { CHAINS(MAD) }
+"""
+
+
+def int_rates(device):
+    """(lanes an SM completes a clock at clocks.max.sm, instructions of
+    the timed kind in the SASS) for each of RATE_SOURCE's kernels; nvcc
+    builds a cubin, which libcuda loads."""
+    import ctypes.util
+    out_dir = os.path.join(BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "int_rates.cu")
+    with open(src, "w") as fh:
+        fh.write(RATE_SOURCE)
+    cubin = src[:-3] + ".cubin"
+    subprocess.run([build.nvcc_path(), "-cubin", "-O3", "-gencode",
+                    "arch=compute_90a,code=sm_90a", src, "-o", cubin],
+                   check=True)
+    sass = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()),
+                                        "cuobjdump"), "-sass", cubin],
+                          capture_output=True, text=True).stdout
+    torch.zeros(1, device=device)   # the primary context
+    cuda = ctypes.CDLL(ctypes.util.find_library("cuda") or "libcuda.so.1")
+    mod = ctypes.c_void_p()
+    assert cuda.cuModuleLoad(ctypes.byref(mod), cubin.encode()) == 0
+    props = torch.cuda.get_device_properties(device)
+    sms = props.multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.split()[0])
+    out = torch.empty(sms * 8 * 256, dtype=torch.int32, device=device)
+    n = 4096
+    rates = {}
+    for name in ("k_addmax", "k_addmax_relu", "k_mad"):
+        fn = ctypes.c_void_p()
+        assert cuda.cuModuleGetFunction(ctypes.byref(fn), mod,
+                                        name.encode()) == 0
+        vals = [ctypes.c_int(3), ctypes.c_int(-1 if "max" in name else 3),
+                ctypes.c_int(5),
+                ctypes.c_int(n), ctypes.c_void_p(out.data_ptr())]
+        params = (ctypes.c_void_p * 5)(*[ctypes.cast(ctypes.byref(v),
+                                                     ctypes.c_void_p)
+                                          for v in vals])
+
+        def run():
+            assert cuda.cuLaunchKernel(fn, sms * 8, 1, 1, 256, 1, 1, 0,
+                                       None, params, None) == 0
+        ms = cuda_ms(run, 5)
+        lanes = sms * 8 * 256 * n * 8
+        rates[name] = lanes / (ms * 1e-3) / (mhz * 1e6) / sms
+    body = {k: sum(1 for line in sass.split("Function : " + k)[1]
+                   .split("Function :")[0].splitlines() if op in line)
+            for k, op in (("k_addmax", "VIADDMNMX"),
+                          ("k_addmax_relu", "VIADDMNMX"), ("k_mad", "IMAD"))}
+    return rates, body
+
+
+def main(argv=None):
+    which = set(argv if argv is not None else sys.argv[1:]) \
+        or {"k1", "k2", "b9", "rates"}
     if not torch.cuda.is_available():
         print("tune: no CUDA device available", file=sys.stderr)
         return 1
@@ -192,8 +394,19 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}", flush=True)
-    tune_k1(device, 50)
-    tune_k2(device, 50)
+    if "k1" in which:
+        tune_k1(device, 50)
+    if "k2" in which:
+        tune_k2(device, 50)
+    if "rates" in which:
+        rates, body = int_rates(device)
+        print("int32 lanes an SM a clock (8 chains a thread, 8 warps a "
+              "block, 8 blocks an SM; the op's SASS instructions in the "
+              "kernel): " + ", ".join(f"{k[2:]} {v:.1f} ({body[k]})"
+                                      for k, v in rates.items()),
+              flush=True)
+    if "b9" in which:
+        tune_b9(device, 20)
     return 0
 
 

@@ -3,12 +3,12 @@
 The reference's align stage scores every (query, target) candidate with
 striped SIMD SW (StripedSmithWaterman.cpp:71-231) before most of them fail
 the E-value test. `sw_score` computes the exact same local affine-gap
-maxima for every pair in one launch (the JAX package's
+maxima for every pair in one call (the JAX package's
 ops/device_align.py:sw_score_batch), so the E-value rejection it allows is
 bit-equivalent to rejecting after a full ssw call; positions and
 backtraces of the survivors stay with the host aligner.
 
-  qcodes   uint8[TQ]   the queries' codes back to back
+  qcodes   uint8[TQ]   the queries' codes back to back (codes < A)
   qoffsets int64[NQ]   query n starts at qcodes[qoffsets[n]]
   qlens    int32[NQ]
   bias     int8[TQ]    the queries' rounded composition bias, per residue
@@ -16,32 +16,66 @@ backtraces of the survivors stay with the host aligner.
   offsets  int64[N], lengths int32[N], code_lut uint8[256] as K2 reads them
   qidx, tidx int32[B]  the pairs: query index, target row
   order    int32[B]    the order the kernel takes the pairs in (schedule)
-  strip_cols int       the strip scratch's columns (schedule)
+  plan     int64[7 + classes] on the host: which pairs take which path
+  strip_cols int       the wrap scratch's columns (schedule)
   sub      int32[A, A] (A <= 32); gap_open >= gap_extend
 
-Returns int32[B]: -1 for a pair whose query is longer than STRIP_ROWS and
-whose target is longer than strip_cols, else its score. Nothing is padded.
-On a CUDA tensor the call launches the CUDA kernel (csrc/sw_score.cu) or
-raises; on a CPU tensor it runs `sw_score_plain`, a loop over target
-columns on [B, LQ] tensors.
+`schedule` makes order, plan and strip_cols from the pairs' lengths and
+the queries' bias range. The kernel (csrc/sw_score.cu) sends a pair whose
+query is longer than plan[0] (STRIP_ROWS, one warp's strip), or spans two
+strips and has many cells, to warps of a block that sweep its strips as a
+wavefront; the rest go to groups of lanes sized to the query (CLASS_ROWS),
+several pairs a warp.
+
+Returns int32[B]: -1 for a pair whose query is longer than plan[0] and
+whose target is longer than strip_cols, -2 for a pair whose query's bias
+leaves the plan's range, else its score. Nothing is padded. On a CUDA
+tensor the call launches the CUDA kernel or raises; on a CPU tensor it
+runs `sw_score_plain`, a loop over target columns on [B, LQ] tensors.
 """
+import ctypes
+
 import numpy as np
 import torch
 
 from ..kernels import build
 
 NEG = -(1 << 30)
-# the longest query the kernel holds in one strip (csrc/sw_score.cu,
-# 32 * kMaxR); longer ones pass two ints per target column between strips
-STRIP_ROWS = 512
+# a pair of at least this many cells, and at least tail_share-th of the
+# call's, takes the block path if its query spans two strips of a block
+BLOCK_CELLS = 1 << 18
+TAIL_SHARE = 512
+# a call whose pairs fill about this many warps (an H100 holds 2,112 at 16
+# an SM) gives its block-path pairs the fewest warps their strips fill,
+# several pairs a block, rather than a block each
+FULL_WARPS = 2048
+BLOCK_WARPS = 8   # a block's warps (csrc/sw_score.cu, kWarps)
 
-# launches of the CUDA kernel in this process, and the pairs they scored
+# calls of the CUDA kernel in this process, the pairs they scored and
+# those of them that took the block path
 LAUNCHES = 0
 PAIRS = 0
+BLOCK_PAIRS = 0
+
+
+def _class_rows(max_r=16, r_step=2):
+    """The rows each warp-path class of csrc/sw_score.cu holds (its kMaxR,
+    kRStep, kMinLanes = 1): one lane of 1 row and of r_step .. max_r rows,
+    then 2 .. 32 lanes of max_r / 2 + r_step .. max_r rows each; the last
+    is a warp's strip, 32 * max_r."""
+    upper = range(max_r // 2 + r_step, max_r + 1, r_step)
+    return tuple([1, *range(r_step, max_r + 1, r_step)]
+                 + [g * r for g in (2, 4, 8, 16, 32) for r in upper])
+
+
+CLASS_ROWS = _class_rows()
+# the longest query of one warp's strip: longer ones take the block path,
+# and wrap through the scratch past a block's strips
+STRIP_ROWS = CLASS_ROWS[-1]
 
 
 def _check(qcodes, qoffsets, qlens, bias, rows, offsets, lengths, code_lut,
-           qidx, tidx, order, strip_cols, sub, gap_open, gap_extend):
+           qidx, tidx, order, plan, strip_cols, sub, gap_open, gap_extend):
     for name, x, dtype in (("qcodes", qcodes, torch.uint8),
                            ("bias", bias, torch.int8),
                            ("rows", rows, torch.uint8)):
@@ -62,6 +96,9 @@ def _check(qcodes, qoffsets, qlens, bias, rows, offsets, lengths, code_lut,
         raise TypeError("qidx, tidx and order must be int32[B]")
     if strip_cols < 0:
         raise ValueError("strip_cols must be >= 0")
+    plan = [int(x) for x in plan]
+    if len(plan) < 8 or min(plan[3:]) < 0 or sum(plan[4:]) != qidx.numel():
+        raise ValueError("plan must be schedule()'s for these pairs")
     if (sub.dtype != torch.int32 or sub.dim() != 2
             or sub.shape[0] != sub.shape[1] or not 1 <= sub.shape[0] <= 32):
         raise TypeError("sub must be int32[A, A] with A <= 32")
@@ -75,14 +112,15 @@ def _check(qcodes, qoffsets, qlens, bias, rows, offsets, lengths, code_lut,
 
 
 def sw_score_plain(qcodes, qoffsets, qlens, bias, rows, offsets, lengths,
-                   code_lut, qidx, tidx, order, strip_cols, sub, gap_open,
-                   gap_extend, budget=1 << 22):
+                   code_lut, qidx, tidx, order, plan, strip_cols, sub,
+                   gap_open, gap_extend, budget=1 << 22):
     """Plain PyTorch version: the JAX package's sw_score_batch (a scan over
     target columns of [B, LQ] H and E, F closed as a prefix max of
     H0 + i * gape), on pairs gathered from the flat operands, in chunks of
-    at most `budget` query cells; order only orders the kernel's work."""
+    at most `budget` query cells; order and the plan's paths only arrange
+    the kernel's work."""
     _check(qcodes, qoffsets, qlens, bias, rows, offsets, lengths, code_lut,
-           qidx, tidx, order, strip_cols, sub, gap_open, gap_extend)
+           qidx, tidx, order, plan, strip_cols, sub, gap_open, gap_extend)
     dev = rows.device
     n = qidx.numel()
     out = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -134,60 +172,139 @@ def sw_score_plain(qcodes, qoffsets, qlens, bias, rows, offsets, lengths,
             e = torch.where(ok, e2, e)
             best = torch.maximum(best, torch.where(ok, h, 0).amax(dim=1))
         out[lo:hi] = best.to(torch.int32)
-    out[(ql_all > STRIP_ROWS) & (tl_all > strip_cols)] = -1
+    # the kernel's -2 for a query with a bias outside the plan's range
+    lo, hi = int(plan[1]), int(plan[2])
+    oob = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                     ((bias < lo) | (bias > hi)).long().cumsum(0)])
+    qi = qidx.long()
+    start = qoffsets[qi]
+    n_oob = oob[start + qlens[qi].long()] - oob[start]
+    out[(n_oob > 0) & (ql_all > 0) & (tl_all > 0)] = -2
+    out[(ql_all > int(plan[0])) & (tl_all > strip_cols)] = -1
     return out
 
 
-def schedule(qlens, tlens):
-    """(order, strip_cols) for pairs of these query and target lengths
-    (numpy, one each a pair): the pairs longest first, so that none starts
-    last, and the strip scratch's columns, the longest target of a pair
-    whose query is longer than STRIP_ROWS (0 when there is none)."""
-    cells = qlens.astype(np.int64) * tlens
-    order = np.argsort(-cells, kind="stable").astype(np.int32)
-    long_q = qlens > STRIP_ROWS
-    return order, int(tlens[long_q].max()) if long_q.any() else 0
+def schedule(qlens, tlens, bias_range=(0, 0), classes=CLASS_ROWS,
+             tail_share=TAIL_SHARE,
+             full_warps=FULL_WARPS, block_warps=BLOCK_WARPS):
+    """(order, plan, strip_cols) for pairs of these query and target
+    lengths (numpy, one each a pair) whose queries' bias lies in
+    bias_range (least, most), for a kernel of these warp-path classes
+    (rows each holds) and warps a block.
+
+    A pair takes the block path when its query is longer than a warp's
+    strip (classes[-1]), or when it spans two strips of a block (more than
+    half of that) and has at least the larger of BLOCK_CELLS and the
+    tail_share-th part of the call's cells (tail_share 0: no such pair),
+    so that a pair takes a block only where alone on a warp it
+    would outlast the rest of the call. When the pairs fill full_warps
+    warps, throughput counts: a block-path pair takes the fewest warps its
+    strips of the most rows fill (a block of 1, 2 or 4 pairs), and the
+    kernel gives its lanes the fewest rows that keep its strips in them;
+    else each pair takes a whole block, longest first, and the kernel
+    picks its rows so that its strips fill the block. The rest take
+    the least warp-path class that holds their query, from the highest
+    class down, each by longest target, so that the pairs that share a
+    warp sweep about as many columns.
+
+    plan is [classes[-1], the bias range, 1 when the call fills the card
+    (else 0), the block-path pairs of 1, 2 and 4 a block, the pairs of
+    each warp-path class];
+    strip_cols the wrap scratch's columns, the longest target of a query
+    longer than classes[-1] (0 when there is none)."""
+    qlens = np.asarray(qlens, dtype=np.int64)
+    tlens = np.asarray(tlens, dtype=np.int64)
+    strip_rows = classes[-1]
+    cells = qlens * tlens
+    block_cells = max(BLOCK_CELLS, int(cells.sum()) // tail_share) \
+        if tail_share else np.inf
+    block = (qlens > strip_rows) | ((cells >= block_cells)
+                                    & (qlens > strip_rows // 2))
+    cls = np.searchsorted(np.asarray(classes), np.maximum(qlens, 1))
+    counts = np.bincount(cls[~block], minlength=len(classes))[:len(classes)]
+    # a pair of the class of c rows takes about c / strip_rows of a warp,
+    # a block-path pair a warp a strip
+    strips = -(-qlens // strip_rows)
+    warps = float((counts * np.maximum(np.asarray(classes) / strip_rows,
+                                       1 / 32)).sum()) \
+        + float(strips[block].sum())
+    full = warps >= full_warps
+    # block class b: 2^b pairs a block of block_warps >> b warps each, the
+    # fewest warps whose strips hold the query (a query that wraps: b = 0)
+    ws = np.minimum(block_warps, 1 << np.ceil(np.log2(np.maximum(strips, 1)))
+                    .astype(np.int64))
+    bcls = np.where(block & full,
+                    np.minimum(2, np.log2(block_warps // ws).astype(np.int64)),
+                    0)
+    order = np.lexsort((-cells, np.where(block & (not full), -cells, -tlens),
+                        np.where(block, bcls, -cls), ~block)).astype(np.int32)
+    plan = np.array([strip_rows, *bias_range, int(full),
+                     *np.bincount(bcls[block], minlength=3)[:3].tolist(),
+                     *counts.tolist()], dtype=np.int64)
+    long_q = qlens > strip_rows
+    return order, plan, int(tlens[long_q].max()) if long_q.any() else 0
 
 
 def sw_score(qcodes, qoffsets, qlens, bias, rows, offsets, lengths, code_lut,
-             qidx, tidx, order, strip_cols, sub, gap_open, gap_extend):
+             qidx, tidx, order, plan, strip_cols, sub, gap_open, gap_extend):
     """Best local SW score per pair; see the module docstring."""
     if rows.device.type == "cpu":
         return sw_score_plain(qcodes, qoffsets, qlens, bias, rows, offsets,
-                              lengths, code_lut, qidx, tidx, order,
+                              lengths, code_lut, qidx, tidx, order, plan,
                               strip_cols, sub, gap_open, gap_extend)
     if rows.device.type != "cuda":
         raise ValueError(f"sw_score: unsupported device {rows.device}")
     tensors = _check(qcodes, qoffsets, qlens, bias, rows, offsets, lengths,
-                     code_lut, qidx, tidx, order, strip_cols, sub, gap_open,
-                     gap_extend)
+                     code_lut, qidx, tidx, order, plan, strip_cols, sub,
+                     gap_open, gap_extend)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("sw_score: tensors must be contiguous")
-    global LAUNCHES, PAIRS
+    global LAUNCHES, PAIRS, BLOCK_PAIRS
     n = qidx.numel()
     dev = rows.device
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
     lib = build.load("sw_score")
-    if lib.sw_score_strip_rows() != STRIP_ROWS:
-        raise RuntimeError("sw_score: STRIP_ROWS differs from the kernel's")
-    strips = torch.empty(2 * lib.sw_score_warps(n) * strip_cols or 1,
-                         dtype=torch.int32, device=dev)
-    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    plan = [int(x) for x in plan]
+    if len(plan) != lib.sw_score_plan_size() \
+            or plan[0] != lib.sw_score_strip_rows():
+        raise RuntimeError("sw_score: the plan is not for this kernel's "
+                           "classes (schedule(**kernel_shape()))")
+    alpha = sub.shape[0]
     with torch.cuda.device(dev):
+        blocks = lib.sw_score_resident_blocks(alpha, plan[2] - plan[1] + 1)
+        if blocks <= 0:
+            raise RuntimeError(f"sw_score: no block resident (CUDA error "
+                               f"{-blocks})")
+        strips = torch.empty(2 * blocks * strip_cols or 1, dtype=torch.int32,
+                             device=dev)
+        counters = torch.empty(lib.sw_score_counters(), dtype=torch.int32,
+                               device=dev)
+        host_plan = (ctypes.c_int64 * len(plan))(*plan)
         rc = lib.sw_score(
             *[build.ptr(x) for x in (qcodes, qoffsets, qlens, bias, rows,
                                      offsets, lengths, code_lut, qidx, tidx,
                                      order)],
-            n, build.ptr(sub), sub.shape[0], int(gap_open), int(gap_extend),
-            build.ptr(out), build.ptr(counter), build.ptr(strips),
-            strip_cols, build.stream_of(dev))
+            ctypes.cast(host_plan, ctypes.c_void_p), n, build.ptr(sub),
+            alpha, int(gap_open), int(gap_extend), build.ptr(out),
+            build.ptr(counters), build.ptr(strips), strip_cols,
+            build.stream_of(dev))
     if rc != 0:
-        raise RuntimeError(f"sw_score kernel launch failed (CUDA error {rc})")
+        raise RuntimeError(f"sw_score kernel launch failed (code {rc})")
     LAUNCHES += 1
     PAIRS += n
+    BLOCK_PAIRS += sum(plan[4:7])
     return out
+
+
+def kernel_shape(lib=None):
+    """schedule()'s classes and block_warps for the built kernel (lib, or
+    the package's), to schedule for a kernel built with other constants."""
+    lib = lib or build.load("sw_score")
+    return dict(classes=tuple(lib.sw_score_class_rows(c)
+                              for c in range(lib.sw_score_classes())),
+                block_warps=lib.sw_score_block_warps())
 
 
 def pair_operands(db, tdb, pairs, bias_fn, device):
@@ -195,7 +312,7 @@ def pair_operands(db, tdb, pairs, bias_fn, device):
     `db` and target DB `tdb`, all but the gaps: the distinct queries' codes
     and bias from bias_fn(qid) -> (qnum uint8[L], comp int8[L]) back to
     back, the target DB's flat rows, the pairs' indices, their schedule
-    (from the host's lengths) and blosum62."""
+    (order and the host plan, from the host's lengths) and blosum62."""
     from .. import constants
     from .backend import flat_rows
 
@@ -210,14 +327,16 @@ def pair_operands(db, tdb, pairs, bias_fn, device):
     qidx = np.array([qpos[q] for q, _ in pairs], dtype=np.int32)
     tidx = tlut[np.array([t for _, t in pairs], dtype=np.int64)] \
         .astype(np.int32)
-    order, strip_cols = schedule(qlens[qidx], tdb.seq_lens()[tidx])
+    order, plan, strip_cols = schedule(
+        qlens[qidx], tdb.seq_lens()[tidx],
+        (int(bias.min()), int(bias.max())) if len(bias) else (0, 0))
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return (dev(qcodes), dev(qoff.astype(np.int64)), dev(qlens), dev(bias),
             *flat_rows(tdb, device, "score"), dev(qidx), dev(tidx),
-            dev(order), strip_cols,
+            dev(order), plan, strip_cols,
             dev(constants.blosum62().sub.astype(np.int32)))
 
 
@@ -228,5 +347,6 @@ def batch_pair_scores(db, tdb, pairs, bias_fn, gap_open, gap_extend, device):
     scores = sw_score(*pair_operands(db, tdb, pairs, bias_fn, device),
                       gap_open, gap_extend).cpu().numpy()
     if (scores < 0).any():
-        raise RuntimeError("sw_score: a pair outgrew its strip scratch")
+        raise RuntimeError("sw_score: a pair outgrew its wrap scratch or "
+                           "its plan")
     return {pair: int(s) for pair, s in zip(pairs, scores)}
