@@ -75,14 +75,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      --device cpu on the same prefilter DB: the alignment DBs byte for
      byte equal; stage seconds, candidate pairs, the pairs B9 scored and
      rejected, its launches, peak device memory;
- 16. cluster-aa: `plass cluster --min-seq-id 0.9 -c 0.9` (the paper's
+ 16. profile-aa, in a process of its own beside phases 17-20 (its
+     stages are host code but for B9 on step 0; it counts its own
+     launches and prints them for the kernels line): `plass search
+     --num-iterations 2` through the CLI with phase 15's queries and
+     targets at the defaults, on the card: B9
+     scores step 0's candidate pairs (sequence queries), step 1 aligns the
+     profiles on the host, as in the JAX package; step 0's align stage
+     again with --device cpu on the same prefilter DB, byte for byte
+     equal; then `plass result2profile` of its alignments (a profile per
+     query) and `plass search` of every 5th family protein against those
+     profiles. Each step's stage seconds, pairs and B9 launches, peak
+     device memory, and the sha256 of both alignment DBs, which must equal
+     those of --cpu-reference profile;
+ 17. cluster-aa: `plass cluster --min-seq-id 0.9 -c 0.9` (the paper's
      setting) through the CLI on the family proteins, on the card and with
      --device cpu: the cluster DBs byte for byte equal; seconds per stage
      and step, B9's launches and pairs, the cluster count;
- 17. easy-aa: `plass easy-search` and `plass easy-cluster` on 100 family
+ 18. easy-aa: `plass easy-search` and `plass easy-cluster` on 100 family
      records, on the card and with --device cpu: the BLAST-tab file and
      the cluster TSV and FASTA files byte for byte equal;
- 18. sw-main: B9 on the candidate pairs of phase 14's align stage (for
+ 19. sw-main: B9 on the candidate pairs of phase 14's align stage (for
      each input the run with the most) and of phase 15's, on edge rows
      (query length 1, target lengths 0, 1 and 33, queries at the edges of
      the warp-path classes, of a warp's strip and of a block's strips, a
@@ -94,17 +107,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      integer rate) and in cells a second, with the pairs on the block
      path, the share of the pairs failing the E-value test (which B9
      spares a host ssw), and the kernel's registers and resident warps;
- 19. hamming: `plass assemble` and `penguin nuclassemble` with
+ 20. hamming: `plass assemble` and `penguin nuclassemble` with
      --rescore-mode 0 on the fixture, on the card and with --device cpu,
      byte for byte; K2's HAMMING forms against their plain version on the
      iteration-0 hits of phases 4 and 7 (reverse hits included) and on
      edge rows (exact), timed beside their bound;
- 20. nucl-large: the nucleotide matcher at iteration 0 on the fewest
+ 21. nucl-large: the nucleotide matcher at iteration 0 on the fewest
      seeded 150-nt reads whose table the monolithic matcher would need more
      than the card's free memory for, with the automatic budget and at half
      of it: equal hits, peak memory under the card's (the matcher only).
 The kernels' launch counters are set to 0 just before phases 4, 7, 10, 13,
-14, 15, 16, 17 and 19's CLI runs and read just after; every kernel of each
+14, 15, 16, 17, 18 and 20's CLI runs and read just after; every kernel of each
 path must have run there. The last lines are the script's seconds, a JSON summary of
 the kernels (times, launches by path, bytes or operations counted and the
 bound they give at 3.35 TB/s or the card's integer rate), the card's name
@@ -113,8 +126,9 @@ and power limit, and {"ok": true, "device": {...}}.
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
 --cpu-reference runs phases 4, 7 and 10 (or, with a value, those of
-assemble, nuclassemble, guided_nuclassemble it names) at full size on the
-CPU, for the sha256 of their outputs. Neither prints a result; both exit with code 2.
+assemble, nuclassemble, guided_nuclassemble and profile it names; profile
+is phase 16's searches) at full size on the CPU, for the sha256 of their
+outputs. Neither prints a result; both exit with code 2.
 """
 import argparse
 import contextlib
@@ -346,6 +360,8 @@ K1_REPEATS = 50
 # PenguiN is made for) at 15x, 52,000 reads
 GUIDED_GENOMES = (104, 5000)
 SCALE_RUNS = ("assemble", "nuclassemble", "guided_nuclassemble")
+# --cpu-reference also takes "profile": phase profile-aa's two searches
+REFERENCE_RUNS = SCALE_RUNS + ("profile",)
 
 
 def phase_k1(device, sizes, reps, timed_sizes=()):
@@ -1807,31 +1823,49 @@ def pairs_text(stats):
             f"{c.get('device_rejected', 0)} of them rejected by it")
 
 
-def phase_search_aa(device, work, fasta):
-    """`plass search` through the CLI: the families' DB made with `plass
-    createdb` as the target, every SEARCH_EVERY-th record of it taken with
-    `plass createsubdb` as the queries, default parameters (-s 5.7,
-    --max-seqs 300), on the device; then the same align stage with
-    --device cpu on the same prefilter DB (the tmp dir's prefilter step is
-    reused, the align step's sentinel removed): the alignment DBs byte for
-    byte equal. Returns (the device run's launches, its recorded align
-    call, the target DB's path)."""
+def subset_db(tpath, every, out, device):
+    """Every `every`-th record of the DB at tpath, by key, as a DB at out
+    (`plass createsubdb`)."""
+    from plass_tpu_torch.data import seqdb
+    keys = np.sort(seqdb.SeqDB.open(tpath).keys)[::every]
+    subset = out + ".keys.txt"
+    with open(subset, "w") as fh:
+        fh.writelines(f"{k}\n" for k in keys)
+    plass_cli(["createsubdb", subset, tpath, out], device)
+    return seqdb.SeqDB.open(out)
+
+
+def search_dbs(work, fasta, device):
+    """search-aa's DBs: family_fasta's proteins made into the target DB
+    with `plass createdb`, every SEARCH_EVERY-th record of it the queries.
+    Returns their paths."""
     from plass_tpu_torch.data import seqdb
     d = os.path.join(work, "search_aa")
     os.makedirs(d)
     tpath, qpath = os.path.join(d, "famDB"), os.path.join(d, "qDB")
     t0 = time.perf_counter()
     plass_cli(["createdb", fasta, tpath], device)
-    keys = np.sort(seqdb.SeqDB.open(tpath).keys)[::SEARCH_EVERY]
-    subset = os.path.join(d, "subset.txt")
-    with open(subset, "w") as fh:
-        fh.writelines(f"{k}\n" for k in keys)
-    plass_cli(["createsubdb", subset, tpath, qpath], device)
-    tdb, qdb = seqdb.SeqDB.open(tpath), seqdb.SeqDB.open(qpath)
+    qdb = subset_db(tpath, SEARCH_EVERY, qpath, device)
+    tdb = seqdb.SeqDB.open(tpath)
     say(f"[search-aa] target DB of {tdb.size} proteins "
         f"({int(tdb.seq_lens().sum())} residues) with `plass createdb`, "
         f"{qdb.size} queries (every {SEARCH_EVERY}th) with `plass "
         f"createsubdb`, in {time.perf_counter() - t0:.1f} s")
+    return tpath, qpath
+
+
+def phase_search_aa(device, work, fasta):
+    """`plass search` through the CLI: search_dbs's queries against its
+    target DB, default parameters (-s 5.7, --max-seqs 300), on the device;
+    then the same align stage with --device cpu on the same prefilter DB
+    (the tmp dir's prefilter step is reused, the align step's sentinel
+    removed): the alignment DBs byte for byte equal. Returns (the device
+    run's launches, its recorded align call, the target DB's path, the
+    query DB's path)."""
+    from plass_tpu_torch.data import seqdb
+    tpath, qpath = search_dbs(work, fasta, device)
+    d = os.path.dirname(tpath)
+    tdb, qdb = seqdb.SeqDB.open(tpath), seqdb.SeqDB.open(qpath)
     aln, cpu_aln = os.path.join(d, "aln"), os.path.join(d, "aln_cpu")
     tmp = os.path.join(d, "tmp")
     stats, cpu_stats = {}, {}
@@ -1862,7 +1896,7 @@ def phase_search_aa(device, work, fasta):
         f"{peak / 2**30:.2f} GiB")
     if device.type == "cuda" and not launches["sw_score"]:
         raise AssertionError("search-aa: B9 never launched through the CLI")
-    return launches, spied[-1], tpath
+    return launches, spied[-1], tpath, qpath
 
 
 def phase_cluster_aa(device, work, famdb):
@@ -1901,6 +1935,193 @@ def phase_cluster_aa(device, work, famdb):
         f"{launches['sw_score']}; peak device memory {peak / 2**30:.2f} GiB")
     if device.type == "cuda" and not launches["sw_score"]:
         raise AssertionError("cluster-aa: B9 never launched through the CLI")
+    return launches
+
+
+# profile-aa: run 1 is search-aa's search with --num-iterations
+# PROFILE_ITERATIONS; run 2 searches every PROFILE_QUERY_EVERY-th record of
+# the families' DB against run 1's profiles
+PROFILE_ITERATIONS = 2
+PROFILE_QUERY_EVERY = 5
+# the sha256 of run 1's and run 2's alignment DBs (data, index and dbtype
+# files) at full size, from `python3 chip_smoke.py --cpu-reference profile`
+PROFILE_SHA256 = {
+    "iterative":
+        "dda3350f9a8f75e868cfed15e9a99c94e4ac9efcaf0d9ec842f9f5a161c306df",
+    "target-profiles":
+        "72ac0008704d6057ab7a88e7db2fe07859eb81de920ee2745e0dba78d2f5458f"}
+# profile-aa runs in a process of its own beside phases 17-20 (its stages
+# are host code but for B9 on step 0); it prints its launches on a line
+# that starts with PROFILE_RESULT
+PROFILE_RESULT = "[profile-aa] launches "
+PROFILE_TIMEOUT = 1000
+
+
+@contextlib.contextmanager
+def recorded_align_launches():
+    """Within the block, each call of protein_align.align_protein appends
+    (whether its query DB holds profiles, B9's launches during the call)
+    to the yielded list."""
+    from plass_tpu_torch.data import seqdb
+    from plass_tpu_torch.ops import device_align, protein_align
+    real = protein_align.align_protein
+    calls = []
+
+    def spy(db, *args, **kw):
+        before = device_align.LAUNCHES
+        out = real(db, *args, **kw)
+        calls.append((db.dbtype == seqdb.HMM_PROFILE,
+                      device_align.LAUNCHES - before))
+        return out
+
+    protein_align.align_protein = spy
+    try:
+        yield calls
+    finally:
+        protein_align.align_protein = real
+
+
+def start_profile_aa(work, famdb, qdb, rehearsal):
+    """Phase profile-aa in a process of its own (`chip_smoke.py
+    --profile-phase`), its output to a file in work. Returns (the
+    process, the file's path)."""
+    log = os.path.join(work, "profile_aa.log")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--profile-phase",
+             work, famdb, qdb, *(["--cpu-rehearsal"] if rehearsal else [])],
+            stdout=fh, stderr=subprocess.STDOUT, cwd=ROOT)
+    return proc, log
+
+
+def stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def finish_profile_aa(proc, log):
+    """Wait for start_profile_aa's process; print its [profile-aa] lines
+    and return the launches it counted. Fails unless it exits 0."""
+    try:
+        rc = proc.wait(timeout=PROFILE_TIMEOUT)
+    finally:
+        stop(proc)
+    lines = open(log).read().splitlines()
+    launches = None
+    for line in lines:
+        if line.startswith(PROFILE_RESULT):
+            launches = json.loads(line[len(PROFILE_RESULT):])
+        elif line.startswith("[profile-aa]"):
+            say(line)
+    if rc != 0 or launches is None:
+        print("\n".join(lines[-40:]), file=sys.stderr)
+        raise AssertionError(f"profile-aa: its process exited with {rc}")
+    return launches
+
+
+def _step_pairs_text(pairs, step):
+    c, n, r = (pairs.get(f"{k}_{step}", 0) for k in (
+        "candidate_pairs", "device_pairs", "device_rejected"))
+    share = f" ({100 * r / n:.1f}%)" if n else ""
+    return (f"step {step}: {c} candidate pairs, {n} scored by B9, {r} of "
+            f"them rejected by it{share}")
+
+
+def phase_profile_aa(device, work, famdb, qdb, check_sha=False):
+    """Run 1: `plass search --num-iterations PROFILE_ITERATIONS` through
+    the CLI at the defaults (search-aa's queries and targets), on the
+    device: step 0 scores its sequence queries' candidate pairs with B9,
+    step 1 aligns the profiles on the host; step 0's align stage again with
+    --device cpu on the same prefilter DB, byte for byte equal. Run 2:
+    `plass result2profile` of run 1's alignments (a profile per query),
+    then `plass search` of every PROFILE_QUERY_EVERY-th family protein
+    against those profiles at the defaults. Prints each stage's seconds,
+    the pairs, B9's launches per step, peak device memory and the sha256
+    of both alignment DBs; with check_sha, the sha256 must be
+    PROFILE_SHA256's. Returns run 1's launches."""
+    from plass_tpu_torch.data import seqdb
+    d = os.path.join(work, "profile_aa")
+    os.makedirs(d)
+    out1, tmp1 = os.path.join(d, "aln_iterative"), os.path.join(d, "tmp1")
+    stats = {}
+    _reset_launches()
+    _peak_reset(device)
+    with recorded_align_launches() as calls:
+        t0 = time.perf_counter()
+        plass_cli(["search", qdb, famdb, out1, tmp1, "--num-iterations",
+                   str(PROFILE_ITERATIONS)], device, stats)
+        wall = time.perf_counter() - t0
+    peak = _peak(device)
+    launches = _launches()
+    aln0, cpu0 = os.path.join(tmp1, "aln_0"), os.path.join(d, "aln_0_cpu")
+    t0 = time.perf_counter()
+    # step 0's align stage (cli/tools.py::_search_iterative) with the CPU
+    plass_cli(["align", qdb, famdb, os.path.join(tmp1, "pref_0"), cpu0,
+               "-e", "0.001", "-a", "--alignment-mode", "2", "--realign"],
+              "cpu")
+    cpu_wall = time.perf_counter() - t0
+    if db_bytes(cpu0) != db_bytes(aln0):
+        raise AssertionError("profile-aa: step 0's alignment DB differs "
+                             "from its align stage with --device cpu")
+    digests = {"iterative": hashlib.sha256(db_bytes(out1)).hexdigest()}
+    n_q, n_t = seqdb.SeqDB.open(qdb).size, seqdb.SeqDB.open(famdb).size
+    say(f"[profile-aa] run 1: `plass search --num-iterations "
+        f"{PROFILE_ITERATIONS}`, {n_q} queries against {n_t} proteins in "
+        f"{wall:.1f} s; alignment DB sha256 {digests['iterative']}; step "
+        f"0's align stage byte-identical with --device cpu ({cpu_wall:.1f} "
+        f"s)")
+    say(f"[profile-aa] run 1 seconds per stage and step: "
+        f"{seconds_text(stats['seconds'])}")
+    step_launches = [n for _, n in calls]
+    say(f"[profile-aa] run 1 " + "; ".join(
+        _step_pairs_text(stats["pairs"], step)
+        for step in range(PROFILE_ITERATIONS)) + f"; B9 launches by step "
+        f"{step_launches}; peak device memory {peak / 2**30:.2f} GiB")
+    if [prof for prof, _ in calls] != [False] + [True] * (
+            PROFILE_ITERATIONS - 1):
+        raise AssertionError(f"profile-aa: the align calls' query types "
+                             f"are not one of sequences, then profiles: "
+                             f"{calls}")
+    if any(step_launches[1:]):
+        raise AssertionError(f"profile-aa: B9 launched on a profile step: "
+                             f"{step_launches}")
+    if device.type == "cuda" and not step_launches[0]:
+        raise AssertionError("profile-aa: B9 never launched on step 0")
+
+    prof = os.path.join(d, "profDB")
+    t0 = time.perf_counter()
+    plass_cli(["result2profile", qdb, famdb, out1, prof], device)
+    r2p = time.perf_counter() - t0
+    q5path = os.path.join(d, "q5DB")
+    q5 = subset_db(famdb, PROFILE_QUERY_EVERY, q5path, device)
+    out2, stats2 = os.path.join(d, "aln_targetprofile"), {}
+    _reset_launches()
+    _peak_reset(device)
+    t0 = time.perf_counter()
+    plass_cli(["search", q5path, prof, out2, os.path.join(d, "tmp2")],
+              device, stats2)
+    wall2 = time.perf_counter() - t0
+    peak2 = _peak(device)
+    launches2 = _launches()
+    digests["target-profiles"] = hashlib.sha256(db_bytes(out2)).hexdigest()
+    c = stats2["pairs"]
+    say(f"[profile-aa] run 2: `plass result2profile` of run 1 "
+        f"({seqdb.SeqDB.open(prof).size} profiles) in {r2p:.1f} s, then "
+        f"`plass search` of {q5.size} proteins (every "
+        f"{PROFILE_QUERY_EVERY}th) against them in {wall2:.1f} s; "
+        f"alignment DB sha256 {digests['target-profiles']}")
+    say(f"[profile-aa] run 2 seconds per stage: "
+        f"{seconds_text(stats2['seconds'])}; {c.get('candidate_pairs', 0)} "
+        f"candidate pairs (profile queries, on the host), B9 launches "
+        f"{launches2['sw_score']}; peak device memory "
+        f"{peak2 / 2**30:.2f} GiB")
+    if check_sha:
+        for name, want in PROFILE_SHA256.items():
+            if digests[name] != want:
+                raise AssertionError(f"profile-aa: {name} sha256 "
+                                     f"{digests[name]}, the CPU's is {want}")
+        say("[profile-aa] both sha256 equal those of --cpu-reference profile")
     return launches
 
 
@@ -2378,16 +2599,27 @@ def main():
     ap.add_argument("--cpu-reference", nargs="?", const=",".join(SCALE_RUNS),
                     metavar="RUNS",
                     help="run the scale assemblies (phases 4, 7 and 10; or "
-                         "those named, of " + ", ".join(SCALE_RUNS) + ") at "
-                         "full size on the CPU and print their sha256; "
+                         "those named, of " + ", ".join(REFERENCE_RUNS) + ")"
+                         " at full size on the CPU and print their sha256; "
                          "prints no result, exits 2")
+    ap.add_argument("--profile-phase", nargs=3,
+                    metavar=("WORK", "FAMDB", "QDB"), help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
+    if args.profile_phase:
+        # phase profile-aa alone, in the process start_profile_aa starts
+        from plass_tpu_torch.utils.device import pick_device
+        device = pick_device("cpu" if args.cpu_rehearsal else "cuda")
+        launches = phase_profile_aa(device, *args.profile_phase,
+                                    check_sha=not args.cpu_rehearsal)
+        say(PROFILE_RESULT + json.dumps(launches))
+        return 0
     if args.cpu_reference:
         runs = args.cpu_reference.split(",")
-        if set(runs) - set(SCALE_RUNS):
-            ap.error(f"--cpu-reference takes names of {', '.join(SCALE_RUNS)}")
+        if set(runs) - set(REFERENCE_RUNS):
+            ap.error(f"--cpu-reference takes names of "
+                     f"{', '.join(REFERENCE_RUNS)}")
         with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                          dir=ROOT) as work:
             device = torch.device("cpu")
@@ -2397,6 +2629,11 @@ def main():
                 phase_nucl_scale(device, work, 50, 20000)
             if "guided_nuclassemble" in runs:
                 phase_guided_scale(device, work, *GUIDED_GENOMES)
+            if "profile" in runs:
+                fasta = os.path.join(work, "families.fasta")
+                family_fasta(fasta, FAMILIES)
+                phase_profile_aa(device, work, *search_dbs(work, fasta,
+                                                           device))
         say(f"[cpu-reference] {', '.join(runs)} at full size on the CPU; no "
             f"result")
         return 2
@@ -2441,14 +2678,19 @@ def main():
         slaunches = phase_nucl_split(device, work, nrun)
         llaunches, lcalls, fam_fasta = phase_linclust_aa(device, work,
                                                          assembly, rehearsal)
-        salaunches, lcalls["search"], famdb = phase_search_aa(
+        salaunches, lcalls["search"], famdb, search_qdb = phase_search_aa(
             device, work, fam_fasta)
-        calaunches = phase_cluster_aa(device, work, famdb)
-        ealaunches = phase_easy_aa(device, work, fam_fasta)
-        sw = phase_sw_main(device, lcalls, rehearsal)
-        del lcalls
-        hlaunches, hamming = phase_hamming(device, work, db_path,
-                                           ndb_paths[0], reps)
+        profile = start_profile_aa(work, famdb, search_qdb, rehearsal)
+        try:
+            calaunches = phase_cluster_aa(device, work, famdb)
+            ealaunches = phase_easy_aa(device, work, fam_fasta)
+            sw = phase_sw_main(device, lcalls, rehearsal)
+            del lcalls
+            hlaunches, hamming = phase_hamming(device, work, db_path,
+                                               ndb_paths[0], reps)
+            plaunches = finish_profile_aa(*profile)
+        finally:
+            stop(profile[0])
     phase_nucl_large(device, rehearsal)
     k1_err = max(k1_err, k1_main_err, k1_nucl_err, k1_guided_err)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_guided_err)
@@ -2462,7 +2704,8 @@ def main():
         dict(k1, max_abs_err=k1_err), k2, rev,
         {"assemble": launches, "nuclassemble": nlaunches,
          "guided_nuclassemble": glaunches, "split": slaunches,
-         "linclust": llaunches, "search": salaunches, "cluster": calaunches,
+         "linclust": llaunches, "search": salaunches, "profile": plaunches,
+         "cluster": calaunches,
          "easy": ealaunches, "rescore_mode_0": hlaunches}, sw, hamming)
     say(json.dumps({"kernels": kernels}))
     say(smi())

@@ -1,17 +1,17 @@
 """Base tools of the port's `plass` and `penguin` CLIs: the DB plumbing,
-the sensitive prefilter, `align`, `search` and cascaded `cluster` with
-their easy-* forms, and the alignment-DB readers the product CLIs' hidden
-tools share.
+the sensitive prefilter, `align`, `search` (against sequences, against
+profiles, exhaustive and iterative) and cascaded `cluster` with their
+easy-* forms, the profile and MSA tools (cli/tools_profile.py), and the
+alignment-DB readers the product CLIs' hidden tools share.
 
 A copy of the JAX package's cli/tools.py, cut to these commands; each
 keeps its flag list there (cli/params.py) plus --device, which sets where
 the aligner scores its candidate pairs (kernel B9, ops/protein_align.py).
-Everything else runs on the host, as in the JAX package. Profile targets,
-the sliced and iterative profile searches are not ported: they raise
-(ROADMAP item 23), and the base tools of the JAX package not listed in
-BASE_COMMANDS are not registered. A command's `stats` dict receives the
-stage seconds of its workflow under "seconds" and the aligner's pair
-counts under "pairs" (see align_protein).
+Everything else runs on the host, as in the JAX package. The base tools
+of the JAX package not listed in BASE_COMMANDS are not registered
+(ROADMAP item 23). A command's `stats` dict receives the stage seconds of
+its workflow under "seconds" and the aligner's pair counts under "pairs"
+(see align_protein).
 """
 import os
 import re
@@ -23,8 +23,6 @@ from ..ops.rescore import RESULT_DTYPE
 from ..utils.log import logger
 from . import params as P
 from .app import Command, port_flags
-
-NOT_PORTED = "is not ported; see ROADMAP item 23"
 
 
 def _space(flags):
@@ -348,14 +346,14 @@ def _search(positional, space, stats):
         raise ValueError("usage: search <i:qDB> <i:tDB> <o:alnDB> <tmpDir>")
     v = space.values
     if seqdb.read_dbtype(positional[1]) == seqdb.HMM_PROFILE:
-        raise NotImplementedError(
-            f"search against a profile target DB {NOT_PORTED}")
+        if v.get("exhaustive_search", False):
+            return _search_sliced_profile(positional, space, stats)
+        return _search_targetprofile(positional, space, stats)
     if space_was_set(space, "num_iterations"):
         it = v["num_iterations"]
         it = it.aminoacids if isinstance(it, P.MultiParam) else it
         if it > 1:
-            raise NotImplementedError(
-                f"iterative profile search (--num-iterations) {NOT_PORTED}")
+            return _search_iterative(positional, space, stats, it)
     sens = v["sensitivity"] if space_was_set(space, "sensitivity") else 5.7
     p = SearchParams(
         sensitivity=sens, kmer_size=v["search_kmer_size"],
@@ -389,6 +387,196 @@ def _search(positional, space, stats):
                tdb_path=positional[1], device=v["device"],
                seconds=stats.setdefault("seconds", {}),
                counts=stats.setdefault("pairs", {}))
+    return 0
+
+
+def _invoke(name, args, device, stats, step=None):
+    """Run another registered command in-process on `device` (the
+    reference shells back into the same binary via $MMSEQS,
+    CommandCaller.cpp:69-89). Its wall seconds are added to
+    stats["seconds"] under its name, and the aligner's pair counts it
+    reports to stats["pairs"] under theirs; with a `step`, each name ends
+    in "_<step>"."""
+    from ..utils.device import pick_device, stage_timer
+    from .plass import commands
+    cmd = next(c for c in commands() if c.name == name)
+    space = cmd.params_fn()
+    positional = space.parse_args([str(a) for a in args]
+                                  + ["--device", str(device)])
+    suffix = "" if step is None else f"_{step}"
+    timed = stage_timer(pick_device(device), stats.setdefault("seconds", {}))
+    sub = {}
+    with timed(name + suffix):
+        rc = cmd.fn(positional, space, sub)
+    pairs = stats.setdefault("pairs", {})
+    for key, n in sub.get("pairs", {}).items():
+        pairs[key + suffix] = pairs.get(key + suffix, 0) + n
+    if rc not in (0, None):
+        raise ValueError(f"{name} step failed")
+
+
+def _swap_cov_mode(cov_mode):
+    """Util::swapCoverageMode (Util.cpp:569-585)."""
+    return {0: 0, 1: 2, 2: 1, 3: 4, 4: 3, 5: 5}.get(cov_mode, cov_mode)
+
+
+def _search_targetprofile(positional, space, stats):
+    """Default search against target profiles (Search.cpp:352-363 +
+    data/workflow/searchtargetprofile.sh): profile-target prefilter
+    (k-mer 5 unless set, Search.cpp:250-252), swap, profile-query
+    alignment with the swapped coverage mode, swap back."""
+    v = space.values
+    query, target, out, tmp = positional
+    os.makedirs(tmp, exist_ok=True)
+    if os.path.exists(out + ".dbtype"):
+        raise ValueError(f"{out}.dbtype exists already!")
+    eval_thr = v["eval_thr"] if space_was_set(space, "eval_thr") else 1e-3
+    cov_mode = _swap_cov_mode(v.get("cov_mode", 0))
+    sens = v["sensitivity"] if space_was_set(space, "sensitivity") else 5.7
+    kmer = v["search_kmer_size"] \
+        if space_was_set(space, "search_kmer_size") else 5
+
+    def t(name):
+        return os.path.join(tmp, name)
+
+    def run(name, args):
+        _invoke(name, args, v["device"], stats)
+
+    if not os.path.exists(t("pref") + ".dbtype"):
+        run("prefilter", [query, target, t("pref"), "-s", sens,
+                          "-k", kmer, "--max-seqs", v["max_seqs"],
+                          "--cov-mode", v.get("cov_mode", 0),
+                          "-c", v.get("cov_thr", 0.0)])
+    if not os.path.exists(t("pref_swapped") + ".dbtype"):
+        run("swapresults", [query, target, t("pref"),
+                            t("pref_swapped"), "-e", eval_thr])
+    aln_mode = v["alignment_mode"] if space_was_set(space,
+                                                    "alignment_mode") else 2
+    if not os.path.exists(t("aln_swapped") + ".dbtype"):
+        aln_args = [target, query, t("pref_swapped"), t("aln_swapped"),
+                    "-e", eval_thr, "--cov-mode", cov_mode,
+                    "-c", v.get("cov_thr", 0.0),
+                    "--alignment-mode", aln_mode]
+        if v.get("add_backtrace"):
+            aln_args += ["-a"]
+        run("align", aln_args)
+    run("swapresults", [target, query, t("aln_swapped"), out,
+                        "-e", eval_thr])
+    if v.get("remove_tmp_files"):
+        for name in ("pref", "pref_swapped", "aln_swapped"):
+            run("rmdb", [t(name)])
+    return 0
+
+
+def _search_sliced_profile(positional, space, stats):
+    """Exhaustive search against target profiles (Search.cpp:317-352 +
+    data/workflow/searchslicedtargetprofile.sh, single slice): the
+    PROFILES run as queries against the sequence DB, then results are
+    swapped back. E-values are corrected for the inverted search by
+    |queries| / |targets|."""
+    v = space.values
+    query, target, out, tmp = positional
+    os.makedirs(tmp, exist_ok=True)
+    if os.path.exists(out + ".dbtype"):
+        raise ValueError(f"{out}.dbtype exists already!")
+    qsize = sum(1 for _ in open(query + ".index"))
+    tsize = sum(1 for _ in open(target + ".index"))
+    eval_thr = v["eval_thr"] if space_was_set(space, "eval_thr") else 1e-3
+    eval_corr = eval_thr * (np.float32(qsize) / np.float32(tsize))
+    cov_mode = _swap_cov_mode(v.get("cov_mode", 0))
+    sens = v["sensitivity"] if space_was_set(space, "sensitivity") else 5.7
+
+    def t(name):
+        return os.path.join(tmp, name)
+
+    def run(name, args):
+        _invoke(name, args, v["device"], stats)
+
+    if not os.path.exists(t("pref") + ".dbtype"):
+        run("prefilter", [target, query, t("pref"), "-s", sens,
+                          "--max-seqs", max(300, qsize),
+                          "--cov-mode", cov_mode,
+                          "-c", v.get("cov_thr", 0.0)])
+    aln_mode = v["alignment_mode"] if space_was_set(space,
+                                                    "alignment_mode") else 2
+    if not os.path.exists(t("aln_merged") + ".dbtype"):
+        run("align", [target, query, t("pref"), t("aln_merged"),
+                      "-e", eval_corr, "--cov-mode", cov_mode,
+                      "-c", v.get("cov_thr", 0.0),
+                      "--alignment-mode", aln_mode,
+                      "--alignment-output-mode", 1])
+    if v.get("exhaustive_search_filter", 0) == 1 and \
+            not os.path.exists(t("aln_filt") + ".dbtype"):
+        run("filterresult", [target, query, t("aln_merged"), t("aln_filt")])
+        run("rmdb", [t("aln_merged")])
+        run("mvdb", [t("aln_filt"), t("aln_merged")])
+    if not os.path.exists(t("aln") + ".dbtype"):
+        aln_args = [target, query, t("aln_merged"), t("aln"),
+                    "-e", eval_corr, "--cov-mode", cov_mode,
+                    "-c", v.get("cov_thr", 0.0),
+                    "--alignment-mode", aln_mode]
+        if v.get("add_backtrace"):
+            aln_args += ["-a"]
+        run("align", aln_args)
+    run("swapresults", [target, query, t("aln"), out,
+                        "-e", 1.7976931348623157e+308])
+    return 0
+
+
+def _search_iterative(positional, space, stats, num_it):
+    """Iterative profile search (Search.cpp:371-410 +
+    data/workflow/blastpgp.sh): prefilter -> [subtract prev aln] -> align
+    (realign on iteration 0) -> merge -> result2profile -> repeat with the
+    profile DB as query. Each step's seconds go to stats["seconds"] and
+    its pair counts to stats["pairs"] under the stage's name and the
+    step's number ("align_0", "candidate_pairs_0", ...)."""
+    v = space.values
+    query, target, out, tmp = positional
+    os.makedirs(tmp, exist_ok=True)
+    if os.path.exists(out + ".dbtype"):
+        raise ValueError(f"{out}.dbtype exists already!")
+    eval_real = v["eval_thr"] if space_was_set(space, "eval_thr") else 1e-3
+    eval_profile = min(eval_real, v.get("eval_profile", 0.1))
+    sens = v["sensitivity"] if space_was_set(space, "sensitivity") else 5.7
+
+    def t(name):
+        return os.path.join(tmp, name)
+
+    qdb = query
+    for step in range(num_it):
+        def run(name, args):
+            _invoke(name, args, v["device"], stats, step)
+
+        ev = eval_real if step == num_it - 1 else eval_profile
+        pref = t(f"pref_{step}")
+        raw_pref = pref if step == 0 else t(f"pref_tmp_{step}")
+        if not os.path.exists(raw_pref + ".dbtype"):
+            run("prefilter", [qdb, target, raw_pref, "-s", sens])
+        if step >= 1 and not os.path.exists(pref + ".dbtype"):
+            run("subtractdbs", [raw_pref, t(f"aln_{step - 1}"), pref,
+                                "--e-profile", eval_profile,
+                                "-e", eval_profile])
+        aln = t(f"aln_{step}")
+        raw_aln = aln if step == 0 else t(f"aln_tmp_{step}")
+        if not os.path.exists(raw_aln + ".dbtype"):
+            # iterative search always adds backtraces (Search.cpp:275)
+            aln_args = [qdb, target, pref, raw_aln, "-e", ev, "-a",
+                        "--alignment-mode",
+                        v["alignment_mode"]
+                        if space_was_set(space, "alignment_mode") else 2]
+            if step == 0:
+                aln_args += ["--realign"]
+            run("align", aln_args)
+        if step > 0:
+            dst = out if step == num_it - 1 else aln
+            if not os.path.exists(dst + ".dbtype"):
+                run("mergedbs", [qdb, dst, t(f"aln_{step - 1}"), raw_aln])
+        if step != num_it - 1:
+            profdb = t(f"profile_{step}")
+            if not os.path.exists(profdb + ".dbtype"):
+                run("result2profile", [qdb, target, aln, profdb,
+                                       "-e", eval_profile])
+            qdb = profdb
     return 0
 
 
@@ -979,6 +1167,45 @@ def _easy_linclust(positional, space, stats):
     return _easy_cluster(positional, space, stats, linear=True)
 
 
+def _subtractdbs(positional, space, stats):
+    """subtractdbs.cpp: remove from each left record the lines whose key
+    appears in the right DB's record for the same query (both sides
+    filtered by the e-value threshold when lines are alignment-format)."""
+    if len(positional) != 3:
+        raise ValueError(
+            "usage: subtractdbs <i:leftDB> <i:rightDB> <o:db>")
+    left = seqdb.SeqDB.open(positional[0])
+    right = seqdb.SeqDB.open(positional[1])
+    v = space.values
+    eval_thr = min(v.get("eval_thr", 0.001), v.get("eval_profile", 0.001))
+
+    def passing_keys(data):
+        out = []
+        for line in data.decode().splitlines():
+            if not line:
+                continue
+            f = line.split("\t")
+            evalue = float(f[3]) if len(f) >= 10 else 0.0
+            out.append((int(f[0].split()[0]), evalue <= eval_thr, line))
+        return out
+
+    w = seqdb.DBWriter(left.dbtype)
+    for i in seqdb.data_order(left):
+        key = int(left.keys[i])
+        lines = passing_keys(left.get_data(i).tobytes())
+        drop = set()
+        j = right.key_to_id(key)
+        if j is not None:
+            for (k, ok, _line) in passing_keys(right.get_data(j).tobytes()):
+                if ok:
+                    drop.add(k)
+        body = "".join(line + "\n" for (k, ok, line) in lines
+                       if ok and k not in drop)
+        w.write(key, body.encode(), add_newline=False)
+    w.finish().save(positional[2])
+    return 0
+
+
 def _createtsv(positional, space, stats):
     from ..data.dbtools import create_tsv
     if len(positional) == 4:
@@ -1100,4 +1327,11 @@ BASE_COMMANDS = [
             "<i:qDB> <i:tDB> <i:resDB> <o:fasta>", "Flatten result DB to FASTA", hidden=True),
     Command("createseqfiledb", _createseqfiledb, lambda: _space(P.common_flags()),
             "<i:seqDB> <i:cluDB> <o:db>", "Per-cluster FASTA records", hidden=True),
+    Command("subtractdbs", _subtractdbs, lambda: _space(P.common_flags() + [
+        P.Flag("-e", "eval_thr", float, 0.001, "E-value threshold"),
+        P.Flag("--e-profile", "eval_profile", float, 0.001, "Profile E-value threshold")]),
+            "<i:leftDB> <i:rightDB> <o:db>", "Remove right-side hits from left result DB", hidden=True),
 ]
+
+from .tools_profile import COMMANDS as _PROFILE_COMMANDS  # noqa: E402
+BASE_COMMANDS.extend(_PROFILE_COMMANDS)

@@ -8,8 +8,13 @@ post-processing), `gather.cpp` (record padding and gathers),
 `aln2nucl.cpp` (proteinaln2nucl window scoring), `ssw.cpp` (the striped
 Smith-Waterman of the amino-acid aligner), `banded.cpp` (its banded
 backtrace), `tantan.cpp` (the prefilter's low-complexity masking) and
-`ungapped.cpp` (the ungapped-diagonal scores of `ungapped_prefilter`, AVX2
-as in the JAX package's build). The library is built into
+`ungapped.cpp` (the ungapped-diagonal scores of `ungapped_prefilter`),
+`pssm.cpp` (the PSSM, sequence weights and profile byte codes of the
+profile tools) and `profilestates.cpp` (context-state discretisation and
+the profile query's k-mer and alignment matrices). The last three are
+built with AVX2, as in the JAX package's build: `pssm.cpp` mirrors the
+reference's AVX2 reciprocal sequence-weight kernel, and another build
+gives other float bits, so other profile bytes. The library is built into
 the port's build directory; the reference package's tracked `_native.so` is
 never written.
 """
@@ -25,9 +30,10 @@ from .. import BUILD_DIR, REFERENCE_DIR
 SOURCE_DIR = os.path.join(REFERENCE_DIR, "native")
 _SOURCES = ["extend.cpp", "nucl_extend.cpp", "finish.cpp", "gather.cpp",
             "aln2nucl.cpp", "ssw.cpp", "banded.cpp", "tantan.cpp",
-            "ungapped.cpp"]
-# sources written with AVX2 intrinsics; only they are compiled with -mavx2
-_AVX2_SOURCES = {"ungapped.cpp"}
+            "ungapped.cpp", "pssm.cpp", "profilestates.cpp"]
+# sources whose results follow the AVX2 build; only they are compiled with
+# -mavx2
+_AVX2_SOURCES = {"ungapped.cpp", "pssm.cpp", "profilestates.cpp"}
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -130,4 +136,37 @@ def lib():
         _LIB.ungapped_all.argtypes = [
             u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8, u8p,
             i64p, i64p, ctypes.c_int64, i32p]
+        f32p = ctypes.POINTER(ctypes.c_float)
+        _LIB.pssm_compute.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_float, ctypes.c_float, f64p, f32p,
+            i8p, f32p, f32p, u8p]
+        _LIB.pssm_neff_to_char.argtypes = [ctypes.c_float]
+        _LIB.pssm_neff_to_char.restype = ctypes.c_uint8
+        _LIB.pssm_score_mask.argtypes = [ctypes.c_float]
+        _LIB.pssm_score_mask.restype = ctypes.c_uint8
+        _LIB.pssm_score_unmask.argtypes = [ctypes.c_uint8]
+        _LIB.pssm_score_unmask.restype = ctypes.c_float
+        _LIB.pssm_neff_to_float.argtypes = [ctypes.c_uint8]
+        _LIB.pssm_neff_to_float.restype = ctypes.c_float
+        _LIB.pssm_scalar_prod20.argtypes = [f32p, f32p]
+        _LIB.pssm_scalar_prod20.restype = ctypes.c_float
+        _LIB.pssm_flog2.argtypes = [ctypes.c_float]
+        _LIB.pssm_flog2.restype = ctypes.c_float
+        _LIB.pssm_seq_weights.argtypes = [u8p, ctypes.c_int64,
+                                          ctypes.c_int64, ctypes.c_int64,
+                                          f32p]
+        _LIB.ps_fpow2.argtypes = [ctypes.c_float]
+        _LIB.ps_fpow2.restype = ctypes.c_double
+        _LIB.ps_score.argtypes = [f32p, f32p, f32p]
+        _LIB.ps_score.restype = ctypes.c_float
+        _LIB.ps_disc_scores.argtypes = [f32p, f32p, ctypes.c_int64,
+                                        ctypes.c_int64, f32p]
+        _LIB.ps_discretize.argtypes = [f32p, ctypes.c_int64, f32p, f32p,
+                                       f32p, f32p, ctypes.c_int64,
+                                       ctypes.c_int64, u8p]
+        _LIB.ps_discretize_cs219.argtypes = [f32p, ctypes.c_int64, f32p,
+                                             f32p, f32p, ctypes.c_int64, u8p]
+        _LIB.pq_map_profile.argtypes = [f32p, f64p, ctypes.c_int64,
+                                        ctypes.c_int32, i16p, u32p, i8p]
         return _LIB

@@ -24,9 +24,8 @@ rescored exactly when at the cap (QueryMatcher.cpp:155-166,377-385).
 
 The JAX package's host prefilter (numpy and the native tantan and
 ungapped-diagonal kernels), copied: it runs on the host whatever the
-device. Profile queries and profile targets (seqdb.HMM_PROFILE,
-ops/profile_query.py in the JAX package) are not ported: they raise
-(ROADMAP item 23).
+device, for sequence and profile queries and targets alike (profiles
+through ops/profile_query.py).
 """
 import os
 
@@ -50,17 +49,17 @@ SPACED_PATTERNS = {
 
 SCORE_RANGE = 256  # QueryMatcher.h SCORE_RANGE
 
-PROFILE_NOT_PORTED = ("profile queries and targets (ops/profile_query.py) "
-                      "are not ported; see ROADMAP item 23")
 
-
-def kmer_threshold(sensitivity, kmer_size, kmer_score=None):
-    """Prefiltering::getKmerThreshold (Prefiltering.cpp:987-1022) for
-    sequence queries and targets."""
+def kmer_threshold(sensitivity, kmer_size, kmer_score=None, profile=False):
+    """Prefiltering::getKmerThreshold (Prefiltering.cpp:987-1022)."""
     if kmer_score is not None:
         return int(kmer_score)
-    base = {5: 160.75, 6: 163.2, 7: 186.15}[kmer_size]
-    slope = {5: 12.75, 6: 8.917, 7: 11.22}[kmer_size]
+    if profile:
+        base = {5: 140.75, 6: 155.75, 7: 171.75}[kmer_size]
+        slope = {5: 8.75, 6: 8.75, 7: 9.75}[kmer_size]
+    else:
+        base = {5: 160.75, 6: 163.2, 7: 186.15}[kmer_size]
+        slope = {5: 12.75, 6: 8.917, 7: 11.22}[kmer_size]
     return int(np.float32(base) - np.float32(sensitivity) * np.float32(slope))
 
 
@@ -108,17 +107,16 @@ class KmerIndex:
     excluded, IndexTable.h:141-148)."""
 
     def __init__(self, tdb, kmer_size, kmer_thr, seed_mat, spaced=True,
-                 mask=0):
-        if tdb.dbtype == seqdb.HMM_PROFILE:
-            raise NotImplementedError(PROFILE_NOT_PORTED)
+                 mask=0, comp_bias=True):
         positions = spaced_positions(kmer_size, spaced)
         x_idx = seed_mat.alphabet_size - 1
         self_score = np.diag(seed_mat.sub).astype(np.int32)
+        is_profile = tdb.dbtype == seqdb.HMM_PROFILE
         all_kmers = []
         all_sid = []
         all_pos = []
         masker = None
-        if mask:
+        if mask and not is_profile:
             from . import tantan
             masker = tantan.TantanMasker(seed_mat)
         # internal target ids follow the DATA-file order: the reference
@@ -132,6 +130,34 @@ class KmerIndex:
         self.nums = []
         for rank in range(tdb.size):
             i = int(self.order[rank])
+            if is_profile:
+                # profile targets: every k-mer scoring >= kmerThr under the
+                # profile's own column scores goes into the index
+                # (IndexBuilder.cpp:105-133 addSimilarKmerCount /
+                # IndexTable.h:298-330 addSimilarSequence); the ungapped
+                # rescorer reads the CONSENSUS residues
+                # (IndexBuilder.cpp:132 numConsensusSequence)
+                from .profile_query import (ProfileQuery,
+                                            enumerate_profile_kmers)
+                pq = ProfileQuery(tdb.get_data(i).tobytes(),
+                                  comp_bias=comp_bias)
+                self.nums.append(pq.consensus)
+                w_starts, w_off, packed, _ = enumerate_profile_kmers(
+                    pq, positions, kmer_thr)
+                starts = np.repeat(w_starts, np.diff(w_off)).astype(np.int64)
+                if not len(packed):
+                    continue
+                # one entry per distinct kmer at its lowest position
+                # (sorted by (kmer, position_j), IndexTable.h:52-63)
+                order = np.lexsort((starts, packed))
+                packed, starts = packed[order], starts[order]
+                first = np.ones(len(packed), dtype=bool)
+                first[1:] = packed[1:] != packed[:-1]
+                all_kmers.append(packed[first])
+                all_sid.append(np.full(int(first.sum()), rank,
+                                       dtype=np.int32))
+                all_pos.append(starts[first].astype(np.int32))
+                continue
             num = seed_mat.aa2num[np.asarray(tdb.get_seq(i))]
             if masker is not None:
                 num = masker.mask(num)
@@ -591,19 +617,28 @@ def prefilter(qdb, tdb, params=None, same_db=None):
     p = params or PrefilterParams()
     seed = p.seed_mat or constants.vtml80_8()
     ungapped = p.ungapped_mat or constants.blosum62_pref()
-    if seqdb.HMM_PROFILE in (qdb.dbtype, tdb.dbtype):
-        raise NotImplementedError(PROFILE_NOT_PORTED)
+    is_profile_query = qdb.dbtype == seqdb.HMM_PROFILE
+    is_profile_target = tdb.dbtype == seqdb.HMM_PROFILE
+    if is_profile_query and is_profile_target:
+        raise ValueError("Query-profiles cannot be searched against a "
+                         "target-profile database!")
     k = p.kmer_size or auto_kmer_size(tdb.total_residues())
-    kmer_thr = kmer_threshold(p.sensitivity, k, p.kmer_score)
+    kmer_thr = kmer_threshold(p.sensitivity, k, p.kmer_score,
+                              profile=is_profile_query or is_profile_target)
     max_seqs = min(int(p.max_seqs), tdb.size)
     if same_db is None:
         same_db = qdb is tdb
+    # profile targets: consensus never masked (Prefiltering.cpp:173-175),
+    # query k-mers matched exactly (takeOnlyBestKmer, Prefiltering.cpp:177)
+    exact_matching = p.exact_kmer_matching or is_profile_target
     logger.info("prefilter: k=%d kmerThr=%d maxSeqs=%d", k, kmer_thr,
                 max_seqs)
 
     index = getattr(p, "prebuilt_index", None)
     if index is None:
-        index = KmerIndex(tdb, k, kmer_thr, seed, p.spaced_kmer, p.mask)
+        index = KmerIndex(tdb, k, kmer_thr, seed, p.spaced_kmer,
+                          0 if is_profile_target else p.mask,
+                          comp_bias=p.comp_bias_corr)
     positions = index.positions
     x_idx = seed.alphabet_size - 1
     sub20 = seed.sub[:20, :20].astype(np.int32)
@@ -625,18 +660,55 @@ def prefilter(qdb, tdb, params=None, same_db=None):
     out = {}
     for qi in range(qdb.size):
         qkey = int(qdb.keys[qi])
-        qnum_seed = seed.aa2num[np.asarray(qdb.get_seq(qi))]
-        qnum_ung = ungapped.aa2num[np.asarray(qdb.get_seq(qi))]
-        L = len(qnum_seed)
-        # composition bias under the seed matrix (QueryMatcher.cpp:90-98)
-        if p.comp_bias_corr:
-            comp = calc_local_aa_bias(seed_sub8, seed.pback, qnum_seed)
-        else:
+        pq = None
+        if is_profile_query:
+            from .profile_query import ProfileQuery, enumerate_profile_kmers
+            pq = ProfileQuery(qdb.get_data(qi).tobytes(),
+                              comp_bias=p.comp_bias_corr)
+            qnum_seed = pq.qnum
+            qnum_ung = pq.qnum
+            L = pq.L
             comp = np.zeros(L, dtype=np.float32)
+        else:
+            qnum_seed = seed.aa2num[np.asarray(qdb.get_seq(qi))]
+            qnum_ung = ungapped.aa2num[np.asarray(qdb.get_seq(qi))]
+            L = len(qnum_seed)
+            # composition bias under the seed matrix (QueryMatcher.cpp:90-98)
+            if p.comp_bias_corr:
+                comp = calc_local_aa_bias(seed_sub8, seed.pback, qnum_seed)
+            else:
+                comp = np.zeros(L, dtype=np.float32)
 
         hits_t = hits_d = hits_c = None
-        starts, _ = extract_kmers(qnum_seed, positions, x_idx)
-        if len(starts):
+        if is_profile_query:
+            # per-window candidate lists from the sorted profile columns
+            # (QueryMatcher with kmerGenerator->setDivideStrategy(profile),
+            # QueryMatcher.h:67-69)
+            w_starts, w_off, cand_kmer, _ = enumerate_profile_kmers(
+                pq, positions, kmer_thr)
+            cand_inst = np.repeat(np.arange(len(w_starts)), np.diff(w_off))
+            starts = w_starts
+            if len(cand_kmer):
+                lo = np.searchsorted(index.uniq, cand_kmer)
+                lo = np.minimum(lo, len(index.uniq) - 1) \
+                    if len(index.uniq) else lo
+                if len(index.uniq):
+                    found = index.uniq[lo] == cand_kmer
+                    lo, cand_inst = lo[found], cand_inst[found]
+                    ecnt = index.counts[lo]
+                    if int(ecnt.sum()):
+                        span = int(positions[-1]) + 1
+                        if p.diag_score:
+                            hits_t, hits_d = match_candidates(
+                                index, lo, ecnt, starts[cand_inst],
+                                L - span, tdb.size)
+                        else:
+                            hits_t, hits_d, hits_c = match_candidates(
+                                index, lo, ecnt, starts[cand_inst],
+                                L - span, tdb.size, count_mode=True)
+        else:
+            starts, packed = extract_kmers(qnum_seed, positions, x_idx)
+        if not is_profile_query and len(starts):
             # per-instance threshold: kmerThr - round(bias sum), with the
             # reference's float32 sequential accumulation over the spaced
             # positions (QueryMatcher.cpp:214-229: `float += float`)
@@ -650,7 +722,7 @@ def prefilter(qdb, tdb, params=None, same_db=None):
             inst_thr = np.maximum(kmer_thr - bias_r.astype(np.int32), 0)
 
             window = qnum_seed[starts[:, None] + positions[None, :]]
-            if p.exact_kmer_matching:
+            if exact_matching:
                 cand_kmer, cand_inst = _pack(window), np.arange(len(starts))
             else:
                 ukm, inv = np.unique(window, axis=0, return_inverse=True)
@@ -721,11 +793,20 @@ def prefilter(qdb, tdb, params=None, same_db=None):
         if hits_t is not None and len(hits_t):
             # diagonal scoring with the 2-bit-factor matrix + comp/4 bias
             # (UngappedAlignment::createProfile, UngappedAlignment.cpp:322-331)
-            comp4 = np.where(comp < 0.0, comp / 4 - 0.5,
-                             comp / 4 + 0.5).astype(np.int8)
-            bias8 = abs(int(sub2.min())) + abs(min(int(comp4.min()), 0))
-            cap = 255 - bias8
-            qprofile = sub2[qnum_ung] + comp4[:, None].astype(np.int32)
+            if is_profile_query:
+                # profile path: per-position alignment PSSM, zero bias
+                # correction, X column contributes 0
+                # (UngappedAlignment.cpp:295-345)
+                bias8 = abs(min(int(pq.aln_profile.min()), 0))
+                cap = 255 - bias8
+                qprofile = np.zeros((L, sub2.shape[0]), dtype=np.int32)
+                qprofile[:, :20] = pq.aln_profile.T.astype(np.int32)
+            else:
+                comp4 = np.where(comp < 0.0, comp / 4 - 0.5,
+                                 comp / 4 + 0.5).astype(np.int8)
+                bias8 = abs(int(sub2.min())) + abs(min(int(comp4.min()), 0))
+                cap = 255 - bias8
+                qprofile = sub2[qnum_ung] + comp4[:, None].astype(np.int32)
             sdiag = np.where(hits_d.astype(np.int32) < 32768,
                              hits_d.astype(np.int32),
                              hits_d.astype(np.int32) - 65536)

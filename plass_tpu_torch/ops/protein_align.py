@@ -11,10 +11,8 @@ port's native/) because their lazy-F semantics are
 vector-layout-dependent; profiles are built here. With enough candidate
 pairs on a card, every pair is first scored by the device Smith-Waterman
 (ops/device_align.py, kernel B9) and E-value failures are rejected
-without a host call.
-
-Profile queries (seqdb.HMM_PROFILE, ops/profile_query.py in the JAX
-package) are not ported: they raise (ROADMAP item 23).
+without a host call. Profile queries (seqdb.HMM_PROFILE, through
+ops/profile_query.py) always take the host path, as in the JAX package.
 """
 import ctypes
 
@@ -25,6 +23,7 @@ from ..data import seqdb
 from ..utils.device import pick_device
 from .evalue import EvalueComputer
 from .nucl_align import _can_be_covered, _has_cov
+from .profile_query import ProfileQuery
 from .rescore import format_seq_id
 
 BYTE_LANES = 16
@@ -79,7 +78,50 @@ class ProteinAligner:
         self.bias_corr = aa_bias_correction
         self.nat = native.lib()
 
+    def init_query_profile(self, aln_profile, qnum):
+        """ssw_init with a query profile (StripedSmithWaterman.cpp:698-760):
+        per-position PSSM (aa-major, L-stride), X row zeroed, no
+        composition bias."""
+        self.is_profile = True
+        self.qnum = np.asarray(qnum, dtype=np.uint8)
+        L = aln_profile.shape[1]
+        self.L = L
+        # mat rows: 20 PSSM rows + zeroed X row (ssw_init memset,
+        # StripedSmithWaterman.cpp:711-714)
+        mat = np.zeros((self.alpha, L), dtype=np.int8)
+        mat[:20] = aln_profile
+        self.profile_mat = mat
+        self.comp = np.zeros(L, dtype=np.int8)
+        self.bias = abs(min(int(aln_profile.min(initial=0)), 0))
+        # profile_word_linear[i][j] = mat[i*L + j]
+        # (StripedSmithWaterman.cpp:748-752)
+        self._set_columns(mat.astype(np.int32))
+
+    def _set_columns(self, linear):
+        """The query's score columns linear[a][i] (int32 [alphabet, L]),
+        kept for scoreIdentical and the reverse pass, and striped into the
+        byte and word profiles."""
+        self.linear = linear
+        self.profile_byte = self._striped(linear, self.bias, BYTE_LANES,
+                                          np.uint8)
+        self.profile_word = self._striped(linear, 0, WORD_LANES, np.int16)
+
+    def _striped(self, cols, bias, lanes, dtype):
+        """createQueryProfile: score columns cols[a][i] in the striped
+        layout, slot (j, l) holding query position j + l * seg."""
+        L = cols.shape[1]
+        seg = (L + lanes - 1) // lanes
+        prof = np.full((self.alpha, seg * lanes), bias, dtype=np.int32)
+        pos = np.arange(seg * lanes)
+        pp = pos // lanes + (pos % lanes) * seg
+        valid = pp < L
+        pv = pp[valid]
+        for nt in range(self.alpha):
+            prof[nt, valid] = cols[nt, pv] + bias
+        return np.ascontiguousarray(prof.astype(dtype))
+
     def init_query(self, qnum):
+        self.is_profile = False
         self.qnum = np.asarray(qnum, dtype=np.uint8)
         L = len(qnum)
         self.L = L
@@ -92,29 +134,8 @@ class ProteinAligner:
             comp_min = 0
         self.comp = comp
         self.bias = abs(int(self.sub8.min())) + abs(comp_min)
-        self.profile_byte = self._profile(self.qnum, comp, self.bias,
-                                          BYTE_LANES, np.uint8)
-        self.profile_word = self._profile(self.qnum, comp, 0, WORD_LANES,
-                                          np.int16)
-        # per-position linear profile for scoreIdentical
-        self.linear = (self.sub8.astype(np.int32)[:, self.qnum]
-                       + comp.astype(np.int32)[None, :])
-
-    def _profile(self, qnum, comp, bias, lanes, dtype):
-        L = len(qnum)
-        seg = (L + lanes - 1) // lanes
-        prof = np.full((self.alpha, seg * lanes), bias, dtype=np.int32)
-        # striped slot (j, l) <-> query position j + l*seg
-        pos = np.arange(seg * lanes)
-        j = pos // lanes
-        l = pos % lanes
-        p = j + l * seg
-        valid = p < L
-        pv = p[valid]
-        for nt in range(self.alpha):
-            prof[nt, valid] = (self.sub8[nt, qnum[pv]].astype(np.int32)
-                               + comp[pv].astype(np.int32) + bias)
-        return np.ascontiguousarray(prof.astype(dtype))
+        self._set_columns(self.sub8.astype(np.int32)[:, self.qnum]
+                          + comp.astype(np.int32)[None, :])
 
     def _run_byte(self, dbnum, ref_dir, db_len, q_len, gapo, gape, profile,
                   terminate, bias, mask_len):
@@ -145,18 +166,8 @@ class ProteinAligner:
     def _rev_profile(self, q_len_rev, bias, lanes, dtype):
         """Reverse profile over q[qEnd - p] for p in [0, qEnd]
         (createQueryProfile on query_rev_sequence with offset)."""
-        qr = self.qnum[q_len_rev - 1::-1]  # q[qEnd], ..., q[0]
-        cr = self.comp[q_len_rev - 1::-1]
-        seg = (q_len_rev + lanes - 1) // lanes
-        prof = np.full((self.alpha, seg * lanes), bias, dtype=np.int32)
-        pos = np.arange(seg * lanes)
-        p = pos // lanes + (pos % lanes) * seg
-        valid = p < q_len_rev
-        pv = p[valid]
-        for nt in range(self.alpha):
-            prof[nt, valid] = (self.sub8[nt, qr[pv]].astype(np.int32)
-                               + cr[pv].astype(np.int32) + bias)
-        return np.ascontiguousarray(prof.astype(dtype))
+        return self._striped(self.linear[:, q_len_rev - 1::-1], bias, lanes,
+                             dtype)
 
     def ssw_align(self, dbnum, gap_open, gap_extend, alignment_mode,
                   eval_thr, evaluer, cov_mode, cov_thr, mask_len):
@@ -218,7 +229,8 @@ class ProteinAligner:
         tseq = np.ascontiguousarray(dbnum[r["dbStart"]:r["dbEnd"] + 1])
         qseq = np.ascontiguousarray(self.qnum[r["qStart"]:r["qEnd"] + 1])
         comp = np.ascontiguousarray(self.comp[r["qStart"]:r["qEnd"] + 1])
-        mat = np.ascontiguousarray(self.sub8)
+        mat = np.ascontiguousarray(self.profile_mat) if self.is_profile \
+            else np.ascontiguousarray(self.sub8)
         cap = (q_len + t_len + 2)
         out = np.zeros(cap, dtype=np.uint8)
         n = self.nat.banded_backtrace(
@@ -228,7 +240,9 @@ class ProteinAligner:
             mat.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), self.alpha,
             gap_open, gap_extend, band, r["score1"],
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap,
-            0, 0, 0)
+            1 if self.is_profile else 0,
+            r["qStart"] if self.is_profile else 0,
+            self.L if self.is_profile else 0)
         if n < 0:
             return None
         return out[:n].tobytes().decode()
@@ -312,11 +326,11 @@ def align_protein(db, hits, seq_id_thr=0.0, cov_thr=0.0, cov_mode=0,
     non-identity candidate pairs ("candidate_pairs"), the pairs scored on
     `device` first ("device_pairs") and those rejected by that score
     without a host ssw call ("device_rejected").
+
+    A profile query DB (seqdb.HMM_PROFILE) aligns each query's
+    position-specific matrix on the host and is never scored on `device`
+    first, as in the JAX package.
     """
-    if db.dbtype == seqdb.HMM_PROFILE:
-        raise NotImplementedError(
-            "profile queries (ops/profile_query.py) are not ported; see "
-            "ROADMAP item 23")
     device = pick_device(device)
     mat = constants.blosum62()
     same_db = tdb is None
@@ -348,7 +362,8 @@ def align_protein(db, hits, seq_id_thr=0.0, cov_thr=0.0, cov_mode=0,
     sw_mode = init_sw_mode(alignment_mode, cov_thr, seq_id_thr)
     aligner = ProteinAligner(mat, comp_bias_corr)
     out = {}
-    pre_scores = _maybe_device_prefilter(
+    is_profile_query = db.dbtype == seqdb.HMM_PROFILE
+    pre_scores = None if is_profile_query else _maybe_device_prefilter(
         db, tdb, hits, mat, comp_bias_corr, gap_open, gap_extend,
         include_identity, same_db, device_prefilter, device)
     device_rejected = 0
@@ -358,8 +373,14 @@ def align_protein(db, hits, seq_id_thr=0.0, cov_thr=0.0, cov_mode=0,
             out[qkey] = []
             continue
         qid = db.key_to_id(qkey)
-        qnum = mat.aa2num[np.asarray(db.get_seq(qid))]
-        aligner.init_query(qnum)
+        if is_profile_query:
+            pq = ProfileQuery(db.get_data(qid).tobytes(),
+                              comp_bias=comp_bias_corr)
+            qnum = pq.qnum
+            aligner.init_query_profile(pq.aln_profile, pq.qnum)
+        else:
+            qnum = mat.aa2num[np.asarray(db.get_seq(qid))]
+            aligner.init_query(qnum)
         L = len(qnum)
         mask_len = L // 2
         results = []
@@ -406,7 +427,10 @@ def align_protein(db, hits, seq_id_thr=0.0, cov_thr=0.0, cov_mode=0,
         if realigner is not None:
             # recompute boundaries with the biased matrix, keep score/eval
             # (Alignment.cpp:415-449)
-            realigner.init_query(qnum)
+            if is_profile_query:
+                realigner.init_query_profile(pq.aln_profile, pq.qnum)
+            else:
+                realigner.init_query(qnum)
             re_results = []
             for r in results:
                 if len(re_results) >= realign_max_seqs:
@@ -729,3 +753,63 @@ def compress_cigar(backtrace):
             counter += 1
     out.append(f"{counter}{state}")
     return "".join(out)
+
+
+def update_result_by_rescoring_backtrace(query_seq, target_seq, ascii_mat,
+                                         evaluer, gap_open, gap_extend, res):
+    """Matcher::updateResultByRescoringBacktrace (Matcher.cpp:372-440):
+    Smith-Waterman-style max-subsegment rescoring of an existing backtrace;
+    query_seq/target_seq are ASCII bytes, ascii_mat a char-indexed LUT."""
+    bt = res["backtrace"]
+    max_score = 0
+    max_bt_end = max_bt_start = 0
+    max_q_end = max_q_start = 0
+    max_t_start = max_t_end = 0
+    min_pos = -1
+    min_q = res["qStartPos"] - 1
+    min_t = res["dbStartPos"] - 1
+    score = 0
+    identical = 0
+    max_id = 0
+    qpos = res["qStartPos"]
+    tpos = res["dbStartPos"]
+    gap_is_open = False
+    for pos, letter in enumerate(bt):
+        if letter == "M":
+            curr = int(ascii_mat[query_seq[qpos], target_seq[tpos]])
+            identical += query_seq[qpos] == target_seq[tpos]
+            gap_is_open = False
+        else:
+            curr = -gap_extend if gap_is_open else -gap_open
+            gap_is_open = True
+        score += curr
+        if score <= 0:
+            score = 0
+            identical = 0
+            min_pos = pos
+            min_q = qpos - 1 if letter == "D" else qpos
+            min_t = tpos - 1 if letter == "I" else tpos
+        if score > max_score:
+            max_bt_end = pos
+            max_q_end = qpos
+            max_t_end = tpos
+            max_bt_start = min_pos + 1
+            max_q_start = min_q + 1
+            max_t_start = min_t + 1
+            max_score = score
+            max_id = identical
+        if letter in ("M", "I"):
+            qpos += 1
+        if letter in ("M", "D"):
+            tpos += 1
+    res["qStartPos"] = max_q_start
+    res["qEndPos"] = max_q_end
+    res["dbStartPos"] = max_t_start
+    res["dbEndPos"] = max_t_end
+    res["score"] = int(evaluer.bit_score(max_score))
+    res["eval"] = float(evaluer.evalue(max_score, res["qLen"]))
+    aln_len = (max_bt_end - max_bt_start) + 1
+    res["alnLength"] = aln_len
+    res["seqId"] = np.float32(max_id) / np.float32(aln_len)
+    res["backtrace"] = bt[max_bt_start:max_bt_start + aln_len]
+    return res

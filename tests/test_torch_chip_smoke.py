@@ -56,6 +56,14 @@ def test_cpu_rehearsal_runs_every_phase():
                 "th) with `plass createsubdb`", "byte-identical to the "
                 "align stage with --device cpu", "[search-aa] seconds per "
                 "stage: prefilter", "[search-aa] ", "scored by B9",
+                "[profile-aa] run 1: `plass search --num-iterations 2`",
+                "step 0's align stage byte-identical with --device cpu",
+                "[profile-aa] run 1 seconds per stage and step: prefilter_0",
+                "subtractdbs_1", "mergedbs_1", "result2profile_0",
+                "step 1: ", "B9 launches by step [0, 0]",
+                "[profile-aa] run 2: `plass result2profile` of run 1",
+                "[profile-aa] run 2 seconds per stage: prefilter",
+                "swapresults",
                 "[cluster-aa] `plass cluster --min-seq-id 0.9 -c 0.9`:",
                 "[cluster-aa] seconds per stage and step: linclust",
                 "prefilter_0", "align_0", "clust_0", "[easy-aa] dev: "
@@ -207,3 +215,30 @@ def test_kernels_line_with_the_search_paths():
                             "cells": 1000, "gcups": 150.0, "pairs": 15000,
                             "rejected": 12000}
     assert b9["contigs"]["pairs"] == 10
+
+
+def test_kernels_line_counts_the_profile_path():
+    """B9's launches on profile-aa's iterative search (its first step)
+    are a path of their own in the kernels line."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    m = {"max_abs_err": 0, "ms": 0.05, "plain_ms": 3.0, "bound_ms": 0.01,
+         "bound_by": "bytes", "bytes": 1000}
+    sw = dict(m, bound_by="operations", operations=6000, cells=1000,
+              gcups=20.0, pairs=10)
+    launches = {"search": {"sw_score": 1}, "profile": {"sw_score": 1},
+                "cluster": {"sw_score": 2}}
+    kernels = chip_smoke.kernels_summary(
+        dict(m, copy_ms=0.06, elements=100), m,
+        {n: m for n in ("rescore_e2e_rev", "rescore_e2e_rev_uniform")},
+        launches, sw)
+    b9 = next(k for k in kernels if k["name"] == "sw_score")
+    assert b9["launches_by_path"] == {"search": 1, "profile": 1,
+                                      "cluster": 2}
+    assert b9["launches"] == 4
+    assert chip_smoke.PROFILE_ITERATIONS == 2
+    assert set(chip_smoke.PROFILE_SHA256) == {"iterative",
+                                              "target-profiles"}
+    assert all(len(v) == 64 for v in chip_smoke.PROFILE_SHA256.values())

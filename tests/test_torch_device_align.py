@@ -16,6 +16,7 @@ from plass_tpu_torch.ops.backend import flat_rows
 from plass_tpu_torch.ops.evalue import EvalueComputer
 
 from test_torch_kmer import _synthetic_db
+from test_torch_tools import ref_run
 
 CPU = torch.device("cpu")
 LETTERS = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX", dtype=np.uint8)
@@ -342,12 +343,32 @@ def test_align_protein_realign_and_backtrace_equal_jax():
         assert got == want, kw
 
 
-def test_profile_queries_and_cuda_without_a_card_raise():
-    db = _port(_synthetic_db(n=20))
-    prof = PortSeqDB(db.data, db.keys, db.offsets, db.lengths,
-                     seqdb.HMM_PROFILE)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-        protein_align.align_protein(prof, {}, device="cpu")
+def test_profile_queries_and_cuda_without_a_card_raise(tmp_path):
+    """A profile query DB (the JAX package's result2profile of the
+    synthetic DB's alignments) aligns as in the JAX package, with the
+    device pre-score forced on and skipped by the DB's type; --device cuda
+    without a card raises."""
+    db = _synthetic_db(n=120)
+    hits = _aligned_hits(db, seed=5)
+    seq, aln, prof = (str(tmp_path / n) for n in ("seq", "aln", "prof"))
+    db.save(seq)
+    ref_align.protein_align_results_to_db(
+        ref_align.align_protein(db, hits, add_backtrace=True,
+                                device_prefilter=False),
+        add_backtrace=True).save(aln)
+    assert ref_run(["result2profile", seq, seq, aln, prof]) == 0
+    ref_prof = seqdb.SeqDB.open(prof)
+    assert ref_prof.dbtype == seqdb.HMM_PROFILE and ref_prof.size == db.size
+    for kw in ({}, dict(add_backtrace=True, realign=True)):
+        want = ref_align.align_protein(ref_prof, hits, tdb=db,
+                                       device_prefilter=False, **kw)
+        counts = {}
+        got = protein_align.align_protein(_port(ref_prof), hits, tdb=_port(db),
+                                          device_prefilter=True,
+                                          device="cpu", counts=counts, **kw)
+        assert got == want, kw
+        assert counts["device_pairs"] == 0
+        assert sum(len(v) for v in got.values()) > len(got)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            protein_align.align_protein(db, {}, device="cuda")
+            protein_align.align_protein(_port(db), {}, device="cuda")

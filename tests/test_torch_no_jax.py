@@ -31,10 +31,10 @@ def test_port_imports_no_jax():
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert int(lines[0].split()[0]) >= 53, lines
+    assert int(lines[0].split()[0]) >= 59, lines
     assert lines[1] == "BAD []", lines
-    # the guided slice's modules, the aligner's and the search slice's
-    # are among those imported
+    # the guided slice's modules, the aligner's, the search slice's and
+    # the profile slice's are among those imported
     for name in ("workflow.guided", "workflow.linclust", "ops.kmermatch",
                  "ops.ksw2", "ops.nucl_align", "ops.proteinaln2nucl",
                  "assembler.guided_extend", "assembler.cluster",
@@ -42,5 +42,7 @@ def test_port_imports_no_jax():
                  "cli.app", "cli.params", "ops.protein_align",
                  "ops.device_align", "ops.prefilter", "ops.tantan",
                  "data.headers", "data.dbtools", "utils.expr",
-                 "workflow.search", "workflow.cluster", "cli.tools"):
+                 "workflow.search", "workflow.cluster", "cli.tools",
+                 "cli.tools_profile", "ops.profile_query", "ops.profiledb",
+                 "ops.msa", "ops.profilestates", "data.ca3m"):
         assert f"'plass_tpu_torch.{name}'" in lines[2], name

@@ -189,9 +189,16 @@ def test_index_saved_by_the_port_loads_back(fams, tmp_path):
 
 
 def test_profile_databases_raise_with_a_pointer_to_the_roadmap(fams):
-    _, port_db = fams
-    prof = port_seqdb.SeqDB(port_db.data, port_db.keys, port_db.offsets,
-                            port_db.lengths, port_seqdb.HMM_PROFILE)
-    for q, t in ((prof, port_db), (port_db, prof)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-            port_pf.prefilter(q, t, port_pf.PrefilterParams())
+    """A profile query DB against a profile target DB raises the JAX
+    package's ValueError (profile queries and profile targets each search,
+    tests/test_torch_profile_ops.py)."""
+    errors = []
+    for db, mod, pf in ((fams[0], ref_seqdb, ref_pf),
+                        (fams[1], port_seqdb, port_pf)):
+        prof = mod.SeqDB(db.data, db.keys, db.offsets, db.lengths,
+                         mod.HMM_PROFILE)
+        with pytest.raises(ValueError) as err:
+            pf.prefilter(prof, prof, pf.PrefilterParams())
+        errors.append(str(err.value))
+    assert errors[1] == errors[0]
+    assert "target-profile" in errors[1]

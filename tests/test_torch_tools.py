@@ -86,7 +86,7 @@ def test_command_parses_as_the_jax_package(binary, name):
 
 def test_the_commands_left_out_are_unregistered(capsys):
     ported = {c.name for c in port_plass.commands()}
-    for name in ("rbh", "map", "taxonomy", "result2profile", "linsearch",
+    for name in ("rbh", "map", "taxonomy", "enrich", "linsearch",
                  "ungappedprefilter", "createindex"):
         assert name not in ported
         assert port_plass.run([name, "a", "b"]) == 1
@@ -230,17 +230,19 @@ def test_mvdb_lndb_rmdb_as_the_jax_package(inputs, tmp_path):
 
 
 def test_profile_and_iterative_search_raise_with_a_pointer(inputs, tmp_path):
+    """The paths that raised before the profile subsystem was ported: a
+    profile query DB (result2profile of the search's alignments) through
+    `prefilter` writes what the JAX package writes, and a profile query DB
+    against a profile target DB fails on both CLIs. The searches against
+    profiles and the iterative search: tests/test_torch_profile_search.py."""
     prof = str(tmp_path / "prof")
-    for ext in ("", ".index"):
-        shutil.copyfile(inputs["seq"] + ext, prof + ext)
-    port_seqdb.write_dbtype(prof, port_seqdb.HMM_PROFILE)
-    for argv in (["search", inputs["sub"], prof, str(tmp_path / "a"),
-                  str(tmp_path / "t")],
-                 ["search", inputs["sub"], inputs["seq"], str(tmp_path / "b"),
-                  str(tmp_path / "t"), "--num-iterations", "2"],
-                 ["prefilter", prof, inputs["seq"], str(tmp_path / "c")]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-            port_run(argv)
+    assert ref_run(["result2profile", inputs["sub"], inputs["seq"],
+                    inputs["aln"], prof]) == 0
+    ref, port = _both(tmp_path / "pref", lambda d: [
+        "prefilter", prof, inputs["seq"], os.path.join(d, "out")])
+    assert port == ref and ref["out"]
+    for tag, run in (("ref", ref_run), ("port", port_run)):
+        assert run(["prefilter", prof, prof, str(tmp_path / tag)]) == 1
 
 
 def test_search_and_cluster_report_stages_and_pairs(inputs, tmp_path):
