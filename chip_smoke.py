@@ -93,8 +93,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      --device cpu: the cluster DBs byte for byte equal; seconds per stage
      and step, B9's launches and pairs, the cluster count;
  18. easy-aa: `plass easy-search` and `plass easy-cluster` on 100 family
-     records, on the card and with --device cpu: the BLAST-tab file and
-     the cluster TSV and FASTA files byte for byte equal;
+     records, `plass easy-rbh` and `plass easy-linsearch` of records f1,
+     f3, ... against f0, f2, ... to f99 (by name), on the card and with
+     --device cpu: the BLAST-tab files and the cluster TSV and FASTA files
+     byte for byte equal;
  19. sw-main: B9 on the candidate pairs of phase 14's align stage (for
      each input the run with the most) and of phase 15's, on edge rows
      (query length 1, target lengths 0, 1 and 33, queries at the edges of
@@ -116,12 +118,33 @@ Phases, each printing its own lines; any failure exits non-zero:
      seeded 150-nt reads whose table the monolithic matcher would need more
      than the card's free memory for, with the automatic budget and at half
      of it: equal hits, peak memory under the card's (the matcher only).
+Phases 22-24 run one after the other in a process of their own beside
+phases 17-20, started with phase 16's (they count their own launches and
+print them for the kernels line):
+ 22. linsearch-aa: `plass createlinindex` and `plass linsearch` through
+     the CLI on the card, the odd-numbered keys of phase 14's family
+     proteins against the even-numbered (both made with `plass
+     createsubdb`); linsearch's align stage again with --device cpu on the
+     same filtered prefilter DB, byte for byte equal; seconds per stage,
+     candidate pairs, the pairs that pass the ungapped filter, the pairs
+     B9 scored and rejected, its launches, peak device memory;
+ 23. rbh-aa: `plass rbh A B` through the CLI on the card and with
+     --device cpu, family records f0-f1199 (about 300 whole families), even
+     numbers in A and odd in B: the result DBs byte for byte equal; each
+     search's seconds, candidate pairs (at least 512, so that B9
+     launches), B9's launches and rejections;
+ 24. multihit-nt: `plass multihitdb` of phase 10's 104 coding genomes in 8
+     target sets and of every 13th with 1% substitutions in 2 query sets,
+     then `plass multihitsearch` through the CLI on the card and with
+     --device cpu: the output DBs byte for byte equal; seconds, ORFs per
+     set DB, candidate pairs (at least 512), B9's launches.
 The kernels' launch counters are set to 0 just before phases 4, 7, 10, 13,
-14, 15, 16, 17, 18 and 20's CLI runs and read just after; every kernel of each
-path must have run there. The last lines are the script's seconds, a JSON summary of
-the kernels (times, launches by path, bytes or operations counted and the
-bound they give at 3.35 TB/s or the card's integer rate), the card's name
-and power limit, and {"ok": true, "device": {...}}.
+14, 15, 16, 17, 18, 20, 22, 23 and 24's CLI runs and read just after; every
+kernel of each path must have run there. The last lines are the script's
+seconds, a JSON summary of the kernels (times, launches by path, bytes or
+operations counted and the bound they give at 3.35 TB/s or the card's
+integer rate), the card's name and power limit, and {"ok": true,
+"device": {...}}.
 
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
@@ -1135,17 +1158,10 @@ def phase_guided_fixture(device, work, extra=()):
     say(f"[guided-fixture] seconds per stage: {guided_seconds_text(stats)}")
 
 
-def make_coding_metagenome(path, n_genomes, genome_len, reads_per_genome,
-                           read_len=150, sub_rate=0.002, seed=19):
-    """Single-end FASTA of a seeded simulated metagenome of coding genomes:
-    each genome is a row of genes (ATG, 100-700 seeded sense codons, a stop
-    codon) on either strand, 20-150 nt of random sequence between them;
-    reads with uniform starts, half of them reverse complemented, with
-    seeded substitutions. The replicated fixture reads cannot serve here:
-    their copies differ by 3% from each other, so at the nucleotide
-    identity of 0.99 nothing grows beyond the fixture's own 386 nt and the
-    default --min-contig-len 1000 leaves no contig."""
-    rng = np.random.default_rng(seed)
+def coding_genomes(rng, n_genomes, genome_len):
+    """uint8[n_genomes, genome_len] of seeded coding genomes: each a row
+    of genes (ATG, 100-700 seeded sense codons, a stop codon) on either
+    strand, 20-150 nt of random sequence between them."""
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
     comp = np.zeros(256, dtype=np.uint8)
     comp[acgt] = np.frombuffer(b"TGCA", dtype=np.uint8)
@@ -1167,6 +1183,22 @@ def make_coding_metagenome(path, n_genomes, genome_len, reads_per_genome,
             parts += [gene, acgt[rng.integers(0, 4, int(rng.integers(20, 150)))]]
             total += len(gene) + len(parts[-1])
         genomes[g] = np.concatenate(parts)[:genome_len]
+    return genomes
+
+
+def make_coding_metagenome(path, n_genomes, genome_len, reads_per_genome,
+                           read_len=150, sub_rate=0.002, seed=19):
+    """Single-end FASTA of a seeded simulated metagenome of coding genomes
+    (coding_genomes): reads with uniform starts, half of them reverse
+    complemented, with seeded substitutions. The replicated fixture reads
+    cannot serve here: their copies differ by 3% from each other, so at
+    the nucleotide identity of 0.99 nothing grows beyond the fixture's own
+    386 nt and the default --min-contig-len 1000 leaves no contig."""
+    rng = np.random.default_rng(seed)
+    genomes = coding_genomes(rng, n_genomes, genome_len)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", dtype=np.uint8)
     n = n_genomes * reads_per_genome
     g = rng.integers(0, n_genomes, n)
     start = rng.integers(0, genome_len - read_len + 1, n)
@@ -1823,16 +1855,22 @@ def pairs_text(stats):
             f"{c.get('device_rejected', 0)} of them rejected by it")
 
 
-def subset_db(tpath, every, out, device):
-    """Every `every`-th record of the DB at tpath, by key, as a DB at out
+def keyed_subdb(tpath, keys, out, device):
+    """The records of the DB at tpath with these keys, as a DB at out
     (`plass createsubdb`)."""
     from plass_tpu_torch.data import seqdb
-    keys = np.sort(seqdb.SeqDB.open(tpath).keys)[::every]
     subset = out + ".keys.txt"
     with open(subset, "w") as fh:
         fh.writelines(f"{k}\n" for k in keys)
     plass_cli(["createsubdb", subset, tpath, out], device)
     return seqdb.SeqDB.open(out)
+
+
+def subset_db(tpath, every, out, device):
+    """Every `every`-th record of the DB at tpath, by key, as a DB at out."""
+    from plass_tpu_torch.data import seqdb
+    keys = np.sort(seqdb.SeqDB.open(tpath).keys)[::every]
+    return keyed_subdb(tpath, keys, out, device)
 
 
 def search_dbs(work, fasta, device):
@@ -1950,11 +1988,6 @@ PROFILE_SHA256 = {
         "dda3350f9a8f75e868cfed15e9a99c94e4ac9efcaf0d9ec842f9f5a161c306df",
     "target-profiles":
         "72ac0008704d6057ab7a88e7db2fe07859eb81de920ee2745e0dba78d2f5458f"}
-# profile-aa runs in a process of its own beside phases 17-20 (its stages
-# are host code but for B9 on step 0); it prints its launches on a line
-# that starts with PROFILE_RESULT
-PROFILE_RESULT = "[profile-aa] launches "
-PROFILE_TIMEOUT = 1000
 
 
 @contextlib.contextmanager
@@ -1981,17 +2014,32 @@ def recorded_align_launches():
         protein_align.align_protein = real
 
 
-def start_profile_aa(work, famdb, qdb, rehearsal):
-    """Phase profile-aa in a process of its own (`chip_smoke.py
-    --profile-phase`), its output to a file in work. Returns (the
-    process, the file's path)."""
-    log = os.path.join(work, "profile_aa.log")
+# profile-aa ("profile-aa"), and linsearch-aa, rbh-aa and multihit-nt
+# ("slice"), run in processes of their own beside phases 17-20 (their
+# stages are host code but for B9's launches); each process prints its
+# phases' lines, which start with its SIDE_TAGS, and its launches on a line
+# that starts with side_result(name)
+SIDE_TAGS = {"profile-aa": ("[profile-aa]",),
+             "slice": ("[linsearch-aa]", "[rbh-aa]", "[multihit-nt]")}
+PROFILE_TIMEOUT = 1000
+SLICE_TIMEOUT = 900
+
+
+def side_result(name):
+    return f"[{name}] launches "
+
+
+def start_side(name, work, famdb, arg, rehearsal):
+    """`chip_smoke.py --side-phase name work famdb arg` in a process of
+    its own, its output to a file in work. Returns (name, the process, the
+    file's path)."""
+    log = os.path.join(work, name + ".log")
     with open(log, "w") as fh:
         proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--profile-phase",
-             work, famdb, qdb, *(["--cpu-rehearsal"] if rehearsal else [])],
+            [sys.executable, os.path.abspath(__file__), "--side-phase", name,
+             work, famdb, arg, *(["--cpu-rehearsal"] if rehearsal else [])],
             stdout=fh, stderr=subprocess.STDOUT, cwd=ROOT)
-    return proc, log
+    return name, proc, log
 
 
 def stop(proc):
@@ -2000,23 +2048,23 @@ def stop(proc):
         proc.wait()
 
 
-def finish_profile_aa(proc, log):
-    """Wait for start_profile_aa's process; print its [profile-aa] lines
-    and return the launches it counted. Fails unless it exits 0."""
+def finish_side(name, proc, log, timeout):
+    """Wait for start_side's process; print its phases' lines and return
+    the launches it printed. Fails unless it exits 0."""
     try:
-        rc = proc.wait(timeout=PROFILE_TIMEOUT)
+        rc = proc.wait(timeout=timeout)
     finally:
         stop(proc)
     lines = open(log).read().splitlines()
     launches = None
     for line in lines:
-        if line.startswith(PROFILE_RESULT):
-            launches = json.loads(line[len(PROFILE_RESULT):])
-        elif line.startswith("[profile-aa]"):
+        if line.startswith(side_result(name)):
+            launches = json.loads(line[len(side_result(name)):])
+        elif line.startswith(SIDE_TAGS[name]):
             say(line)
     if rc != 0 or launches is None:
         print("\n".join(lines[-40:]), file=sys.stderr)
-        raise AssertionError(f"profile-aa: its process exited with {rc}")
+        raise AssertionError(f"{name}: its process exited with {rc}")
     return launches
 
 
@@ -2127,16 +2175,30 @@ def phase_profile_aa(device, work, famdb, qdb, check_sha=False):
 
 def phase_easy_aa(device, work, fasta):
     """`plass easy-search` (the records against themselves) and `plass
-    easy-cluster` on the first EASY_RECORDS records of family_fasta's FASTA,
-    on the device and with --device cpu: the BLAST-tab file and the
-    cluster TSV and FASTA files byte for byte equal. Returns the device
-    runs' launches, summed."""
+    easy-cluster` on the first EASY_RECORDS records of family_fasta's
+    FASTA; `plass easy-rbh` and `plass easy-linsearch` of its records f1,
+    f3, ... against f0, f2, ... up to f{EASY_RECORDS - 1}, by name (whole
+    families, whose members are numbered one after the other, so each
+    side has relatives on the other; a linsearch of records against
+    themselves writes nothing: each query passes the ungapped filter on
+    itself, which then drops all its pairs). Each on the device and with
+    --device cpu: the BLAST-tab files and the cluster TSV and FASTA files
+    byte for byte equal. Returns the device runs' launches, summed."""
     d = os.path.join(work, "easy_aa")
     os.makedirs(d)
     src = os.path.join(d, "input.fasta")
-    with open(fasta) as fh, open(src, "w") as out:
-        out.writelines(fh.readlines()[:2 * EASY_RECORDS])
-    names = ("m8", "_cluster.tsv", "_rep_seq.fasta", "_all_seqs.fasta")
+    halves = [os.path.join(d, f"input{i}.fasta") for i in (0, 1)]
+    with open(fasta) as fh:
+        lines = fh.readlines()
+    with open(src, "w") as out:
+        out.writelines(lines[:2 * EASY_RECORDS])
+    for i, half in enumerate(halves):
+        with open(half, "w") as out:
+            out.writelines(h + s for h, s in zip(lines[::2], lines[1::2])
+                           if int(h[2:]) < EASY_RECORDS
+                           and int(h[2:]) % 2 == i)
+    names = ("m8", "_cluster.tsv", "_rep_seq.fasta", "_all_seqs.fasta",
+             "rbh.m8", "linsearch.m8")
     total, outputs = {}, {}
     for tag, dev in (("dev", device), ("cpu", "cpu")):
         stats = {}
@@ -2148,13 +2210,29 @@ def phase_easy_aa(device, work, fasta):
         plass_cli(["easy-cluster", src, prefix, os.path.join(d, tag + "_ct")],
                   dev, stats)
         wall = time.perf_counter() - t0
+        rbh_stats = {}
+        t0 = time.perf_counter()
+        plass_cli(["easy-rbh", halves[1], halves[0], prefix + "rbh.m8",
+                   os.path.join(d, tag + "_rt")], dev, rbh_stats)
+        plass_cli(["easy-linsearch", halves[1], halves[0],
+                   prefix + "linsearch.m8", os.path.join(d, tag + "_lt")],
+                  dev, rbh_stats)
+        rbh_wall = time.perf_counter() - t0
         if tag == "dev":
             total = _launches()
         outputs[tag] = [open(p, "rb").read() for p in (
             m8, prefix + "_cluster.tsv", prefix + "_rep_seq.fasta",
-            prefix + "_all_seqs.fasta")]
+            prefix + "_all_seqs.fasta", prefix + "rbh.m8",
+            prefix + "linsearch.m8")]
         say(f"[easy-aa] {tag}: easy-search and easy-cluster on "
             f"{EASY_RECORDS} records in {wall:.1f} s; {pairs_text(stats)}")
+        c = rbh_stats["pairs"]
+        say(f"[easy-aa] {tag}: easy-rbh and easy-linsearch of records "
+            f"f1, f3, ... against f0, f2, ... to f{EASY_RECORDS - 1} in "
+            f"{rbh_wall:.1f} s; easy-rbh's searches "
+            f"{c.get('candidate_pairs_AB', 0)} and "
+            f"{c.get('candidate_pairs_BA', 0)} candidate pairs, "
+            f"easy-linsearch's align {c.get('candidate_pairs', 0)}")
     for name, a, b in zip(names, outputs["dev"], outputs["cpu"]):
         if a != b:
             raise AssertionError(f"easy-aa: {name} differs from the run "
@@ -2165,6 +2243,240 @@ def phase_easy_aa(device, work, fasta):
     say(f"[easy-aa] {digests}: byte-identical to the runs with --device "
         f"cpu; B9 launches {total['sw_score']}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# linsearch, rbh and the multi-hit search ("slice", a process of its own)
+
+# rbh-aa: family_fasta's records f0 to f{RBH_RECORDS - 1}, by name (about
+# 300 whole families: their members are numbered one after the other),
+# even numbers to A and odd to B
+RBH_RECORDS = 1200
+# multihit-nt: phase 10's coding genomes as MULTIHIT_SETS target FASTA
+# files; every MULTIHIT_EVERY-th genome with MULTIHIT_SUB substitutions
+# as the query sets, MULTIHIT_QUERY_FILES files
+MULTIHIT_SETS = 8
+MULTIHIT_EVERY = 13
+MULTIHIT_SUB = 0.01
+MULTIHIT_QUERY_FILES = 2
+
+
+def db_lines(path):
+    """Result lines of a DB."""
+    return open(path, "rb").read().count(b"\n")
+
+
+def need_launches(device, name, launches, what):
+    if device.type == "cuda" and not launches:
+        raise AssertionError(f"{name}: B9 never launched on {what}")
+
+
+def phase_linsearch_aa(device, work, famdb):
+    """`plass createlinindex` and `plass linsearch` through the CLI, on the
+    device: the odd-numbered keys of the families' DB (phase 14's
+    proteins) against the even-numbered, both made with `plass
+    createsubdb`; then linsearch's align stage again with --device cpu on
+    the same filtered prefilter DB: the alignment DBs byte for byte equal.
+    Returns the device run's launches."""
+    from plass_tpu_torch.data import seqdb
+    d = os.path.join(work, "linsearch_aa")
+    os.makedirs(d)
+    keys = np.sort(seqdb.SeqDB.open(famdb).keys)
+    tpath, qpath = os.path.join(d, "tDB"), os.path.join(d, "qDB")
+    tdb = keyed_subdb(famdb, keys[::2], tpath, device)
+    qdb = keyed_subdb(famdb, keys[1::2], qpath, device)
+    tmp, aln = os.path.join(d, "tmp"), os.path.join(d, "aln")
+    stats = {}
+    _reset_launches()
+    _peak_reset(device)
+    t0 = time.perf_counter()
+    plass_cli(["createlinindex", tpath, os.path.join(d, "itmp")], device)
+    index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plass_cli(["linsearch", qpath, tpath, aln, tmp], device, stats)
+    wall = time.perf_counter() - t0
+    peak = _peak(device)
+    launches = _launches()
+    cpu_aln = os.path.join(d, "reverse_aln_cpu")
+    t0 = time.perf_counter()
+    # the align step of cli/tools_linsearch.py::_linsearch, on the CPU
+    plass_cli(["align", tpath + ".linidx", qpath,
+               os.path.join(tmp, "pref_filter"), cpu_aln, "-e", "100000",
+               "-a", "--min-seq-id", "0.0", "--min-aln-len", "0"], "cpu")
+    cpu_wall = time.perf_counter() - t0
+    data = db_bytes(os.path.join(tmp, "reverse_aln"))
+    if data != db_bytes(cpu_aln):
+        raise AssertionError("linsearch-aa: the align stage's alignment DB "
+                             "differs from the one with --device cpu")
+    c = stats["pairs"]
+    say(f"[linsearch-aa] {qdb.size} queries (odd keys) against {tdb.size} "
+        f"targets (even keys): index in {index_s:.1f} s, linsearch in "
+        f"{wall:.1f} s; alignment DB sha256 "
+        f"{hashlib.sha256(db_bytes(aln)).hexdigest()}; the align stage "
+        f"byte-identical with --device cpu ({cpu_wall:.1f} s)")
+    say(f"[linsearch-aa] seconds per stage: {seconds_text(stats['seconds'])}")
+    say(f"[linsearch-aa] {db_lines(os.path.join(tmp, 'pref'))} candidate "
+        f"pairs, {db_lines(os.path.join(tmp, 'reverse_ungapaln'))} pass the "
+        f"ungapped filter, {c.get('candidate_pairs', 0)} reach align "
+        f"({c.get('device_pairs', 0)} scored by B9, "
+        f"{c.get('device_rejected', 0)} of them rejected by it), "
+        f"{db_lines(aln)} alignments; B9 launches {launches['sw_score']}; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    need_launches(device, "linsearch-aa", launches["sw_score"],
+                  "linsearch's align stage")
+    return launches
+
+
+def phase_rbh_aa(device, work, fasta, rehearsal):
+    """`plass rbh A B` through the CLI on the device and with --device cpu:
+    family_fasta's records f0 to f{RBH_RECORDS - 1}, even numbers in A and
+    odd in B (each made with `plass createdb`). The result DBs byte for
+    byte equal; each search (A against B, B against A) needs at least
+    DEVICE_PREFILTER_PAIRS candidate pairs, so that B9 scores them on a
+    card. Returns the device run's launches."""
+    from plass_tpu_torch.ops.protein_align import DEVICE_PREFILTER_PAIRS
+    d = os.path.join(work, "rbh_aa")
+    os.makedirs(d)
+    lines = open(fasta).read().splitlines()
+    sides = {"A": [], "B": []}
+    for head, seq in zip(lines[::2], lines[1::2]):
+        i = int(head[2:])
+        if i < RBH_RECORDS:
+            sides["AB"[i % 2]].append(f"{head}\n{seq}\n")
+    for side, recs in sides.items():
+        with open(os.path.join(d, side + ".fasta"), "w") as fh:
+            fh.writelines(recs)
+        plass_cli(["createdb", os.path.join(d, side + ".fasta"),
+                   os.path.join(d, side)], device)
+    a, b = os.path.join(d, "A"), os.path.join(d, "B")
+    out, cpu_out = os.path.join(d, "res"), os.path.join(d, "res_cpu")
+    stats, cpu_stats = {}, {}
+    _reset_launches()
+    _peak_reset(device)
+    with recorded_align_launches() as calls:
+        t0 = time.perf_counter()
+        plass_cli(["rbh", a, b, out, os.path.join(d, "tmp")], device, stats)
+        wall = time.perf_counter() - t0
+    peak = _peak(device)
+    launches = _launches()
+    t0 = time.perf_counter()
+    plass_cli(["rbh", a, b, cpu_out, os.path.join(d, "tmp_cpu")], "cpu",
+              cpu_stats)
+    cpu_wall = time.perf_counter() - t0
+    data = db_bytes(out)
+    if data != db_bytes(cpu_out):
+        raise AssertionError("rbh-aa: the result DB differs from the run "
+                             "with --device cpu")
+    say(f"[rbh-aa] {len(sides['A'])} records in A, {len(sides['B'])} in B: "
+        f"{db_lines(out)} reciprocal best hits in {wall:.1f} s "
+        f"(--device cpu {cpu_wall:.1f} s); result DB sha256 "
+        f"{hashlib.sha256(data).hexdigest()}, byte-identical to the run "
+        f"with --device cpu")
+    say(f"[rbh-aa] seconds per stage: {seconds_text(stats['seconds'])}; "
+        f"with --device cpu: {seconds_text(cpu_stats['seconds'])}")
+    c = stats["pairs"]
+    say(f"[rbh-aa] " + "; ".join(
+        f"{tag}: {c.get('candidate_pairs_' + tag, 0)} candidate pairs, "
+        f"{c.get('device_pairs_' + tag, 0)} scored by B9, "
+        f"{c.get('device_rejected_' + tag, 0)} of them rejected by it"
+        for tag in ("AB", "BA")) + f"; B9 launches by search "
+        f"{[n for _, n in calls]}; peak device memory {peak / 2**30:.2f} GiB")
+    for tag in ("AB", "BA"):
+        if not rehearsal and c.get("candidate_pairs_" + tag, 0) \
+                < DEVICE_PREFILTER_PAIRS:
+            raise AssertionError(f"rbh-aa: the {tag} search has fewer than "
+                                 f"{DEVICE_PREFILTER_PAIRS} candidate pairs; "
+                                 f"take more families")
+    if device.type == "cuda" and not all(n for _, n in calls):
+        raise AssertionError(f"rbh-aa: B9 did not launch in each search: "
+                             f"{calls}")
+    return launches
+
+
+def phase_multihit_nt(device, work, rehearsal):
+    """`plass multihitdb` of phase 10's coding genomes, MULTIHIT_SETS
+    FASTA files of the same number of genomes (the target sets), and of
+    every MULTIHIT_EVERY-th genome with MULTIHIT_SUB seeded substitutions
+    in MULTIHIT_QUERY_FILES files (the query sets); `plass multihitsearch`
+    through the CLI on the device and with --device cpu: the output DBs
+    byte for byte equal. The search needs at least DEVICE_PREFILTER_PAIRS
+    candidate pairs, so that B9 scores them on a card. Returns the device
+    run's launches."""
+    from plass_tpu_torch.data import seqdb
+    from plass_tpu_torch.ops.protein_align import DEVICE_PREFILTER_PAIRS
+    d = os.path.join(work, "multihit_nt")
+    os.makedirs(d)
+    n_genomes, genome_len = (16, 2000) if rehearsal else GUIDED_GENOMES
+    rng = np.random.default_rng(19)
+    genomes = coding_genomes(rng, n_genomes, genome_len)
+    queries = genomes[::MULTIHIT_EVERY].copy()
+    mut = rng.random(queries.shape) < MULTIHIT_SUB
+    queries[mut] = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        rng.integers(0, 4, int(mut.sum()))]
+
+    def write(prefix, rows, n_files):
+        paths = []
+        for f, part in enumerate(np.array_split(np.arange(len(rows)),
+                                                n_files)):
+            paths.append(os.path.join(d, f"{prefix}{f}.fasta"))
+            with open(paths[-1], "wb") as fh:
+                fh.writelines(b">%s%d_%d\n%s\n" % (prefix.encode(), f, i,
+                                                     rows[i].tobytes())
+                              for i in part)
+        return paths
+    tset, qset = os.path.join(d, "tset"), os.path.join(d, "qset")
+    t0 = time.perf_counter()
+    plass_cli(["multihitdb", *write("t", genomes, MULTIHIT_SETS), tset,
+               os.path.join(d, "ttmp")], device)
+    plass_cli(["multihitdb", *write("q", queries, MULTIHIT_QUERY_FILES),
+               qset, os.path.join(d, "qtmp")], device)
+    db_s = time.perf_counter() - t0
+    out, cpu_out = os.path.join(d, "out"), os.path.join(d, "out_cpu")
+    stats, cpu_stats = {}, {}
+    _reset_launches()
+    _peak_reset(device)
+    t0 = time.perf_counter()
+    plass_cli(["multihitsearch", qset, tset, out, os.path.join(d, "tmp")],
+              device, stats)
+    wall = time.perf_counter() - t0
+    peak = _peak(device)
+    launches = _launches()
+    t0 = time.perf_counter()
+    plass_cli(["multihitsearch", qset, tset, cpu_out,
+               os.path.join(d, "tmp_cpu")], "cpu", cpu_stats)
+    cpu_wall = time.perf_counter() - t0
+    data = db_bytes(out)
+    if data != db_bytes(cpu_out):
+        raise AssertionError("multihit-nt: the output DB differs from the "
+                             "run with --device cpu")
+    n_t, n_q = seqdb.SeqDB.open(tset).size, seqdb.SeqDB.open(qset).size
+    say(f"[multihit-nt] {n_genomes} coding genomes of {genome_len} nt in "
+        f"{MULTIHIT_SETS} target sets ({n_t} ORFs), {len(queries)} of them "
+        f"with {MULTIHIT_SUB:.0%} substitutions in {MULTIHIT_QUERY_FILES} "
+        f"query sets ({n_q} ORFs), set DBs in {db_s:.1f} s; multihitsearch "
+        f"in {wall:.1f} s (--device cpu {cpu_wall:.1f} s); output sha256 "
+        f"{hashlib.sha256(data).hexdigest()}, byte-identical to the run "
+        f"with --device cpu")
+    say(f"[multihit-nt] seconds per stage: {seconds_text(stats['seconds'])}; "
+        f"with --device cpu: {seconds_text(cpu_stats['seconds'])}")
+    say(f"[multihit-nt] {pairs_text(stats)}; B9 launches "
+        f"{launches['sw_score']}; peak device memory {peak / 2**30:.2f} GiB")
+    if not rehearsal and stats["pairs"].get("candidate_pairs", 0) \
+            < DEVICE_PREFILTER_PAIRS:
+        raise AssertionError(f"multihit-nt: fewer than "
+                             f"{DEVICE_PREFILTER_PAIRS} candidate pairs; "
+                             f"enlarge the query sets")
+    need_launches(device, "multihit-nt", launches["sw_score"],
+                  "multihitsearch's search")
+    return launches
+
+
+def phase_slice(device, work, famdb, fasta, rehearsal):
+    """linsearch-aa, rbh-aa and multihit-nt, one after the other. Returns
+    {path: launches}."""
+    return {"linsearch": phase_linsearch_aa(device, work, famdb),
+            "rbh": phase_rbh_aa(device, work, fasta, rehearsal),
+            "multihit": phase_multihit_nt(device, work, rehearsal)}
 
 
 # B9's edge rows: a row per lane up to 32, the edges of the warp-path
@@ -2602,18 +2914,25 @@ def main():
                          "those named, of " + ", ".join(REFERENCE_RUNS) + ")"
                          " at full size on the CPU and print their sha256; "
                          "prints no result, exits 2")
-    ap.add_argument("--profile-phase", nargs=3,
-                    metavar=("WORK", "FAMDB", "QDB"), help=argparse.SUPPRESS)
+    ap.add_argument("--side-phase", nargs=4,
+                    metavar=("NAME", "WORK", "FAMDB", "ARG"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
-    if args.profile_phase:
-        # phase profile-aa alone, in the process start_profile_aa starts
+    if args.side_phase:
+        # the phases of a process start_side starts: profile-aa (ARG: the
+        # query DB) or the slice's (ARG: family_fasta's FASTA)
         from plass_tpu_torch.utils.device import pick_device
+        name, work, famdb, arg = args.side_phase
         device = pick_device("cpu" if args.cpu_rehearsal else "cuda")
-        launches = phase_profile_aa(device, *args.profile_phase,
-                                    check_sha=not args.cpu_rehearsal)
-        say(PROFILE_RESULT + json.dumps(launches))
+        if name == "profile-aa":
+            launches = phase_profile_aa(device, work, famdb, arg,
+                                        check_sha=not args.cpu_rehearsal)
+        else:
+            launches = phase_slice(device, work, famdb, arg,
+                                   args.cpu_rehearsal)
+        say(side_result(name) + json.dumps(launches))
         return 0
     if args.cpu_reference:
         runs = args.cpu_reference.split(",")
@@ -2680,7 +2999,9 @@ def main():
                                                          assembly, rehearsal)
         salaunches, lcalls["search"], famdb, search_qdb = phase_search_aa(
             device, work, fam_fasta)
-        profile = start_profile_aa(work, famdb, search_qdb, rehearsal)
+        profile = start_side("profile-aa", work, famdb, search_qdb,
+                             rehearsal)
+        side = start_side("slice", work, famdb, fam_fasta, rehearsal)
         try:
             calaunches = phase_cluster_aa(device, work, famdb)
             ealaunches = phase_easy_aa(device, work, fam_fasta)
@@ -2688,9 +3009,11 @@ def main():
             del lcalls
             hlaunches, hamming = phase_hamming(device, work, db_path,
                                                ndb_paths[0], reps)
-            plaunches = finish_profile_aa(*profile)
+            slice_launches = finish_side(*side, SLICE_TIMEOUT)
+            plaunches = finish_side(*profile, PROFILE_TIMEOUT)
         finally:
-            stop(profile[0])
+            stop(profile[1])
+            stop(side[1])
     phase_nucl_large(device, rehearsal)
     k1_err = max(k1_err, k1_main_err, k1_nucl_err, k1_guided_err)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_guided_err)
@@ -2706,7 +3029,8 @@ def main():
          "guided_nuclassemble": glaunches, "split": slaunches,
          "linclust": llaunches, "search": salaunches, "profile": plaunches,
          "cluster": calaunches,
-         "easy": ealaunches, "rescore_mode_0": hlaunches}, sw, hamming)
+         "easy": ealaunches, "rescore_mode_0": hlaunches, **slice_launches},
+        sw, hamming)
     say(json.dumps({"kernels": kernels}))
     say(smi())
     say(json.dumps({"ok": True, "device": {

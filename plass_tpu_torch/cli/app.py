@@ -32,6 +32,12 @@ def port_flags(flags):
         "PyTorch versions (cuda without a card is an error)")]
 
 
+def port_space(flags):
+    """A command's ParamSpace: its JAX flag list (port_flags), plus
+    --device."""
+    return P.ParamSpace(port_flags(flags))
+
+
 @dataclasses.dataclass
 class Command:
     name: str

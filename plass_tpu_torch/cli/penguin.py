@@ -22,7 +22,7 @@ from ..data import seqdb
 from ..ops.kmermatch import parse_memory_limit
 from ..utils.log import logger
 from . import params as P
-from .app import Command, port_flags, run_app
+from .app import Command, port_space, run_app
 from .plass import ASSEMBLE_USAGE, createhdb, mergereads, run_linclust_command
 from .tools import (BASE_COMMANDS, load_alignments,
                     load_alignments_with_backtrace)
@@ -30,7 +30,7 @@ from .tools import (BASE_COMMANDS, load_alignments,
 
 def _nucl_defaults():
     """Nuclassembler.cpp:10-32 defaults."""
-    space = P.ParamSpace(port_flags(P.nuclassemble_flags()))
+    space = port_space(P.nuclassemble_flags())
     v = space.values
     v["kmer_size"] = P.MultiParam(22, 22)
     v["alphabet_size"] = P.MultiParam(5, 5)
@@ -44,7 +44,7 @@ def _nucl_defaults():
 
 def _guided_defaults():
     """GuidedNuclassembler.cpp:10-41 defaults."""
-    space = P.ParamSpace(port_flags(P.guided_flags()))
+    space = port_space(P.guided_flags())
     v = space.values
     v["kmer_size"] = P.MultiParam(14, 22)
     v["alphabet_size"] = P.MultiParam(13, 5)

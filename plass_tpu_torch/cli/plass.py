@@ -21,7 +21,7 @@ from ..data import seqdb
 from ..ops.kmermatch import parse_memory_limit
 from ..utils.log import logger
 from . import params as P
-from .app import Command, port_flags, run_app
+from .app import Command, port_space, run_app
 from .tools import BASE_COMMANDS, load_alignments
 
 ASSEMBLE_USAGE = ("<i:fast[a|q]File[.gz]> | <i:fastqFile1_1[.gz]> "
@@ -31,7 +31,7 @@ ASSEMBLE_USAGE = ("<i:fast[a|q]File[.gz]> | <i:fastqFile1_1[.gz]> "
 def plass_defaults(flags_fn):
     """A ParamSpace factory with the plass defaults (Assembler.cpp:10-27)."""
     def make():
-        space = P.ParamSpace(port_flags(flags_fn()))
+        space = port_space(flags_fn())
         space.values["min_seq_id"] = P.MultiParam(0.9, 0.9)
         space.values["rescore_mode"] = 3
         return space

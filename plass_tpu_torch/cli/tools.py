@@ -1,17 +1,21 @@
 """Base tools of the port's `plass` and `penguin` CLIs: the DB plumbing,
 the sensitive prefilter, `align`, `search` (against sequences, against
 profiles, exhaustive and iterative) and cascaded `cluster` with their
-easy-* forms, the profile and MSA tools (cli/tools_profile.py), and the
+easy-* forms, `rbh`, `map`, the multi-hit tools, the profile and MSA
+tools (cli/tools_profile.py), linsearch and its relatives
+(cli/tools_linsearch.py, cli/tools_misc.py, cli/tools_db.py), and the
 alignment-DB readers the product CLIs' hidden tools share.
 
 A copy of the JAX package's cli/tools.py, cut to these commands; each
 keeps its flag list there (cli/params.py) plus --device, which sets where
 the aligner scores its candidate pairs (kernel B9, ops/protein_align.py).
-Everything else runs on the host, as in the JAX package. The base tools
-of the JAX package not listed in BASE_COMMANDS are not registered
-(ROADMAP item 23). A command's `stats` dict receives the stage seconds of
-its workflow under "seconds" and the aligner's pair counts under "pairs"
-(see align_protein).
+Everything else runs on the host, as in the JAX package. One command
+departs from it: `rescorediagonal` looks its hits' target keys up in its
+<i:tDB>, as the reference does (ROADMAP C4). The base tools of the JAX
+package not listed in BASE_COMMANDS are not registered (ROADMAP item
+23). A command's `stats` dict receives the stage seconds of its workflow
+under "seconds" and the aligner's pair counts under "pairs" (see
+align_protein).
 """
 import os
 import re
@@ -22,12 +26,7 @@ from ..data import seqdb
 from ..ops.rescore import RESULT_DTYPE
 from ..utils.log import logger
 from . import params as P
-from .app import Command, port_flags
-
-
-def _space(flags):
-    """A command's ParamSpace: its JAX flag list, plus --device."""
-    return P.ParamSpace(port_flags(flags))
+from .app import Command, port_space
 
 
 def _record_line_counts(db, ids):
@@ -174,6 +173,50 @@ def _createdb(positional, space, stats):
     return 0
 
 
+def _extractorfs(positional, space, stats):
+    from ..ops import orf as orf_mod
+    from ..ops import translate as tr
+    if len(positional) != 2:
+        raise ValueError("usage: extractorfs <i:seqDB> <o:seqDB>")
+    db = seqdb.SeqDB.open(positional[0])
+    v = space.values
+    odb, ohdb = orf_mod.extract_orfs(
+        db, min_length=v["orf_min_length"], max_length=v["orf_max_length"],
+        max_gaps=v["orf_max_gaps"], start_mode=v["orf_start_mode"],
+        contig_start_mode=v["contig_start_mode"], contig_end_mode=v["contig_end_mode"],
+        forward_frames=_frames(v["forward_frames"]),
+        reverse_frames=_frames(v["reverse_frames"]),
+        stop_codons=tr.stop_codons(v["translation_table"]),
+        start_codons=tr.start_codons(v["translation_table"], v["use_all_table_starts"]))
+    odb.save(positional[1])
+    ohdb.save(positional[1] + "_h")
+    return 0
+
+
+def _frames(spec):
+    mask = 0
+    for f in str(spec).split(","):
+        if f.strip():
+            mask |= 1 << (int(f) - 1)
+    return mask
+
+
+def _translatenucs(positional, space, stats):
+    from ..ops.translate import translate_nucs
+    if len(positional) != 2:
+        raise ValueError("usage: translatenucs <i:seqDB> <o:seqDB>")
+    db = seqdb.SeqDB.open(positional[0])
+    hdr = None
+    add_stop = os.path.exists(positional[0] + "_h.dbtype")
+    if add_stop:
+        hdr = seqdb.SeqDB.open(positional[0] + "_h")
+    out = translate_nucs(db, hdr, space.values["translation_table"],
+                         add_orf_stop=add_stop,
+                         max_seq_len=space.values["max_seq_len"])
+    out.save(positional[1])
+    return 0
+
+
 def _kmermatcher(positional, space, stats):
     from ..ops.kmermatch import kmermatcher, hits_to_db
     if len(positional) != 2:
@@ -200,6 +243,10 @@ def _rescorediagonal(positional, space, stats):
     if len(positional) != 4:
         raise ValueError("usage: rescorediagonal <i:qDB> <i:tDB> <i:prefDB> <o:alnDB>")
     db = seqdb.SeqDB.open(positional[0])
+    # the hits' target keys belong to <i:tDB> (rescorediagonal.cpp opens
+    # par.db2); the JAX package looks them up in <i:qDB> (ROADMAP C4)
+    same = os.path.realpath(positional[0]) == os.path.realpath(positional[1])
+    tdb = None if same else seqdb.SeqDB.open(positional[1])
     pref = seqdb.SeqDB.open(positional[2])
     hits = load_prefilter(positional[2])
     v = space.values
@@ -212,7 +259,7 @@ def _rescorediagonal(positional, space, stats):
         seq_id_mode=v["seq_id_mode"], add_backtrace=v["add_backtrace"],
         sort_results=v["sort_results"],
         wrapped_scoring=v.get("wrapped_scoring", False))
-    alns = rescore_diagonal(db, hits, rp)
+    alns = rescore_diagonal(db, hits, rp, tdb=tdb)
     if rp.rescore_mode == RESCORE_HAMMING:
         # short prefilter-format output, dbtype follows input prefilter
         w = seqdb.DBWriter(pref.dbtype)
@@ -390,6 +437,15 @@ def _search(positional, space, stats):
     return 0
 
 
+def _add_stats(stats, sub, suffix):
+    """Add a step's stage seconds and pair counts (sub, a command's stats)
+    to stats, each name ending in suffix."""
+    for kind in ("seconds", "pairs"):
+        acc = stats.setdefault(kind, {})
+        for key, n in sub.get(kind, {}).items():
+            acc[key + suffix] = acc.get(key + suffix, 0) + n
+
+
 def _invoke(name, args, device, stats, step=None):
     """Run another registered command in-process on `device` (the
     reference shells back into the same binary via $MMSEQS,
@@ -408,9 +464,8 @@ def _invoke(name, args, device, stats, step=None):
     sub = {}
     with timed(name + suffix):
         rc = cmd.fn(positional, space, sub)
-    pairs = stats.setdefault("pairs", {})
-    for key, n in sub.get("pairs", {}).items():
-        pairs[key + suffix] = pairs.get(key + suffix, 0) + n
+    # the step's seconds are its wall, timed above
+    _add_stats(stats, {"pairs": sub.get("pairs", {})}, suffix)
     if rc not in (0, None):
         raise ValueError(f"{name} step failed")
 
@@ -884,6 +939,135 @@ def _filterdb(positional, space, stats):
     return 0
 
 
+def _result2rbh(positional, space, stats):
+    """result2rbh.cpp: from bitscore-sorted merged A->B + swapped B->A
+    results, keep the B->A lines tying A's best bitscore."""
+    if len(positional) != 2:
+        raise ValueError("usage: result2rbh <i:resDB> <o:resDB>")
+    db = seqdb.SeqDB.open(positional[0])
+    w = seqdb.DBWriter(db.dbtype)
+    for i in seqdb.data_order(db):
+        lines = [l for l in db.get_data(i).tobytes().decode().splitlines()
+                 if l]
+        best = 0
+        out = []
+        for n, l in enumerate(lines):
+            score = int(l.split("\t")[1])
+            if best == 0:
+                best = score
+            else:
+                if score < best:
+                    break
+                out.append(l)
+        w.write(int(db.keys[i]),
+                "".join(l + "\n" for l in out).encode(),
+                add_newline=False)
+    w.finish().save(positional[1])
+    return 0
+
+
+def _map(positional, space, stats):
+    """map workflow (Map.cpp:11-19 + map.sh): prefilter at sensitivity 2
+    with a length-ratio coverage gate, then ungapped rescoring
+    (rescorediagonal --rescore-mode 2) at -c 0.95 --cov-mode 2
+    --min-seq-id 0.9 --sort-results 1; no composition bias, no masking.
+    Host code on every device, as in the JAX package."""
+    from ..ops import prefilter as pf
+    from ..ops.rescore import (RESCORE_ALIGNMENT, RescoreParams,
+                               rescore_diagonal, results_to_db)
+    if len(positional) != 4:
+        raise ValueError("usage: map <i:qDB> <i:tDB> <o:alnDB> <tmpDir>")
+    v = space.values
+    os.makedirs(positional[3], exist_ok=True)
+    qdb = seqdb.SeqDB.open(positional[0])
+    same = os.path.realpath(positional[0]) == os.path.realpath(positional[1])
+    tdb = qdb if same else seqdb.SeqDB.open(positional[1])
+    sens = v["sensitivity"] if "sensitivity" in space.was_set else 2.0
+    cov = v["cov_thr"] if "cov_thr" in space.was_set else 0.95
+    cov_mode = v["cov_mode"] if "cov_mode" in space.was_set else 2
+    seq_id = (v["min_seq_id"].aminoacids
+              if "min_seq_id" in space.was_set else 0.9)
+    pr = pf.PrefilterParams(
+        sensitivity=sens, max_seqs=v["max_seqs"],
+        comp_bias_corr=bool(v["comp_bias_corr"]
+                            if "comp_bias_corr" in space.was_set else 0),
+        mask=v["search_mask"] if "search_mask" in space.was_set else 0,
+        cov_thr=cov, cov_mode=cov_mode)
+    hits = pf.prefilter(qdb, tdb, pr, same_db=same)
+    rp = RescoreParams(
+        rescore_mode=RESCORE_ALIGNMENT, seq_id_thr=seq_id, cov_thr=cov,
+        cov_mode=cov_mode,
+        eval_thr=v["eval_thr"] if "eval_thr" in space.was_set else 0.001,
+        sort_results=1)
+    res = rescore_diagonal(qdb, hits, rp, tdb=None if same else tdb)
+    qorder = [int(qdb.keys[i]) for i in
+              np.argsort(qdb.offsets, kind="stable")]
+    db = results_to_db({k: res.get(k, []) for k in qorder})
+    db.save(positional[2])
+    return 0
+
+
+def _rbh(positional, space, stats):
+    """rbh workflow (rbh.sh): search A vs B and B vs A, keep reciprocal
+    best hits by bitscore. Each search's stage seconds and pair counts go
+    to stats under their names ending in _AB and _BA."""
+    if len(positional) != 4:
+        raise ValueError("usage: rbh <i:aDB> <i:bDB> <o:resDB> <tmpDir>")
+    a, b, out, tmp = positional
+    os.makedirs(tmp, exist_ok=True)
+    # Rbh.cpp:11-13 defaults: no composition bias, no masking, SCORE_COV_SEQID
+    if "comp_bias_corr" not in space.was_set:
+        space.values["comp_bias_corr"] = 0
+    if "search_mask" not in space.was_set:
+        space.values["search_mask"] = 0
+    if "alignment_mode" not in space.was_set:
+        space.values["alignment_mode"] = 3
+        space.was_set.add("alignment_mode")
+    # the rbh workflow serializes its own -s 4.0 default into the searches,
+    # overriding search's 5.7 (createParameterString of searchworkflow)
+    if "sensitivity" not in space.was_set:
+        space.values["sensitivity"] = 4.0
+        space.was_set.add("sensitivity")
+    for tag, query, target in (("AB", a, b), ("BA", b, a)):
+        res = os.path.join(tmp, "res" + tag)
+        if not os.path.exists(res + ".dbtype"):
+            sub = {}
+            _search([query, target, res, os.path.join(tmp, "temp" + tag)],
+                    space, sub)
+            _add_stats(stats, sub, "_" + tag)
+    res_ab = os.path.join(tmp, "resAB")
+    res_ba = os.path.join(tmp, "resBA")
+    v = dict(space.values)
+
+    def filterdb(inp, outp, **kw):
+        space.values.update({"filter_file": "", "sort_entries": 0,
+                             "extract_lines": 0, "beats_first": False,
+                             "comparison_operator": "",
+                             "comparison_value": 0.0, "filter_column": 1})
+        space.values.update(kw)
+        _filterdb([inp, outp], space, stats)
+    filterdb(res_ab, os.path.join(tmp, "resAB_sorted"),
+             sort_entries=2, filter_column=2)
+    filterdb(os.path.join(tmp, "resAB_sorted"),
+             os.path.join(tmp, "resA_best_B"), extract_lines=1)
+    filterdb(res_ba, os.path.join(tmp, "resB_best_A"),
+             beats_first=True, filter_column=2, comparison_operator="e")
+    space.values.update(v)
+    space.values["eval_thr"] = 1e8
+    space.was_set.add("eval_thr")
+    _swapresults([b, a, os.path.join(tmp, "resB_best_A"),
+                  os.path.join(tmp, "resB_best_A_swap")], space, stats)
+    _mergedbs([os.path.join(tmp, "resA_best_B"),
+               os.path.join(tmp, "res_best_merged"),
+               os.path.join(tmp, "resA_best_B"),
+               os.path.join(tmp, "resB_best_A_swap")], space, stats)
+    filterdb(os.path.join(tmp, "res_best_merged"),
+             os.path.join(tmp, "res_best_merged_sorted"),
+             sort_entries=2, filter_column=2)
+    return _result2rbh([os.path.join(tmp, "res_best_merged_sorted"), out],
+                       space, stats)
+
+
 def _concatdbs(positional, space, stats):
     if len(positional) != 3:
         raise ValueError("usage: concatdbs <i:db1> <i:db2> <o:db>")
@@ -1206,6 +1390,222 @@ def _subtractdbs(positional, space, stats):
     return 0
 
 
+def _splitsequence(positional, space, stats):
+    """splitsequence.cpp (hard mode): chop sequences into overlapping
+    windows of --max-seq-len with --sequence-overlap, ORF-style headers,
+    renumbered keys."""
+    from ..ops.orf import _orf_header
+    if len(positional) != 2:
+        raise ValueError("usage: splitsequence <i:seqDB> <o:seqDB>")
+    import math
+
+    db = seqdb.SeqDB.open(positional[0])
+    v = space.values
+    max_len = v.get("split_seq_len", 10000)
+    overlap = v.get("sequence_overlap", 300)
+    soft = v.get("sequence_split_mode", 1) == 1
+    hw = seqdb.DBWriter(seqdb.GENERIC_DB)
+    sw = None if soft else seqdb.DBWriter(db.dbtype)
+    keys, offs, lens = [], [], []
+    new_key = 0
+    # records iterated in data order (decomposeDomain walks offsets)
+    order = sorted(range(db.size), key=lambda j: int(db.offsets[j]))
+    for i in order:
+        key = int(db.keys[i])
+        seq = db.get_seq(i)
+        L = len(seq)
+        split_cnt = max(int(math.ceil(L / float(max_len - overlap))), 1)
+        for s in range(split_cnt):
+            start = s * max_len - s * overlap
+            ln = min(max_len, L - start)
+            if soft:
+                # soft mode: the output index points into the original
+                # data file (+2 emulating the record terminators,
+                # splitsequence.cpp:100-103); data is shared
+                keys.append(new_key)
+                offs.append(int(db.offsets[i]) + start)
+                lens.append(ln + 2)
+            else:
+                sw.write(new_key, bytes(seq[start:start + ln]))
+            hw.write(new_key,
+                     _orf_header(key, start, start + ln - 1, 0, 0))
+            new_key += 1
+    if soft:
+        out = seqdb.SeqDB(db.data, np.asarray(keys, dtype=np.uint32),
+                          np.asarray(offs, dtype=np.int64),
+                          np.asarray(lens, dtype=np.int64), db.dbtype)
+        out.save(positional[1])
+    else:
+        sw.finish(sort_by_key=False).save(positional[1])
+    hw.finish(sort_by_key=False).save(positional[1] + "_h")
+    return 0
+
+
+def _swapdb(positional, space, stats):
+    """swapdb.cpp: transpose a result DB (target keys become records
+    listing the queries that hit them, lines otherwise unchanged except
+    the first column)."""
+    if len(positional) != 2:
+        raise ValueError("usage: swapdb <i:resultDB> <o:resultDB>")
+    db = seqdb.SeqDB.open(positional[0])
+    swapped = {}
+    for i in range(db.size):
+        qkey = int(db.keys[i])
+        for line in db.get_data(i).tobytes().decode().splitlines():
+            if not line:
+                continue
+            first, _, rest = line.partition("\t")
+            tkey = int(first.split()[0])
+            swapped.setdefault(tkey, []).append(
+                f"{qkey}" + (f"\t{rest}" if rest else ""))
+    w = seqdb.DBWriter(db.dbtype)
+    for tkey in sorted(swapped):
+        w.write(tkey, ("\n".join(swapped[tkey]) + "\n").encode(),
+                add_newline=False)
+    w.finish().save(positional[1])
+    return 0
+
+
+def _orftocontig(positional, space, stats):
+    from ..data.multihit import orftocontig
+    if len(positional) != 3:
+        raise ValueError(
+            "usage: orftocontig <i:contigDB> <i:orfDB> <o:alnDB>")
+    contigs = seqdb.SeqDB.open(positional[0])
+    orf_h = seqdb.SeqDB.open(positional[1] + "_h")
+    orftocontig(contigs, orf_h).save(positional[2])
+    return 0
+
+
+def _result2stats(positional, space, stats):
+    from ..data.multihit import result2stats_linecount
+    if len(positional) != 4:
+        raise ValueError(
+            "usage: result2stats <i:qDB> <i:tDB> <i:resultDB> <o:statsDB>")
+    if space.values.get("stat", "linecount") != "linecount":
+        raise ValueError("result2stats: only --stat linecount implemented")
+    result2stats_linecount(seqdb.SeqDB.open(positional[2])).save(
+        positional[3])
+    return 0
+
+
+def _besthitperset(positional, space, stats):
+    from ..data.multihit import besthitperset
+    if len(positional) != 4:
+        raise ValueError(
+            "usage: besthitperset <i:qDB> <i:tDB> <i:resultDB> <o:db>")
+    out = besthitperset(positional[1], seqdb.SeqDB.open(positional[2]),
+                        simple_best_hit=space.values.get("simple_best_hit",
+                                                         False))
+    out.save(positional[3])
+    return 0
+
+
+def _combinepvalperset(positional, space, stats):
+    from ..data.multihit import combinepvalperset
+    if len(positional) != 4:
+        raise ValueError(
+            "usage: combinepvalperset <i:qDB> <i:tDB> <i:resultDB> <o:db>")
+    out = combinepvalperset(
+        positional[0], positional[1], seqdb.SeqDB.open(positional[2]),
+        alpha=space.values.get("alpha", 1.0),
+        mode=space.values.get("aggregation_mode", 0))
+    out.save(positional[3])
+    return 0
+
+
+def _mergeresultsbyset(positional, space, stats):
+    from ..data.multihit import mergeresultsbyset
+    if len(positional) != 3:
+        raise ValueError(
+            "usage: mergeresultsbyset <i:setDB> <i:resultDB> <o:db>")
+    out = mergeresultsbyset(seqdb.SeqDB.open(positional[0]),
+                            seqdb.SeqDB.open(positional[1]))
+    out.save(positional[2])
+    return 0
+
+
+def _multihitdb(positional, space, stats):
+    """multihitdb workflow (multihitdb.sh): per-input-file sets, ORF
+    extraction/translation, member/set mapping DBs and set sizes."""
+    from ..data.createdb import create_db
+    from ..data.fastx import iter_fastx_raw
+    from ..data.multihit import result2stats_linecount
+    from ..ops import orf as orf_mod
+    from ..ops import translate as tr
+    from ..ops.orf import parse_orf_header
+    if len(positional) < 3:
+        raise ValueError(
+            "usage: multihitdb <i:fasta1> ... <o:setDB> <tmpDir>")
+    fastas, outdb, tmp = positional[:-2], positional[-2], positional[-1]
+    os.makedirs(tmp, exist_ok=True)
+    sdb, hdb = create_db(fastas)
+    if sdb.dbtype != seqdb.NUCLEOTIDES:
+        raise ValueError("multihitdb: protein mode not implemented "
+                         "(multihitdb.sh:83)")
+    sdb.save(outdb + "_nucl")
+    hdb.save(outdb + "_nucl_h")
+    # contig -> set (file index) via the lookup file numbers
+    key = 0
+    contig_to_set = {}
+    for fi, fasta in enumerate(fastas):
+        for _ in iter_fastx_raw(fasta):
+            contig_to_set[key] = fi
+            key += 1
+    with open(outdb + "_nucl_contig_to_set.tsv", "w") as f:
+        for k in sorted(contig_to_set):
+            f.write(f"{k}\t{contig_to_set[k]}\n")
+    # ORFs + translation (EXTRACTORFS_PAR: orf-min-length 30)
+    odb, ohdb = orf_mod.extract_orfs(sdb, min_length=30)
+    odb.save(outdb + "_nucl_orf")
+    ohdb.save(outdb + "_nucl_orf_h")
+    aa = tr.translate_nucs(odb, ohdb, 1)
+    aa.save(outdb)
+    seqdb.copy_db_files(outdb + "_nucl_orf_h", outdb + "_h")
+    # member (orf) -> set via its contig
+    m2s = seqdb.DBWriter(seqdb.GENERIC_DB)
+    s2m = {}
+    for i in range(ohdb.size):
+        okey = int(ohdb.keys[i])
+        loc = parse_orf_header(ohdb.get_data(i).tobytes().decode())
+        set_key = contig_to_set[loc["id"]]
+        m2s.write(okey, f"{set_key}\n".encode(), add_newline=False)
+        s2m.setdefault(set_key, []).append(okey)
+    m2s.finish().save(outdb + "_member_to_set")
+    s2m_w = seqdb.DBWriter(seqdb.GENERIC_DB)
+    for set_key in sorted(s2m):
+        s2m_w.write(set_key,
+                    "".join(f"{m}\n" for m in s2m[set_key]).encode(),
+                    add_newline=False)
+    s2m_db = s2m_w.finish()
+    s2m_db.save(outdb + "_set_to_member")
+    result2stats_linecount(s2m_db).save(outdb + "_set_size")
+    return 0
+
+
+def _multihitsearch(positional, space, stats):
+    """multihitsearch workflow (multihitsearch.sh): search the ORF
+    proteins (B9 scores the candidate pairs on a card), aggregate best
+    hits per target set, merge per query set."""
+    from ..data.multihit import besthitperset, mergeresultsbyset
+    if len(positional) != 4:
+        raise ValueError(
+            "usage: multihitsearch <i:qSetDB> <i:tSetDB> <o:db> <tmpDir>")
+    q, t, out, tmp = positional
+    os.makedirs(tmp, exist_ok=True)
+    result = os.path.join(tmp, "result")
+    if not os.path.exists(result + ".dbtype"):
+        _search([q, t, result, os.path.join(tmp, "search")], space, stats)
+    agg = besthitperset(t, seqdb.SeqDB.open(result),
+                        simple_best_hit=space.values.get("simple_best_hit",
+                                                         False))
+    agg_path = os.path.join(tmp, "aggregate")
+    agg.save(agg_path)
+    mergeresultsbyset(seqdb.SeqDB.open(q + "_set_to_member"),
+                      seqdb.SeqDB.open(agg_path)).save(out)
+    return 0
+
+
 def _createtsv(positional, space, stats):
     from ..data.dbtools import create_tsv
     if len(positional) == 4:
@@ -1226,32 +1626,32 @@ def _createtsv(positional, space, stats):
 
 
 BASE_COMMANDS = [
-    Command("createdb", _createdb, lambda: _space(P.common_flags() + P.orf_flags()),
+    Command("createdb", _createdb, lambda: port_space(P.common_flags() + P.orf_flags()),
             "<i:fastaFile1[.gz]> ... <o:seqDB>", "Convert FASTA/Q to sequence DB", hidden=True),
-    Command("concatdbs", _concatdbs, lambda: _space(P.common_flags() + [
+    Command("concatdbs", _concatdbs, lambda: port_space(P.common_flags() + [
         P.Flag("--preserve-keys", "preserve_keys", bool, False,
                "Keep the keys of both DBs (must be disjoint or "
                "--take-larger-entry)"),
         P.Flag("--take-larger-entry", "take_larger_entry", bool, False,
                "For duplicate keys keep the larger record")]),
             "<i:db1> <i:db2> <o:db>", "Concatenate DBs", hidden=True),
-    Command("createsubdb", _createsubdb, lambda: _space(P.common_flags() + [
+    Command("createsubdb", _createsubdb, lambda: port_space(P.common_flags() + [
         P.Flag("--subdb-mode", "subdb_mode", int, 0,
                "0: copy data, 1: soft link data and write index", r"[0-1]"),
         P.Flag("--id-mode", "id_mode", int, 0,
                "0: database keys, 1: line numbers", r"[0-1]")]),
             "<i:subsetFile> <i:db> <o:db>", "Create subset DB", hidden=True),
-    Command("convert2fasta", _convert2fasta, lambda: _space(P.common_flags()),
+    Command("convert2fasta", _convert2fasta, lambda: port_space(P.common_flags()),
             "<i:seqDB> <o:fasta>", "Convert DB to FASTA", hidden=True),
-    Command("rmdb", _rmdb, lambda: _space(P.common_flags()),
+    Command("rmdb", _rmdb, lambda: port_space(P.common_flags()),
             "<i:db>", "Remove a DB file family", hidden=True),
-    Command("mvdb", _mvdb, lambda: _space(P.common_flags()),
+    Command("mvdb", _mvdb, lambda: port_space(P.common_flags()),
             "<i:db> <o:db>", "Move a DB file family", hidden=True),
-    Command("cpdb", _cpdb, lambda: _space(P.common_flags()),
+    Command("cpdb", _cpdb, lambda: port_space(P.common_flags()),
             "<i:db> <o:db>", "Copy a DB file family", hidden=True),
-    Command("lndb", _lndb, lambda: _space(P.common_flags()),
+    Command("lndb", _lndb, lambda: port_space(P.common_flags()),
             "<i:db> <o:db>", "Symlink a DB file family", hidden=True),
-    Command("filterdb", _filterdb, lambda: _space(P.common_flags() + [
+    Command("filterdb", _filterdb, lambda: port_space(P.common_flags() + [
         P.Flag("--filter-file", "filter_file", str, "", "Keep lines whose first column is in file"),
         P.Flag("--positive-filter", "positive_filter", bool, True,
                "1: keep matching lines, 0: drop matching lines", r"[0-1]"),
@@ -1267,71 +1667,117 @@ BASE_COMMANDS = [
                "Keep lines where the expression over $1..$128 columns is nonzero"),
         P.Flag("--trim-to-one-column", "trim_to_one_column", bool, False, "Output only the filter column")]),
             "<i:db> <o:db>", "Filter result DB lines", hidden=True),
-    Command("result2repseq", _result2repseq, lambda: _space(P.common_flags()),
+    Command("result2repseq", _result2repseq, lambda: port_space(P.common_flags()),
             "<i:seqDB> <i:resultDB> <o:seqDB>", "Extract representative sequences", hidden=True),
-    Command("createtsv", _createtsv, lambda: _space(P.common_flags()),
+    Command("createtsv", _createtsv, lambda: port_space(P.common_flags()),
             "<i:db> [<i:hdb>] <o:tsv>", "Convert DB to TSV", hidden=True),
-    Command("mergedbs", _mergedbs, lambda: _space(P.common_flags()),
+    Command("mergedbs", _mergedbs, lambda: port_space(P.common_flags()),
             "<i:qDB> <o:db> <i:db1> ...", "Concatenate records per key", hidden=True),
-    Command("sortresult", _sortresult, lambda: _space(P.common_flags()),
+    Command("sortresult", _sortresult, lambda: port_space(P.common_flags()),
             "<i:resDB> <o:resDB>", "Sort result records by E-value/score", hidden=True),
-    Command("swapresults", _swapresults, lambda: _space(P.common_flags() + P.align_flags()),
+    Command("swapresults", _swapresults, lambda: port_space(P.common_flags() + P.align_flags()),
             "<i:qDB> <i:tDB> <i:resDB> <o:resDB>", "Transpose query/target results", hidden=True),
-    Command("kmermatcher", _kmermatcher, lambda: _space(P.common_flags() + P.kmermatcher_flags() + P.align_flags()),
+    Command("kmermatcher", _kmermatcher, lambda: port_space(P.common_flags() + P.kmermatcher_flags() + P.align_flags()),
             "<i:seqDB> <o:prefDB>", "Find overlapping k-mers", hidden=True),
-    Command("rescorediagonal", _rescorediagonal, lambda: _space(P.common_flags() + P.kmermatcher_flags() + P.align_flags()),
+    Command("rescorediagonal", _rescorediagonal, lambda: port_space(P.common_flags() + P.kmermatcher_flags() + P.align_flags()),
             "<i:qDB> <i:tDB> <i:prefDB> <o:alnDB>", "Ungapped diagonal rescoring", hidden=True),
-    Command("prefilter", _prefilter, lambda: _space(P.common_flags() + P.search_flags() + [
+    Command("prefilter", _prefilter, lambda: port_space(P.common_flags() + P.search_flags() + [
         P.Flag("-c", "cov_thr", float, 0.0, "Coverage threshold"),
         P.Flag("--cov-mode", "cov_mode", int, 0, "Coverage mode", r"[0-5]")]),
             "<i:qDB> <i:tDB> <o:prefDB>", "Sensitive double-k-mer-match prefilter", hidden=True),
-    Command("align", _align, lambda: _space(P.common_flags() + P.kmermatcher_flags() + P.align_flags() + [
+    Command("align", _align, lambda: port_space(P.common_flags() + P.kmermatcher_flags() + P.align_flags() + [
         P.Flag("--alignment-mode", "alignment_mode", int, 0,
                "0 auto, 1 score+end, 2 +start+cov, 3 +seq.id", r"[0-5]"),
         P.Flag("--max-accept", "max_accept", int, 2**31 - 1, "Maximum accepted alignments per query"),
         P.Flag("--max-rejected", "max_rejected", int, 2**31 - 1, "Maximum rejected alignments before give-up")]),
             "<i:qDB> <i:tDB> <i:prefDB> <o:alnDB>", "Gapped banded alignment", hidden=True),
-    Command("lcaalign", _lcaalign, lambda: _space(P.common_flags() + P.kmermatcher_flags() + P.align_flags() + [
+    Command("lcaalign", _lcaalign, lambda: port_space(P.common_flags() + P.kmermatcher_flags() + P.align_flags() + [
         P.Flag("--alignment-mode", "alignment_mode", int, 0,
                "0 auto, 1 score+end, 2 +start+cov, 3 +seq.id", r"[0-5]"),
         P.Flag("--max-accept", "max_accept", int, 2**31 - 1, "Maximum accepted alignments per query"),
         P.Flag("--max-rejected", "max_rejected", int, 2**31 - 1, "Maximum rejected alignments before give-up")]),
             "<i:qDB> <i:tDB> <i:prefDB> <o:alnDB>", "Efficient gapped alignment for lca computation", hidden=True),
-    Command("search", _search, lambda: _space(P.common_flags() + P.search_flags() + P.align_flags() + [
+    Command("search", _search, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
         P.Flag("--num-iterations", "num_iterations", int, 1,
                "Number of iterative profile search iterations"),
         P.Flag("--e-profile", "eval_profile", float, 0.1,
                "E-value threshold for intermediate profiles")]),
             "<i:qDB> <i:tDB> <o:alnDB> <tmpDir>", "Sensitive homology search (prefilter + align)", hidden=True),
-    Command("easy-search", _easy_search, lambda: _space(P.common_flags() + P.search_flags() + P.align_flags()),
+    Command("easy-search", _easy_search, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags()),
             "<i:queryFasta> <i:targetFasta> <o:tsv> <tmpDir>", "Sensitive homology search (FASTA in, BLAST-tab out)", hidden=True),
-    Command("convertalis", _convertalis, lambda: _space(P.common_flags()),
+    Command("convertalis", _convertalis, lambda: port_space(P.common_flags()),
             "<i:qDB> <i:tDB> <i:alnDB> <o:tsv>", "Convert alignment DB to BLAST-tab TSV", hidden=True),
-    Command("clust", _clust, lambda: _space(P.common_flags()),
+    Command("clust", _clust, lambda: port_space(P.common_flags()),
             "<i:seqDB> <i:alnDB> <o:cluDB>", "Greedy incremental clustering", hidden=True),
-    Command("mergeclusters", _mergeclusters, lambda: _space(P.common_flags()),
+    Command("mergeclusters", _mergeclusters, lambda: port_space(P.common_flags()),
             "<i:seqDB> <o:cluDB> <i:clu1> ...", "Merge clustering steps", hidden=True),
-    Command("cluster", _cluster, lambda: _space(P.common_flags() + P.search_flags() + P.align_flags() + [
+    Command("cluster", _cluster, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
         P.Flag("--cluster-mode", "cluster_mode", int, 0, "0 set-cover, 1 connected component, 2 greedy", r"[0-3]"),
         P.Flag("--cluster-steps", "cluster_steps", int, 3, "Cascaded clustering steps")]),
             "<i:seqDB> <o:cluDB> <tmpDir>", "Cascaded clustering", hidden=True),
-    Command("easy-cluster", _easy_cluster, lambda: _space(P.common_flags() + P.search_flags() + P.align_flags() + [
+    Command("easy-cluster", _easy_cluster, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
         P.Flag("--cluster-mode", "cluster_mode", int, 0, "0 set-cover, 1 connected component, 2 greedy", r"[0-3]"),
         P.Flag("--use-fasta-header", "use_fasta_header", bool, False, "Use full fasta header")]),
             "<i:fasta> <o:prefix> <tmpDir>", "Cascaded clustering (FASTA in, FASTA/TSV out)", hidden=True),
-    Command("easy-linclust", _easy_linclust, lambda: _space(P.common_flags() + P.search_flags() + P.align_flags() + [
+    Command("easy-linclust", _easy_linclust, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
         P.Flag("--use-fasta-header", "use_fasta_header", bool, False, "Use full fasta header")]),
             "<i:fasta> <o:prefix> <tmpDir>", "Linear-time clustering (FASTA in, FASTA/TSV out)", hidden=True),
-    Command("result2flat", _result2flat, lambda: _space(P.common_flags() + [
+    Command("result2flat", _result2flat, lambda: port_space(P.common_flags() + [
         P.Flag("--use-fasta-header", "use_fasta_header", bool, False, "Use full fasta header")]),
             "<i:qDB> <i:tDB> <i:resDB> <o:fasta>", "Flatten result DB to FASTA", hidden=True),
-    Command("createseqfiledb", _createseqfiledb, lambda: _space(P.common_flags()),
+    Command("createseqfiledb", _createseqfiledb, lambda: port_space(P.common_flags()),
             "<i:seqDB> <i:cluDB> <o:db>", "Per-cluster FASTA records", hidden=True),
-    Command("subtractdbs", _subtractdbs, lambda: _space(P.common_flags() + [
+    Command("subtractdbs", _subtractdbs, lambda: port_space(P.common_flags() + [
         P.Flag("-e", "eval_thr", float, 0.001, "E-value threshold"),
         P.Flag("--e-profile", "eval_profile", float, 0.001, "Profile E-value threshold")]),
             "<i:leftDB> <i:rightDB> <o:db>", "Remove right-side hits from left result DB", hidden=True),
 ]
 
+BASE_COMMANDS.extend([
+    Command("extractorfs", _extractorfs, lambda: port_space(P.common_flags() + P.orf_flags()),
+            "<i:seqDB> <o:seqDB>", "Six-frame ORF extraction", hidden=True),
+    Command("translatenucs", _translatenucs, lambda: port_space(P.common_flags() + P.orf_flags()),
+            "<i:seqDB> <o:seqDB>", "Translate nucleotides to proteins", hidden=True),
+    Command("splitsequence", _splitsequence, lambda: port_space(P.common_flags() + [
+        P.Flag("--max-seq-len", "split_seq_len", int, 10000, "Window length"),
+        P.Flag("--sequence-overlap", "sequence_overlap", int, 300, "Window overlap"),
+        P.Flag("--sequence-split-mode", "sequence_split_mode", int, 1, "0 copy data, 1 soft link", r"[0-1]")]),
+            "<i:seqDB> <o:seqDB>", "Split long sequences into overlapping windows", hidden=True),
+    Command("swapdb", _swapdb, lambda: port_space(P.common_flags()),
+            "<i:resultDB> <o:resultDB>", "Transpose a result DB", hidden=True),
+    Command("result2rbh", _result2rbh, lambda: port_space(P.common_flags()),
+            "<i:resDB> <o:resDB>", "Extract reciprocal best hits", hidden=True),
+    Command("rbh", _rbh, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags()),
+            "<i:aDB> <i:bDB> <o:resDB> <tmpDir>", "Reciprocal best hit search", hidden=True),
+    Command("map", _map, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags()),
+            "<i:qDB> <i:tDB> <o:alnDB> <tmpDir>", "Fast exact mapping (high-identity search)", hidden=True),
+    Command("orftocontig", _orftocontig, lambda: port_space(P.common_flags()),
+            "<i:contigDB> <i:orfDB> <o:alnDB>", "Write ORF locations as alignment records", hidden=True),
+    Command("result2stats", _result2stats, lambda: port_space(P.common_flags() + [
+        P.Flag("--stat", "stat", str, "linecount", "Statistic to compute")]),
+            "<i:qDB> <i:tDB> <i:resultDB> <o:statsDB>", "Per-record statistics", hidden=True),
+    Command("besthitperset", _besthitperset, lambda: port_space(P.common_flags() + [
+        P.Flag("--simple-best-hit", "simple_best_hit", bool, False, "Use E-value instead of corrected P")]),
+            "<i:qDB> <i:tDB> <i:resultDB> <o:db>", "Best hit per target set", hidden=True),
+    Command("combinepvalperset", _combinepvalperset, lambda: port_space(P.common_flags() + [
+        P.Flag("--alpha", "alpha", float, 1.0, "Truncation threshold numerator"),
+        P.Flag("--aggregation-mode", "aggregation_mode", int, 0,
+               "0 multihit, 1 min, 2 product, 3 truncated product", r"[0-3]")]),
+            "<i:qDB> <i:tDB> <i:resultDB> <o:db>", "Combine P-values per target set", hidden=True),
+    Command("mergeresultsbyset", _mergeresultsbyset, lambda: port_space(P.common_flags()),
+            "<i:setDB> <i:resultDB> <o:db>", "Concatenate member results per set", hidden=True),
+    Command("multihitdb", _multihitdb, lambda: port_space(P.common_flags() + P.orf_flags()),
+            "<i:fasta1> ... <o:setDB> <tmpDir>", "Build a multi-hit set database", hidden=True),
+    Command("multihitsearch", _multihitsearch, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
+        P.Flag("--simple-best-hit", "simple_best_hit", bool, False, "Use E-value instead of corrected P")]),
+            "<i:qSetDB> <i:tSetDB> <o:db> <tmpDir>", "Search with per-set aggregation", hidden=True),
+])
+
 from .tools_profile import COMMANDS as _PROFILE_COMMANDS  # noqa: E402
 BASE_COMMANDS.extend(_PROFILE_COMMANDS)
+from .tools_db import COMMANDS as _DB_COMMANDS  # noqa: E402
+BASE_COMMANDS.extend(_DB_COMMANDS)
+from .tools_misc import COMMANDS as _MISC_COMMANDS  # noqa: E402
+BASE_COMMANDS.extend(_MISC_COMMANDS)
+from .tools_linsearch import COMMANDS as _LINSEARCH_COMMANDS  # noqa: E402
+BASE_COMMANDS.extend(_LINSEARCH_COMMANDS)

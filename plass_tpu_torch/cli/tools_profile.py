@@ -14,14 +14,9 @@ from .. import constants
 from ..data import seqdb
 from ..utils.log import logger
 from . import params as P
-from .app import Command, port_flags
+from .app import Command, port_space
 
 EVAL_PROFILE_DEFAULT = 0.1  # Parameters.cpp evalProfile default
-
-
-def _space(flags):
-    """A command's ParamSpace: its JAX flag list, plus --device."""
-    return P.ParamSpace(port_flags(flags))
 
 
 def _parse_aln_line(line):
@@ -1276,49 +1271,49 @@ def _result2pp(positional, space, stats):
 
 
 COMMANDS = [
-    Command("result2profile", _result2profile_cmd, lambda: _space(_profile_flags()),
+    Command("result2profile", _result2profile_cmd, lambda: port_space(_profile_flags()),
             "<i:qDB> <i:tDB> <i:resDB> <o:profileDB>", "Compute profiles from results", hidden=True),
-    Command("filterresult", _filterresult, lambda: _space(_profile_flags()),
+    Command("filterresult", _filterresult, lambda: port_space(_profile_flags()),
             "<i:qDB> <i:tDB> <i:resDB> <o:resDB>", "Filter results by MSA redundancy filter", hidden=True),
-    Command("result2msa", _result2msa, lambda: _space(_profile_flags()),
+    Command("result2msa", _result2msa, lambda: port_space(_profile_flags()),
             "<i:qDB> <i:tDB> <i:resDB> <o:msaDB>", "Compute MSAs from results", hidden=True),
-    Command("msa2profile", _msa2profile, lambda: _space(_profile_flags()),
+    Command("msa2profile", _msa2profile, lambda: port_space(_profile_flags()),
             "<i:msaDB> <o:profileDB>", "Convert MSA DB to profile DB", hidden=True),
-    Command("profile2pssm", _profile2pssm, lambda: _space(_profile_flags()),
+    Command("profile2pssm", _profile2pssm, lambda: port_space(_profile_flags()),
             "<i:profileDB> <o:pssmFile>", "Convert profiles to integer PSSMs", hidden=True),
-    Command("profile2consensus", _profile2consensus, lambda: _space(_profile_flags()),
+    Command("profile2consensus", _profile2consensus, lambda: port_space(_profile_flags()),
             "<i:profileDB> <o:seqDB>", "Extract consensus sequences", hidden=True),
-    Command("profile2repseq", _profile2repseq, lambda: _space(_profile_flags()),
+    Command("profile2repseq", _profile2repseq, lambda: port_space(_profile_flags()),
             "<i:profileDB> <o:seqDB>", "Extract representative sequences", hidden=True),
-    Command("expandaln", _expandaln_cmd, lambda: _space(_profile_flags() + _expand_flags()),
+    Command("expandaln", _expandaln_cmd, lambda: port_space(_profile_flags() + _expand_flags()),
             "<i:aDB> <i:cDB> <i:abDB> <i:bcDB> <o:alnDB>",
             "Expand A->B alignments with B->C alignments", hidden=True),
-    Command("expand2profile", _expand2profile, lambda: _space(_profile_flags() + _expand_flags()),
+    Command("expand2profile", _expand2profile, lambda: port_space(_profile_flags() + _expand_flags()),
             "<i:aDB> <i:cDB> <i:abDB> <i:bcDB> <o:profileDB>",
             "Expand alignment results into a profile", hidden=True),
-    Command("summarizealis", _summarizealis, lambda: _space(_profile_flags()),
+    Command("summarizealis", _summarizealis, lambda: port_space(_profile_flags()),
             "<i:alnDB> <o:db>", "Summarize alignment results per query", hidden=True),
-    Command("result2dnamsa", _result2dnamsa, lambda: _space(_profile_flags()),
+    Command("result2dnamsa", _result2dnamsa, lambda: port_space(_profile_flags()),
             "<i:qDB> <i:tDB> <i:resDB> <o:msaDB>", "Compute DNA MSAs from results", hidden=True),
-    Command("convertmsa", _convertmsa, lambda: _space(_profile_flags() + [
+    Command("convertmsa", _convertmsa, lambda: port_space(_profile_flags() + [
         P.Flag("--identifier-field", "identifier_field", int, 0, "0: ID, 1: AC", r"[0-1]")]),
             "<i:stockholm[.gz]> <o:msaDB>", "Convert Stockholm MSAs to an MSA DB", hidden=True),
-    Command("result2pp", _result2pp, lambda: _space(_profile_flags()),
+    Command("result2pp", _result2pp, lambda: port_space(_profile_flags()),
             "<i:qProfDB> <i:tProfDB> <i:resDB> <o:profDB>",
             "Merge target profiles into query profiles along alignments", hidden=True),
     # profile2cs keeps the global pca=1.0 default (result2profile/msa2profile
     # override it to 0.0, profile2cs does not — result2profile.cpp:23)
     Command("profile2cs", _profile2cs,
-            lambda: _space([f if f.name != "--pca" else
+            lambda: port_space([f if f.name != "--pca" else
                                   P.Flag("--pca", "pca", float, 1.0,
                                          "Pseudo count admixture strength")
                                   for f in _profile_flags()]),
             "<i:profileDB> <o:csDB>",
             "Convert profiles to column-state sequences", hidden=True),
-    Command("convertprofiledb", _convertprofiledb, lambda: _space(_profile_flags()),
+    Command("convertprofiledb", _convertprofiledb, lambda: port_space(_profile_flags()),
             "<i:hhsuiteHHMDB> <o:profileDB>",
             "Convert an HH-suite HHM DB to a profile DB", hidden=True),
-    Command("convertca3m", _convertca3m, lambda: _space(_profile_flags()),
+    Command("convertca3m", _convertca3m, lambda: port_space(_profile_flags()),
             "<i:ca3mDB> <o:alnDB>",
             "Convert a compressed A3M DB to an alignment result DB", hidden=True),
 ]
@@ -1679,7 +1674,7 @@ def _msa2result(positional, space, stats):
 
 # msa2result keeps msaType=2/pca=0.0 defaults (msa2result.cpp:21-24)
 COMMANDS.append(
-    Command("msa2result", _msa2result, lambda: _space(_profile_flags() + [
+    Command("msa2result", _msa2result, lambda: port_space(_profile_flags() + [
         P.Flag("--msa-type", "msa_type", int, 2, "0: ca3m, 1: a3m, 2: FASTA", r"[0-2]")]),
             "<i:msaDB> <o:seqDB> <o:resultDB>",
             "Convert an MSA DB to a profile-vs-member result DB", hidden=True))

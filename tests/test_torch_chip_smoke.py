@@ -69,7 +69,18 @@ def test_cpu_rehearsal_runs_every_phase():
                 "prefilter_0", "align_0", "clust_0", "[easy-aa] dev: "
                 "easy-search and easy-cluster", "[easy-aa] m8 ",
                 "_all_seqs.fasta", "byte-identical to the runs with --device "
-                "cpu", "[sw-main] B9 on the contigs' ",
+                "cpu", "[easy-aa] dev: easy-rbh and easy-linsearch of records "
+                "f1, f3, ... against f0, f2, ... to f99", "rbh.m8 ", "linsearch.m8 ",
+                "[linsearch-aa] 23 queries (odd keys) against 24 targets",
+                "the align stage byte-identical with --device cpu",
+                "[linsearch-aa] seconds per stage: kmersearch",
+                "rescorediagonal", "pass the ungapped filter",
+                "[rbh-aa] 24 records in A, 23 in B:", "reciprocal best hits",
+                "[rbh-aa] seconds per stage: prefilter_AB", "align_BA",
+                "B9 launches by search [0, 0]",
+                "[multihit-nt] 16 coding genomes of 2000 nt in 8 target sets",
+                "[multihit-nt] seconds per stage: prefilter",
+                "[sw-main] B9 on the contigs' ",
                 "[sw-main] B9 on the families' ", "[sw-main] B9 on "
                 "search-aa's ", "candidate pairs of search-aa's align stage",
                 "failing the E-value test", "[sw-main] B9 on 28 "
@@ -242,3 +253,35 @@ def test_kernels_line_counts_the_profile_path():
     assert set(chip_smoke.PROFILE_SHA256) == {"iterative",
                                               "target-profiles"}
     assert all(len(v) == 64 for v in chip_smoke.PROFILE_SHA256.values())
+
+
+def test_kernels_line_counts_the_linsearch_rbh_and_multihit_paths():
+    """B9's launches on linsearch-aa, rbh-aa and multihit-nt (the slice's
+    process) are paths of their own in the kernels line, beside the
+    earlier ones."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    m = {"max_abs_err": 0, "ms": 0.05, "plain_ms": 3.0, "bound_ms": 0.01,
+         "bound_by": "bytes", "bytes": 1000}
+    sw = dict(m, bound_by="operations", operations=6000, cells=1000,
+              gcups=20.0, pairs=10)
+    launches = {"search": {"sw_score": 1}, "profile": {"sw_score": 1},
+                "linsearch": {"sw_score": 1}, "rbh": {"sw_score": 2},
+                "multihit": {"sw_score": 1}}
+    kernels = chip_smoke.kernels_summary(
+        dict(m, copy_ms=0.06, elements=100), m,
+        {n: m for n in ("rescore_e2e_rev", "rescore_e2e_rev_uniform")},
+        launches, sw)
+    b9 = next(k for k in kernels if k["name"] == "sw_score")
+    assert b9["launches_by_path"] == {"search": 1, "profile": 1,
+                                      "linsearch": 1, "rbh": 2,
+                                      "multihit": 1}
+    assert b9["launches"] == 6
+    seg = next(k for k in kernels if k["name"] == "seg_scan")
+    assert seg["launches_by_path"]["rbh"] == 0
+    assert set(chip_smoke.SIDE_TAGS) == {"profile-aa", "slice"}
+    assert chip_smoke.RBH_RECORDS == 1200
+    assert (chip_smoke.MULTIHIT_SETS, chip_smoke.MULTIHIT_EVERY,
+            chip_smoke.MULTIHIT_QUERY_FILES) == (8, 13, 2)

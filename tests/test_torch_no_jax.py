@@ -31,10 +31,11 @@ def test_port_imports_no_jax():
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert int(lines[0].split()[0]) >= 59, lines
+    assert int(lines[0].split()[0]) >= 70, lines
     assert lines[1] == "BAD []", lines
-    # the guided slice's modules, the aligner's, the search slice's and
-    # the profile slice's are among those imported
+    # the guided slice's modules, the aligner's, the search slice's, the
+    # profile slice's and the linsearch / multi-hit slice's are among
+    # those imported
     for name in ("workflow.guided", "workflow.linclust", "ops.kmermatch",
                  "ops.ksw2", "ops.nucl_align", "ops.proteinaln2nucl",
                  "assembler.guided_extend", "assembler.cluster",
@@ -44,5 +45,8 @@ def test_port_imports_no_jax():
                  "data.headers", "data.dbtools", "utils.expr",
                  "workflow.search", "workflow.cluster", "cli.tools",
                  "cli.tools_profile", "ops.profile_query", "ops.profiledb",
-                 "ops.msa", "ops.profilestates", "data.ca3m"):
+                 "ops.msa", "ops.profilestates", "data.ca3m",
+                 "ops.linsearch", "ops.alignbykmer", "data.offsetaln",
+                 "data.multihit", "cli.tools_db", "cli.tools_misc",
+                 "cli.tools_linsearch"):
         assert f"'plass_tpu_torch.{name}'" in lines[2], name
