@@ -94,9 +94,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      and step, B9's launches and pairs, the cluster count;
  18. easy-aa: `plass easy-search` and `plass easy-cluster` on 100 family
      records, `plass easy-rbh` and `plass easy-linsearch` of records f1,
-     f3, ... against f0, f2, ... to f99 (by name), on the card and with
-     --device cpu: the BLAST-tab files and the cluster TSV and FASTA files
-     byte for byte equal;
+     f3, ... against f0, f2, ... to f99 (by name), and `plass
+     easy-taxonomy` of f1, f3, ... against a taxonomy DB of f0, f2, ...
+     (phase 25's synthetic taxonomy), on the card and with --device cpu:
+     the BLAST-tab files, the cluster TSV and FASTA files and
+     easy-taxonomy's four files byte for byte equal;
  19. sw-main: B9 on the candidate pairs of phase 14's align stage (for
      each input the run with the most) and of phase 15's, on edge rows
      (query length 1, target lengths 0, 1 and 33, queries at the edges of
@@ -118,9 +120,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      seeded 150-nt reads whose table the monolithic matcher would need more
      than the card's free memory for, with the automatic budget and at half
      of it: equal hits, peak memory under the card's (the matcher only).
-Phases 22-24 run one after the other in a process of their own beside
+Phases 22-25 run one after the other in a process of their own beside
 phases 17-20, started with phase 16's (they count their own launches and
-print them for the kernels line):
+print them for the kernels line); once the main process has finished
+phase 20, that process also holds B9 against its plain version (and the
+native ssw on 300 pairs) on each phase's largest align call and times it
+there beside its bound, as sw-main does ([sw-side]):
  22. linsearch-aa: `plass createlinindex` and `plass linsearch` through
      the CLI on the card, the odd-numbered keys of phase 14's family
      proteins against the even-numbered (both made with `plass
@@ -137,10 +142,21 @@ print them for the kernels line):
      target sets and of every 13th with 1% substitutions in 2 query sets,
      then `plass multihitsearch` through the CLI on the card and with
      --device cpu: the output DBs byte for byte equal; seconds, ORFs per
-     set DB, candidate pairs (at least 512), B9's launches.
+     set DB, candidate pairs (at least 512), B9's launches;
+ 25. taxonomy-aa: every 5th of phase 14's family records as queries
+     (`plass createdb`), the others as targets labelled by a synthetic
+     NCBI taxonomy (150 genera in 10 families, a protein family's members
+     spread over its genus's 3 species; `plass createtaxdb`); `plass
+     taxonomy` through the CLI on the card at the defaults (--lca-mode 3,
+     the host's lcaalign) and at --lca-mode 4 (top hit, whose `search` B9
+     scores); --lca-mode 4's align stage again with --device cpu on the
+     same prefilter DB, byte for byte equal; both taxonomy DBs' sha256
+     must equal those of --cpu-reference taxonomy; seconds per stage,
+     candidate pairs, the pairs B9 scored and rejected, its launches, peak
+     device memory and the ranks of each output.
 The kernels' launch counters are set to 0 just before phases 4, 7, 10, 13,
-14, 15, 16, 17, 18, 20, 22, 23 and 24's CLI runs and read just after; every
-kernel of each path must have run there. The last lines are the script's
+14, 15, 16, 17, 18, 20, 22, 23, 24 and 25's CLI runs and read just after;
+every kernel of each path must have run there. The last lines are the script's
 seconds, a JSON summary of the kernels (times, launches by path, bytes or
 operations counted and the bound they give at 3.35 TB/s or the card's
 integer rate), the card's name and power limit, and {"ok": true,
@@ -149,9 +165,10 @@ integer rate), the card's name and power limit, and {"ok": true,
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
 --cpu-reference runs phases 4, 7 and 10 (or, with a value, those of
-assemble, nuclassemble, guided_nuclassemble and profile it names; profile
-is phase 16's searches) at full size on the CPU, for the sha256 of their
-outputs. Neither prints a result; both exit with code 2.
+assemble, nuclassemble, guided_nuclassemble, profile and taxonomy it
+names; profile is phase 16's searches, taxonomy phase 25's runs) at full
+size on the CPU, for the sha256 of their outputs. Neither prints a result;
+both exit with code 2.
 """
 import argparse
 import contextlib
@@ -384,7 +401,7 @@ K1_REPEATS = 50
 GUIDED_GENOMES = (104, 5000)
 SCALE_RUNS = ("assemble", "nuclassemble", "guided_nuclassemble")
 # --cpu-reference also takes "profile": phase profile-aa's two searches
-REFERENCE_RUNS = SCALE_RUNS + ("profile",)
+REFERENCE_RUNS = SCALE_RUNS + ("profile", "taxonomy")
 
 
 def phase_k1(device, sizes, reps, timed_sizes=()):
@@ -1663,15 +1680,17 @@ LINCLUST_RUNS = (("contigs", "defaults", ()),
 FAMILIES = 1500
 
 
-def family_fasta(path, n_fam, seed=17):
+def family_fasta(path, n_fam, seed=17, families=None):
     """A seeded FASTA of protein families, the kind of input `plass
     linclust` clusters after an assembly: many distinct proteins of
     hundreds of residues with near and far relatives. A family's root has
     a log-normal length (median 300 residues, 80 to 1,500), its letters
     drawn from BLOSUM62's background frequencies; 1 + Poisson(3) members,
     all but the root with 1-20% substitutions, Poisson(L / 200) indels of 1
-    to 5 residues and up to 15% cut from the ends; records shuffled.
-    Returns the number of records."""
+    to 5 residues and up to 15% cut from the ends; records shuffled, each
+    named f<i> by its place before the shuffle. A `families` list receives
+    the family of f0, f1, ... in that order. Returns the number of
+    records."""
     from plass_tpu_torch import constants
     mat = constants.blosum62()
     freq = np.asarray(mat.pback[:20], dtype=np.float64)
@@ -1683,9 +1702,10 @@ def family_fasta(path, n_fam, seed=17):
         return letters[rng.choice(20, n, p=freq)]
 
     recs = []
-    for _ in range(n_fam):
+    for f in range(n_fam):
         root = draw(int(np.clip(rng.lognormal(np.log(300), 0.5), 80, 1500)))
         recs.append(root)
+        n_before = len(recs)
         for _ in range(rng.poisson(3)):
             s = root.copy()
             mut = rng.random(len(s)) < rng.uniform(0.01, 0.2)
@@ -1697,10 +1717,20 @@ def family_fasta(path, n_fam, seed=17):
             cut = int(rng.integers(0, max(1, int(0.15 * len(s)))))
             a = int(rng.integers(0, cut + 1))
             recs.append(s[a:len(s) - (cut - a)])
+        if families is not None:
+            families.extend([f] * (len(recs) - n_before + 1))
     with open(path, "w") as fh:
         for i in rng.permutation(len(recs)):
             fh.write(f">f{i}\n{recs[i].tobytes().decode()}\n")
     return len(recs)
+
+
+def make_families(path, rehearsal):
+    """family_fasta's FASTA at path (12 families in the rehearsal, else
+    FAMILIES), the family of each record in path + ".families.npy"."""
+    families = []
+    family_fasta(path, 12 if rehearsal else FAMILIES, families=families)
+    np.save(path + ".families.npy", np.asarray(families, dtype=np.int64))
 
 
 def linclust_cli(db_path, out_dir, extra, device, stats=None):
@@ -1766,7 +1796,7 @@ def phase_linclust_aa(device, work, fasta, rehearsal):
         t0 = time.perf_counter()
         if src is None:
             src = os.path.join(work, "families.fasta")
-            family_fasta(src, 12 if rehearsal else FAMILIES)
+            make_families(src, rehearsal)
         db, hdb = create_db([src])
         paths[name] = os.path.join(work, name + "_db", name)
         os.makedirs(os.path.dirname(paths[name]))
@@ -2014,19 +2044,21 @@ def recorded_align_launches():
         protein_align.align_protein = real
 
 
-# profile-aa ("profile-aa"), and linsearch-aa, rbh-aa and multihit-nt
-# ("slice"), run in processes of their own beside phases 17-20 (their
-# stages are host code but for B9's launches); each process prints its
-# phases' lines, which start with its SIDE_TAGS, and its launches on a line
-# that starts with side_result(name)
+# profile-aa ("profile-aa"), and linsearch-aa, rbh-aa, multihit-nt and
+# taxonomy-aa ("slice"), run in processes of their own beside phases 17-20
+# (their stages are host code but for B9's launches); each process prints
+# its phases' lines, which start with its SIDE_TAGS, and its result (its
+# launches; the slice's also B9's measurements) on a line that starts with
+# side_result(name)
 SIDE_TAGS = {"profile-aa": ("[profile-aa]",),
-             "slice": ("[linsearch-aa]", "[rbh-aa]", "[multihit-nt]")}
+             "slice": ("[linsearch-aa]", "[rbh-aa]", "[multihit-nt]",
+                       "[taxonomy-aa]", "[sw-side]")}
 PROFILE_TIMEOUT = 1000
 SLICE_TIMEOUT = 900
 
 
 def side_result(name):
-    return f"[{name}] launches "
+    return f"[{name}] result "
 
 
 def start_side(name, work, famdb, arg, rehearsal):
@@ -2050,22 +2082,22 @@ def stop(proc):
 
 def finish_side(name, proc, log, timeout):
     """Wait for start_side's process; print its phases' lines and return
-    the launches it printed. Fails unless it exits 0."""
+    the result it printed. Fails unless it exits 0."""
     try:
         rc = proc.wait(timeout=timeout)
     finally:
         stop(proc)
     lines = open(log).read().splitlines()
-    launches = None
+    result = None
     for line in lines:
         if line.startswith(side_result(name)):
-            launches = json.loads(line[len(side_result(name)):])
+            result = json.loads(line[len(side_result(name)):])
         elif line.startswith(SIDE_TAGS[name]):
             say(line)
-    if rc != 0 or launches is None:
+    if rc != 0 or result is None:
         print("\n".join(lines[-40:]), file=sys.stderr)
         raise AssertionError(f"{name}: its process exited with {rc}")
-    return launches
+    return result
 
 
 def _step_pairs_text(pairs, step):
@@ -2173,6 +2205,10 @@ def phase_profile_aa(device, work, famdb, qdb, check_sha=False):
     return launches
 
 
+# easy-taxonomy's outputs, after its <o:out> prefix
+TAX_OUTPUTS = ("_lca.tsv", "_report", "_tophit_report", "_tophit_aln")
+
+
 def phase_easy_aa(device, work, fasta):
     """`plass easy-search` (the records against themselves) and `plass
     easy-cluster` on the first EASY_RECORDS records of family_fasta's
@@ -2181,9 +2217,11 @@ def phase_easy_aa(device, work, fasta):
     families, whose members are numbered one after the other, so each
     side has relatives on the other; a linsearch of records against
     themselves writes nothing: each query passes the ungapped filter on
-    itself, which then drops all its pairs). Each on the device and with
-    --device cpu: the BLAST-tab files and the cluster TSV and FASTA files
-    byte for byte equal. Returns the device runs' launches, summed."""
+    itself, which then drops all its pairs), and `plass easy-taxonomy` of
+    the same records against a taxonomy DB of f0, f2, ... (tax_db). Each
+    on the device and with --device cpu: the BLAST-tab files, the cluster
+    TSV and FASTA files and easy-taxonomy's four files byte for byte
+    equal. Returns the device runs' launches, summed."""
     d = os.path.join(work, "easy_aa")
     os.makedirs(d)
     src = os.path.join(d, "input.fasta")
@@ -2198,7 +2236,9 @@ def phase_easy_aa(device, work, fasta):
                            if int(h[2:]) < EASY_RECORDS
                            and int(h[2:]) % 2 == i)
     names = ("m8", "_cluster.tsv", "_rep_seq.fasta", "_all_seqs.fasta",
-             "rbh.m8", "linsearch.m8")
+             "rbh.m8", "linsearch.m8", *TAX_OUTPUTS)
+    taxdb = os.path.join(d, "tax", "taxDB")
+    tax_db(os.path.dirname(taxdb), fasta, halves[0], taxdb, "cpu")
     total, outputs = {}, {}
     for tag, dev in (("dev", device), ("cpu", "cpu")):
         stats = {}
@@ -2218,12 +2258,18 @@ def phase_easy_aa(device, work, fasta):
                    prefix + "linsearch.m8", os.path.join(d, tag + "_lt")],
                   dev, rbh_stats)
         rbh_wall = time.perf_counter() - t0
+        tax_stats = {}
+        t0 = time.perf_counter()
+        plass_cli(["easy-taxonomy", halves[1], taxdb, prefix + "tax",
+                   os.path.join(d, tag + "_xt")], dev, tax_stats)
+        tax_wall = time.perf_counter() - t0
         if tag == "dev":
             total = _launches()
         outputs[tag] = [open(p, "rb").read() for p in (
             m8, prefix + "_cluster.tsv", prefix + "_rep_seq.fasta",
             prefix + "_all_seqs.fasta", prefix + "rbh.m8",
-            prefix + "linsearch.m8")]
+            prefix + "linsearch.m8",
+            *(prefix + "tax" + n for n in TAX_OUTPUTS))]
         say(f"[easy-aa] {tag}: easy-search and easy-cluster on "
             f"{EASY_RECORDS} records in {wall:.1f} s; {pairs_text(stats)}")
         c = rbh_stats["pairs"]
@@ -2233,6 +2279,9 @@ def phase_easy_aa(device, work, fasta):
             f"{c.get('candidate_pairs_AB', 0)} and "
             f"{c.get('candidate_pairs_BA', 0)} candidate pairs, "
             f"easy-linsearch's align {c.get('candidate_pairs', 0)}")
+        say(f"[easy-aa] {tag}: easy-taxonomy of records f1, f3, ... against "
+            f"the taxonomy DB of f0, f2, ... to f{EASY_RECORDS - 1} in "
+            f"{tax_wall:.1f} s; {pairs_text(tax_stats)}")
     for name, a, b in zip(names, outputs["dev"], outputs["cpu"]):
         if a != b:
             raise AssertionError(f"easy-aa: {name} differs from the run "
@@ -2471,12 +2520,234 @@ def phase_multihit_nt(device, work, rehearsal):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# taxonomy: `plass taxonomy` and `plass easy-taxonomy` against family_fasta's
+# proteins labelled by a synthetic NCBI taxonomy (TAX_GENERA genera in
+# TAX_FAMILIES families under Bacteria, TAX_SPECIES species a genus); a
+# protein family's members are spread over its genus's species
+
+TAX_FAMILIES = 10
+TAX_GENERA = 150
+TAX_SPECIES = 3
+# taxonomy-aa's queries: every TAXONOMY_QUERY_EVERY-th record of the FASTA
+TAXONOMY_QUERY_EVERY = 5
+# the sha256 of the default run's and the --lca-mode 4 run's taxonomy DBs
+# (data, index and dbtype files) at full size, from `python3 chip_smoke.py
+# --cpu-reference taxonomy`
+TAXONOMY_SHA256 = {
+    "default":
+        "8416b5640a0d86aa788b637fd95ee94b4770484311e2d43850fd0ed1f645d7a8",
+    "lca-mode-4":
+        "0c8a2a5cce1fa2072376928400a1d62272d111ad692aea44d2a4923503ef284d"}
+
+
+def write_tax_dump(d):
+    """The synthetic taxonomy's nodes.dmp, names.dmp, merged.dmp and
+    delnodes.dmp in d, in the NCBI files' column layout (the way
+    util/gen_goldens_tax.sh writes them)."""
+    os.makedirs(d)
+    nodes = [(1, 1, "no rank", "root"),
+             (131567, 1, "no rank", "cellular organisms"),
+             (2, 131567, "superkingdom", "Bacteria"),
+             (12908, 1, "no rank", "unclassified sequences"),
+             (28384, 1, "no rank", "other sequences")]
+    nodes += [(200 + f, 2, "family", f"Family{f}")
+              for f in range(TAX_FAMILIES)]
+    for g in range(TAX_GENERA):
+        nodes.append((1000 + g, 200 + g % TAX_FAMILIES, "genus", f"Genus{g}"))
+        nodes += [(100000 + 10 * g + s, 1000 + g, "species",
+                   f"Species{g}_{s}") for s in range(TAX_SPECIES)]
+    with open(os.path.join(d, "nodes.dmp"), "w") as fh:
+        fh.writelines(f"{t}\t|\t{p}\t|\t{r}\t|\t\t|\n"
+                      for t, p, r, _ in nodes)
+    with open(os.path.join(d, "names.dmp"), "w") as fh:
+        fh.writelines(f"{t}\t|\t{name}\t|\t\t|\tscientific name\t|\n"
+                      for t, _, _, name in nodes)
+    with open(os.path.join(d, "merged.dmp"), "w") as fh:
+        fh.write("99\t|\t100000\t|\n")
+    with open(os.path.join(d, "delnodes.dmp"), "w") as fh:
+        fh.write("98\t|\n")
+
+
+def write_tax_mapping(path, fasta):
+    """Each record's accession (its name, f<i>) and taxon: the species
+    member % TAX_SPECIES of genus family % TAX_GENERA, where member is the
+    record's place in its family (make_families's file)."""
+    families = np.load(fasta + ".families.npy")
+    first = {}
+    with open(path, "w") as fh:
+        for i, fam in enumerate(families.tolist()):
+            member = i - first.setdefault(fam, i)
+            taxon = (100000 + 10 * (fam % TAX_GENERA)
+                     + member % TAX_SPECIES)
+            fh.write(f"f{i}\t{taxon}\n")
+
+
+def tax_db(d, fasta, target_fasta, out, device):
+    """The target DB at out, `plass createdb` of target_fasta (records of
+    family_fasta's FASTA `fasta`), with the synthetic taxonomy attached by
+    `plass createtaxdb` (its dump and accession mapping written into d)."""
+    dump, mapping = os.path.join(d, "dump"), os.path.join(d, "acc2tax.tsv")
+    write_tax_dump(dump)
+    write_tax_mapping(mapping, fasta)
+    plass_cli(["createdb", target_fasta, out], device)
+    plass_cli(["createtaxdb", out, os.path.join(d, "ctmp"),
+               "--ncbi-tax-dump", dump, "--tax-mapping-file", mapping],
+              device)
+
+
+def rank_counts(path):
+    """{rank: records} of a taxonomy result DB."""
+    counts = {}
+    for line in open(path, "rb").read().replace(b"\0", b"").splitlines():
+        if line:
+            rank = line.split(b"\t")[1].decode()
+            counts[rank] = counts.get(rank, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def phase_taxonomy_aa(device, work, fasta, check_sha=False):
+    """`plass createtaxdb` of family_fasta's records but every
+    TAXONOMY_QUERY_EVERY-th (the targets, made with `plass createdb`) with
+    the synthetic taxonomy, then `plass taxonomy` of the others through
+    the CLI on the device: at the defaults (--lca-mode 3, the host's
+    lcaalign) and at --lca-mode 4 (top hit, whose `search` B9 scores);
+    the --lca-mode 4 run's align stage again with --device cpu on the same
+    prefilter DB, byte for byte equal. Prints each run's seconds per
+    stage, pairs, B9's launches, peak device memory, the ranks of its
+    output and its sha256, which with check_sha must be
+    TAXONOMY_SHA256's. Returns the device runs' launches, summed."""
+    from plass_tpu_torch.data import seqdb
+    d = os.path.join(work, "taxonomy_aa")
+    os.makedirs(d)
+    lines = open(fasta).read().splitlines()
+    halves = {"q": os.path.join(d, "q.fasta"), "t": os.path.join(d, "t.fasta")}
+    with open(halves["q"], "w") as q, open(halves["t"], "w") as t:
+        for k, (head, seq) in enumerate(zip(lines[::2], lines[1::2])):
+            (q if k % TAXONOMY_QUERY_EVERY == 0 else t).write(
+                f"{head}\n{seq}\n")
+    t0 = time.perf_counter()
+    qpath, tpath = os.path.join(d, "qDB"), os.path.join(d, "tDB")
+    plass_cli(["createdb", halves["q"], qpath], device)
+    tax_db(d, fasta, halves["t"], tpath, device)
+    n_q, n_t = seqdb.SeqDB.open(qpath).size, seqdb.SeqDB.open(tpath).size
+    say(f"[taxonomy-aa] {n_q} queries (every {TAXONOMY_QUERY_EVERY}th record) "
+        f"and {n_t} targets with `plass createdb`, the targets' taxonomy "
+        f"({TAX_GENERA} genera in {TAX_FAMILIES} families, {TAX_SPECIES} "
+        f"species a genus) with `plass createtaxdb`, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    total, digests = {}, {}
+    for name, extra in (("default", ()), ("lca-mode-4", ("--lca-mode", "4"))):
+        out = os.path.join(d, "tax_" + name)
+        tmp = os.path.join(d, "tmp_" + name)
+        stats = {}
+        _reset_launches()
+        _peak_reset(device)
+        t0 = time.perf_counter()
+        plass_cli(["taxonomy", qpath, tpath, out, tmp, *extra], device, stats)
+        wall = time.perf_counter() - t0
+        peak = _peak(device)
+        launches = _launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        digests[name] = hashlib.sha256(db_bytes(out)).hexdigest()
+        command = " ".join(("plass taxonomy",) + extra)
+        say(f"[taxonomy-aa] {name}: `{command}` in {wall:.1f} s; taxonomy "
+            f"DB sha256 {digests[name]}; ranks {rank_counts(out)}")
+        say(f"[taxonomy-aa] {name}: seconds per stage: "
+            f"{seconds_text(stats['seconds'])}; {pairs_text(stats)}; B9 "
+            f"launches {launches['sw_score']}; peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+    # the --lca-mode 4 run's align stage (cli/tools.py::_taxonomy's
+    # search, setTaxonomyDefaults) with the CPU, its prefilter reused
+    hsp = os.path.join(d, "tmp_lca-mode-4", "tmp_hsp1")
+    os.unlink(os.path.join(hsp, "latest", "aln_0.done"))
+    cpu_aln, cpu_stats = os.path.join(d, "first_cpu"), {}
+    t0 = time.perf_counter()
+    plass_cli(["search", qpath, tpath, cpu_aln, hsp, "-s", "2", "-e", "1",
+               "--max-accept", "30", "--max-rejected", "5",
+               "--alignment-mode", "1"], "cpu", cpu_stats)
+    cpu_wall = time.perf_counter() - t0
+    if "prefilter" in cpu_stats["seconds"]:
+        raise AssertionError("taxonomy-aa: the align stage with --device cpu "
+                             "did not reuse the prefilter DB")
+    if db_bytes(cpu_aln) != db_bytes(os.path.join(d, "tmp_lca-mode-4",
+                                                  "first")):
+        raise AssertionError("taxonomy-aa: --lca-mode 4's alignment DB "
+                             "differs from its align stage with --device cpu")
+    say(f"[taxonomy-aa] lca-mode-4: the align stage byte-identical with "
+        f"--device cpu ({cpu_wall:.1f} s; {pairs_text(cpu_stats)})")
+    if device.type == "cuda" and not total["sw_score"]:
+        raise AssertionError("taxonomy-aa: B9 never launched at --lca-mode 4")
+    if check_sha:
+        for name, want in TAXONOMY_SHA256.items():
+            if digests[name] != want:
+                raise AssertionError(f"taxonomy-aa: {name} sha256 "
+                                     f"{digests[name]}, the CPU's is {want}")
+        say("[taxonomy-aa] both sha256 equal those of --cpu-reference "
+            "taxonomy")
+    return total
+
+
+# B9's measurements in the side process: on the largest align call of
+# phases 22-25, timed once the main process has finished its own work on
+# the card (it writes MAIN_IDLE into the work dir); the first
+# SIDE_NATIVE_PAIRS of each also held against the native ssw
+SIDE_NATIVE_PAIRS = 300
+MAIN_IDLE = "main_idle"
+
+
 def phase_slice(device, work, famdb, fasta, rehearsal):
-    """linsearch-aa, rbh-aa and multihit-nt, one after the other. Returns
-    {path: launches}."""
-    return {"linsearch": phase_linsearch_aa(device, work, famdb),
-            "rbh": phase_rbh_aa(device, work, fasta, rehearsal),
-            "multihit": phase_multihit_nt(device, work, rehearsal)}
+    """linsearch-aa, rbh-aa, multihit-nt and taxonomy-aa, one after the
+    other, each align call recorded; then, once the main process is idle,
+    B9 on each phase's largest call against its plain version and the
+    native ssw, timed beside its bound as in sw-main. Returns
+    {"launches": {path: launches}, "sw": {path: measurements}}."""
+    phases = (("linsearch", lambda: phase_linsearch_aa(device, work, famdb)),
+              ("rbh", lambda: phase_rbh_aa(device, work, fasta, rehearsal)),
+              ("multihit", lambda: phase_multihit_nt(device, work,
+                                                     rehearsal)),
+              ("taxonomy", lambda: phase_taxonomy_aa(
+                  device, work, fasta, check_sha=not rehearsal)))
+    launches, calls = {}, {}
+    for name, run in phases:
+        with recorded_align_calls() as spied:
+            launches[name] = run()
+        calls[name] = max(spied, key=lambda c: len(c["pairs"]))
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(work, MAIN_IDLE)):
+        time.sleep(0.5)
+    say(f"[sw-side] waited {time.perf_counter() - t0:.1f} s for the main "
+        f"process to leave the card")
+    return {"launches": launches,
+            "sw": {name: sw_on_call(name, call, 1 if rehearsal else 20,
+                                    device)
+                   for name, call in calls.items()}}
+
+
+def sw_on_call(name, call, reps, device):
+    """B9 on a recorded align call's candidate pairs: equal to its plain
+    version and, on the first SIDE_NATIVE_PAIRS, to the native ssw; timed
+    beside its bound (_sw_time). Returns the measurements."""
+    pairs = call["pairs"]
+    gaps = (call["gap_open"], call["gap_extend"])
+    if not pairs:
+        raise AssertionError(f"sw-side: {name}'s align stage had no pairs")
+    args, _ = _sw_check(call["db"], call["tdb"], pairs,
+                        call["comp_bias_corr"], gaps, device,
+                        SIDE_NATIVE_PAIRS)
+    m = _sw_time(args, gaps, reps, device)
+    qlen = args[2][args[8].long()]
+    tlen = args[6][args[9].long()]
+    say(f"[sw-side] B9 on the {len(pairs)} candidate pairs of {name}'s "
+        f"align stage ({call['db'].size} queries of median "
+        f"{int(qlen.median())} and up to {int(qlen.max())}, targets of median "
+        f"{int(tlen.median())} and up to {int(tlen.max())} residues, "
+        f"{m['cells']} cells, gaps {gaps[0]}/{gaps[1]}): equal to the plain "
+        f"version, and to the native ssw on the first "
+        f"{min(len(pairs), SIDE_NATIVE_PAIRS)}")
+    say("[sw-side]" + _sw_line(f"{name}'s", m)[len("[sw-main]"):])
+    return m
 
 
 # B9's edge rows: a row per lane up to 32, the edges of the warp-path
@@ -2857,8 +3128,8 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
     bound_ms, bound_by, bytes); launches maps each main path to its
     {kernel: launches}. Without sw or hamming their entries are left out;
     sw's measurements on the contigs', search-aa's and the edge rows'
-    pairs, where given under "contigs", "search" and "edge", go into B9's
-    entry."""
+    pairs and on the side process's (linsearch, rbh, multihit, taxonomy),
+    where given under those names, go into B9's entry."""
     def entry(name, source, replaces, m, **extra):
         paths = {path: counts.get(name, 0)
                  for path, counts in launches.items()}
@@ -2894,7 +3165,8 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
             **{name: {k: v for k, v in sw[name].items() if k in (
                 "ms", "plain_ms", "bound_ms", "cells", "gcups", "pairs",
                 "rejected", "block_pairs")}
-               for name in ("contigs", "search", "edge") if name in sw}))
+               for name in ("contigs", "search", "edge", "linsearch", "rbh",
+                            "multihit", "taxonomy") if name in sw}))
     for name in ("rescore_hamming", "rescore_hamming_rev") \
             if hamming is not None else ():
         kernels.append(entry(name, k2_src[0],
@@ -2927,12 +3199,12 @@ def main():
         name, work, famdb, arg = args.side_phase
         device = pick_device("cpu" if args.cpu_rehearsal else "cuda")
         if name == "profile-aa":
-            launches = phase_profile_aa(device, work, famdb, arg,
-                                        check_sha=not args.cpu_rehearsal)
+            result = {"launches": phase_profile_aa(
+                device, work, famdb, arg, check_sha=not args.cpu_rehearsal)}
         else:
-            launches = phase_slice(device, work, famdb, arg,
-                                   args.cpu_rehearsal)
-        say(side_result(name) + json.dumps(launches))
+            result = phase_slice(device, work, famdb, arg,
+                                 args.cpu_rehearsal)
+        say(side_result(name) + json.dumps(result))
         return 0
     if args.cpu_reference:
         runs = args.cpu_reference.split(",")
@@ -2948,11 +3220,14 @@ def main():
                 phase_nucl_scale(device, work, 50, 20000)
             if "guided_nuclassemble" in runs:
                 phase_guided_scale(device, work, *GUIDED_GENOMES)
+            fasta = os.path.join(work, "families.fasta")
+            if {"profile", "taxonomy"} & set(runs):
+                make_families(fasta, False)
             if "profile" in runs:
-                fasta = os.path.join(work, "families.fasta")
-                family_fasta(fasta, FAMILIES)
                 phase_profile_aa(device, work, *search_dbs(work, fasta,
                                                            device))
+            if "taxonomy" in runs:
+                phase_taxonomy_aa(device, work, fasta)
         say(f"[cpu-reference] {', '.join(runs)} at full size on the CPU; no "
             f"result")
         return 2
@@ -3009,8 +3284,11 @@ def main():
             del lcalls
             hlaunches, hamming = phase_hamming(device, work, db_path,
                                                ndb_paths[0], reps)
-            slice_launches = finish_side(*side, SLICE_TIMEOUT)
-            plaunches = finish_side(*profile, PROFILE_TIMEOUT)
+            # the slice's process times B9 once the card is free of this
+            # process's work
+            open(os.path.join(work, MAIN_IDLE), "w").close()
+            slice_result = finish_side(*side, SLICE_TIMEOUT)
+            plaunches = finish_side(*profile, PROFILE_TIMEOUT)["launches"]
         finally:
             stop(profile[1])
             stop(side[1])
@@ -3029,8 +3307,9 @@ def main():
          "guided_nuclassemble": glaunches, "split": slaunches,
          "linclust": llaunches, "search": salaunches, "profile": plaunches,
          "cluster": calaunches,
-         "easy": ealaunches, "rescore_mode_0": hlaunches, **slice_launches},
-        sw, hamming)
+         "easy": ealaunches, "rescore_mode_0": hlaunches,
+         **slice_result["launches"]},
+        dict(sw, **slice_result["sw"]), hamming)
     say(json.dumps({"kernels": kernels}))
     say(smi())
     say(json.dumps({"ok": True, "device": {

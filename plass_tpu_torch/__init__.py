@@ -1,6 +1,7 @@
 """plass_tpu_torch — `plass assemble`, `penguin nuclassemble`,
 `penguin guided_nuclassemble`, `linclust`, `search` (also iterative and
-against profiles), `cluster` and the profile tools in PyTorch and CUDA.
+against profiles), `cluster`, `taxonomy` and the profile, linsearch,
+multi-hit and taxonomy tools in PyTorch and CUDA.
 
 A port of `plass_tpu` (JAX/Pallas) to PyTorch on an NVIDIA Hopper GPU. The
 JAX package stays beside it as the reference the port is held against.
@@ -15,8 +16,9 @@ JAX package stays beside it as the reference the port is held against.
    and sparse histogram in torch and numpy
  - host layers (data/, the greedy extenders, proteinaln2nucl, the linclust
    tail, the aligner's native striped Smith-Waterman, the sensitive
-   prefilter, the profile and MSA code, the CLI's flag registry, the
-   workflow engine) are copies of the JAX package's numpy/ctypes code
+   prefilter, the profile and MSA code, the NCBI taxonomy, the CLI's flag
+   registry, the workflow engine) are copies of the JAX package's
+   numpy/ctypes code
 
 Nothing here imports jax or plass_tpu: `import plass_tpu` turns on jax at
 import time, and the GPU machine has no jax. The port reads two kinds of

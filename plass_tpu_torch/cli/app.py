@@ -6,7 +6,9 @@ accepts parses to the same values here) plus `--device`. A bare boolean
 flag toggles its value (Parameters.cpp:1670-1677). `--threads` and
 `--backend` are accepted and ignored: the port's device is `--device`, and
 its host stages take their threads from OpenMP and torch. `<command>
---help` lists a command's flags with their defaults.
+--help` lists a command's flags with their defaults. As the JAX package's
+shell, it answers `version`/`--version`, `shellcompletion [command]` and,
+for a mistyped command, "Did you mean".
 """
 import dataclasses
 import sys
@@ -62,6 +64,31 @@ def _command_help(binary, cmd):
     return "\n".join(lines)
 
 
+def _levenshtein(a, b):
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[-1] + 1, prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1]
+
+
+def _shellcompletion(commands, args):
+    """The reference's `shellcompletion` tool (Application.cpp:124-182):
+    no operand, the visible command names; one operand, that command's flag
+    names (the contract util/bash-completion.sh consumes)."""
+    if not args:
+        print(" ".join(c.name for c in commands if not c.hidden) + " ")
+        return 0
+    for c in commands:
+        if c.name == args[0]:
+            print(" ".join(c.params_fn().flags.keys()) + " ")
+            break
+    print()
+    return 0
+
+
 def run_app(binary, commands, argv, stats=None):
     """Parse argv (a command, its flags and positional arguments) and run
     the command; returns the exit code. `stats` is handed to the command's
@@ -73,12 +100,22 @@ def run_app(binary, commands, argv, stats=None):
             if not c.hidden:
                 print(f"  {c.name:24s} {c.description}")
         return 0
+    if argv[0] in ("version", "--version"):
+        from .. import __version__
+        print(__version__)
+        return 0
+    if argv[0] == "shellcompletion":
+        return _shellcompletion(commands, argv[1:])
+    name = argv[0]
     byname = {c.name: c for c in commands}
-    if argv[0] not in byname:
-        print(f"Invalid command '{argv[0]}'. Commands: "
-              f"{', '.join(byname)}", file=sys.stderr)
+    if name not in byname:
+        # a Levenshtein hint, as the JAX package's shell gives it
+        best = min(byname, key=lambda n: _levenshtein(name, n))
+        print(f"Invalid command '{name}'.", file=sys.stderr)
+        if _levenshtein(name, best) <= max(2, len(name) // 2):
+            print(f"Did you mean '{best}'?", file=sys.stderr)
         return 1
-    cmd = byname[argv[0]]
+    cmd = byname[name]
     if "-h" in argv[1:] or "--help" in argv[1:]:
         print(_command_help(binary, cmd))
         return 0
@@ -89,7 +126,7 @@ def run_app(binary, commands, argv, stats=None):
         print(f"Error: {e}", file=sys.stderr)
         print(f"usage: {binary} {cmd.name} {cmd.usage}", file=sys.stderr)
         return 1
-    setup(space.values["verbosity"])
+    setup(space.values.get("verbosity", 3))
     try:
         return cmd.fn(positional, space,
                       {} if stats is None else stats) or 0

@@ -18,6 +18,8 @@ part, `guided_nuclassemble` keeps both where the workflow has both
 """
 import sys
 
+import numpy as np
+
 from ..data import seqdb
 from ..ops.kmermatch import parse_memory_limit
 from ..utils.log import logger
@@ -172,8 +174,11 @@ def _guidedassembleresults(positional, space, stats):
     nucl_db = seqdb.SeqDB.open(positional[0])
     aa_db = seqdb.SeqDB.open(positional[1])
     alns = load_alignments_with_backtrace(positional[2])
+    if np.array_equal(nucl_db.keys, aa_db.keys):
+        # the native kernel's input; other DBs take the records as dicts
+        alns = records_to_flat(nucl_db, alns)
     nucl_out, aa_out, _ = guided_assemble(
-        nucl_db, aa_db, records_to_flat(nucl_db, alns),
+        nucl_db, aa_db, alns,
         seq_id_thr=space.values["min_seq_id"].nucleotides,
         max_seq_len=space.values["max_seq_len"],
         keep_target=space.values["keep_target"])

@@ -1,16 +1,18 @@
 """Base tools of the port's `plass` and `penguin` CLIs: the DB plumbing,
 the sensitive prefilter, `align`, `search` (against sequences, against
 profiles, exhaustive and iterative) and cascaded `cluster` with their
-easy-* forms, `rbh`, `map`, the multi-hit tools, the profile and MSA
-tools (cli/tools_profile.py), linsearch and its relatives
-(cli/tools_linsearch.py, cli/tools_misc.py, cli/tools_db.py), and the
-alignment-DB readers the product CLIs' hidden tools share.
+easy-* forms, `rbh`, `map`, the multi-hit tools, the taxonomy tools and
+the `taxonomy` workflow (data/taxonomy.py), `proteinaln2nucl`, the
+profile and MSA tools (cli/tools_profile.py), linsearch and its
+relatives (cli/tools_linsearch.py, cli/tools_misc.py, cli/tools_db.py),
+and the alignment-DB readers the product CLIs' hidden tools share.
 
 A copy of the JAX package's cli/tools.py, cut to these commands; each
 keeps its flag list there (cli/params.py) plus --device, which sets where
 the aligner scores its candidate pairs (kernel B9, ops/protein_align.py).
-Everything else runs on the host, as in the JAX package. One command
-departs from it: `rescorediagonal` looks its hits' target keys up in its
+Everything else runs on the host, as in the JAX package (`taxonomy`'s
+default --lca-mode 3 aligns with the host's lcaalign; --lca-mode 4 and 1
+align through `search`). One command departs from it: `rescorediagonal` looks its hits' target keys up in its
 <i:tDB>, as the reference does (ROADMAP C4). The base tools of the JAX
 package not listed in BASE_COMMANDS are not registered (ROADMAP item
 23). A command's `stats` dict receives the stage seconds of its workflow
@@ -1606,6 +1608,559 @@ def _multihitsearch(positional, space, stats):
     return 0
 
 
+def _createtaxdb(positional, space, stats):
+    """createtaxdb offline path (createtaxdb.sh:57-101): copy the provided
+    NCBI dump files next to the sequence DB and derive <db>_mapping by
+    joining <db>.lookup accessions with the accession->taxid file."""
+    import shutil
+
+    from ..data import taxonomy as taxmod
+    if len(positional) != 2:
+        raise ValueError("usage: createtaxdb <i:seqDB> <tmpDir> "
+                         "--ncbi-tax-dump <dir> --tax-mapping-file <file>")
+    v = space.values
+    dump = v.get("ncbi_tax_dump", "")
+    mapping_file = v.get("tax_mapping_file", "")
+    if not dump or not mapping_file:
+        raise ValueError("createtaxdb: downloads are unavailable; pass "
+                         "--ncbi-tax-dump and --tax-mapping-file")
+    db = positional[0]
+    if v.get("tax_db_mode", 1) == 1:
+        # createtaxdb.sh:69-72 — binary dump (default, taxDbMode=1)
+        data = taxmod.serialize_taxonomy(os.path.join(dump, "names.dmp"),
+                                         os.path.join(dump, "nodes.dmp"),
+                                         os.path.join(dump, "merged.dmp"))
+        with open(f"{db}_taxonomy", "wb") as f:
+            f.write(data)
+    else:
+        for name in ("names.dmp", "nodes.dmp", "merged.dmp"):
+            shutil.copyfile(os.path.join(dump, name),
+                            f"{db}_{name[:-4]}.dmp")
+        deln = os.path.join(dump, "delnodes.dmp")
+        if os.path.exists(deln):
+            shutil.copyfile(deln, f"{db}_delnodes.dmp")
+    acc2tax = {}
+    for line in open(mapping_file):
+        parts = line.split()
+        if len(parts) >= 2:
+            acc2tax[parts[0]] = int(parts[1])
+    mapping = {}
+    for line in open(db + ".lookup"):
+        parts = line.split("\t")
+        if len(parts) >= 2 and parts[1] in acc2tax:
+            mapping[int(parts[0])] = acc2tax[parts[1]]
+    taxmod.write_mapping(db + "_mapping", mapping)
+    return 0
+
+
+def _nrtotaxmapping(positional, space, stats):
+    """nrtotaxmapping (util/nrtotaxmapping.cpp:51-283): derive a
+    <db>_mapping from NR-style headers — accession lookup in the given
+    accession2taxid files, falling back to the species name in the last
+    space-preceded [bracket]; per-record LCA over all header entries."""
+    import gzip
+
+    from ..data import taxonomy as taxmod
+    if len(positional) < 3:
+        raise ValueError("usage: nrtotaxmapping <i:acc2taxid...> "
+                         "<i:seqDB> <o:mappingFile>")
+    acc_files = positional[:-2]
+    seq_db = positional[-2]
+    out_path = positional[-1]
+    acc2tax = {}
+    for path in acc_files:
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rt") as f:
+            for line in f:
+                cols = line.split()
+                if len(cols) < 4:
+                    raise ValueError(f"Invalid accession2taxid file {path}")
+                # fast_atoi: header rows ("taxid") parse to 0
+                m = re.match(r"\d+", cols[2])
+                acc2tax[cols[0].encode()] = int(m.group()) if m else 0
+    tax = taxmod.Taxonomy.open(seq_db)
+    # names that identify exactly one taxon (the reference additionally
+    # drops the lexicographically-last name when only two nodes exist,
+    # nrtotaxmapping.cpp:110-120)
+    name_count = {}
+    name_tax = {}
+    for node in tax.nodes.values():
+        name = node.name.encode()
+        name_count[name] = name_count.get(name, 0) + 1
+        name_tax[name] = node.tax_id
+    n_nodes = len(tax.nodes)
+    uniq_names = {n: t for n, t in name_tax.items()
+                  if name_count[n] == 1}
+    if n_nodes == 2 and len(uniq_names) == 2:
+        del uniq_names[max(uniq_names)]
+    elif n_nodes == 1:
+        uniq_names = {}
+    hdb = seqdb.SeqDB.open(seq_db + "_h")
+    mapping = []
+    for i in seqdb.data_order(hdb):
+        key = int(hdb.keys[i])
+        rec = hdb.get_data(i).tobytes()
+        taxa = []
+        n = len(rec)
+        idx = 0
+        start = 0
+        is_in_acc = True
+        start_name = end_name = 0
+        in_species = need_species = False
+        done = False
+        while not done:
+            c = rec[idx] if idx < n else 0
+            if c in (10, 0):
+                done = True
+                c = 1  # FALLTHROUGH to the entry-separator case
+            if c == 1:
+                if need_species and in_species:
+                    t = uniq_names.get(rec[start_name:end_name], 0)
+                    if t:
+                        taxa.append(t)
+                idx += 1
+                start = idx
+                is_in_acc = True
+                need_species = False
+                in_species = False
+            elif c == 0x5B:  # '[' — only counts with a space before it
+                if idx > 0 and rec[idx - 1] == 0x20:
+                    idx += 1
+                    start_name = idx
+                    end_name = idx
+                    in_species = True
+            elif c == 0x5D:  # ']'
+                end_name = idx
+            elif c in (0x2E, 0x20):  # '.' / ' ' end the accession
+                if is_in_acc:
+                    t = acc2tax.get(rec[start:idx], 0)
+                    if t:
+                        taxa.append(t)
+                    else:
+                        need_species = True
+                    is_in_acc = False
+            idx += 1
+        node = tax.lca(taxa) if taxa else None
+        if node is not None:
+            mapping.append((key, node.tax_id))
+    mapping.sort(key=lambda kv: kv[0])
+    with open(out_path, "w") as f:
+        for key, taxid in mapping:
+            f.write(f"{key}\t{taxid}\n")
+    return 0
+
+
+def _createbintaxonomy(positional, space, stats):
+    """createbintaxonomy (taxonomy/createbintaxonomy.cpp:6-20): serialize
+    names/nodes/merged dmp files to the version-2 binary taxonomy dump."""
+    from ..data import taxonomy as taxmod
+    if len(positional) != 4:
+        raise ValueError("usage: createbintaxonomy <i:names.dmp> "
+                         "<i:nodes.dmp> <i:merged.dmp> <o:taxonomyFile>")
+    data = taxmod.serialize_taxonomy(positional[0], positional[1],
+                                     positional[2])
+    with open(positional[3], "wb") as f:
+        f.write(data)
+    return 0
+
+
+def _tax_result_suffix(tax, node, ranks, show_lineage):
+    parts = [str(node.tax_id), node.rank, node.name]
+    if ranks:
+        parts.append(";".join(tax.at_ranks(node, ranks)))
+    if show_lineage == 1:
+        parts.append(tax.tax_lineage(node, True))
+    elif show_lineage == 2:
+        parts.append(tax.tax_lineage(node, False))
+    return "\t".join(parts)
+
+
+def _lca(positional, space, stats, majority=False):
+    """lca / majoritylca (lca.cpp): LCA of each record's target taxa,
+    with the default unclassified-sequences blacklist."""
+    from ..data import taxonomy as taxmod
+    if len(positional) != 3:
+        raise ValueError("usage: lca <i:taxSeqDB> <i:resultDB> <o:taxDB>")
+    v = space.values
+    tax = taxmod.Taxonomy.open(positional[0])
+    mapping = taxmod.read_mapping(positional[0] + "_mapping")
+    db = seqdb.SeqDB.open(positional[1])
+    ranks = [r for r in v.get("lca_ranks", "").split(",") if r]
+    show_lineage = v.get("tax_lineage", 0)
+    blacklist = taxmod.parse_blacklist(tax, v.get("blacklist",
+                                                  taxmod.DEFAULT_BLACKLIST))
+    no_tax = "0\tno rank\tunclassified"
+    if ranks:
+        no_tax += "\t"
+    if show_lineage > 0:
+        no_tax += "\t"
+    w = seqdb.DBWriter(seqdb.TAX_RES)
+    order = sorted(range(db.size), key=lambda j: int(db.offsets[j]))
+    for i in order:
+        key = int(db.keys[i])
+        data = db.get_data(i).tobytes()
+        taxa = []
+        for line in data.decode().splitlines():
+            if not line:
+                continue
+            tkey = int(line.split("\t")[0].split()[0])
+            taxon = mapping.get(tkey)
+            if taxon is None:
+                continue
+            if any(tax.is_ancestor(b, taxon) for b in blacklist):
+                continue
+            if majority:
+                taxa.append((taxon, 1.0))
+            else:
+                taxa.append(taxon)
+        if len(data) <= 1:
+            w.write(key, (no_tax + "\n").encode(), add_newline=False)
+            continue
+        if majority:
+            sel = taxmod.weighted_majority_lca(
+                tax, taxa, v.get("majority", 0.5))
+            node = tax.node(sel) if sel else None
+        else:
+            node = tax.lca(taxa)
+        if node is None:
+            w.write(key, (no_tax + "\n").encode(), add_newline=False)
+            continue
+        w.write(key, (_tax_result_suffix(tax, node, ranks, show_lineage)
+                      + "\n").encode(), add_newline=False)
+    w.finish().save(positional[2])
+    return 0
+
+
+def _majoritylca(positional, space, stats):
+    return _lca(positional, space, stats, majority=True)
+
+
+def _addtaxonomy(positional, space, stats):
+    """addtaxonomy.cpp: append taxid/rank/name columns to result lines."""
+    from ..data import taxonomy as taxmod
+    if len(positional) != 3:
+        raise ValueError(
+            "usage: addtaxonomy <i:taxSeqDB> <i:resultDB> <o:resultDB>")
+    v = space.values
+    tax = taxmod.Taxonomy.open(positional[0])
+    mapping = taxmod.read_mapping(positional[0] + "_mapping")
+    db = seqdb.SeqDB.open(positional[1])
+    ranks = [r for r in v.get("lca_ranks", "").split(",") if r]
+    show_lineage = v.get("tax_lineage", 0)
+    # --pick-id-from: 1 = record key (query), 2 = first column (target)
+    pick_query = v.get("pick_id_from", 2) == 1
+    w = seqdb.DBWriter(db.dbtype)
+    for i in seqdb.data_order(db):
+        data = db.get_data(i).tobytes()
+        if len(data) <= 1:
+            continue  # empty input records are skipped (addtaxonomy.cpp:64)
+        if pick_query:
+            taxon = mapping.get(int(db.keys[i]))
+            if taxon is None or tax.node(taxon) is None:
+                continue
+        out = []
+        for line in data.decode().splitlines():
+            if not line:
+                continue
+            if pick_query:
+                taxon = mapping.get(int(db.keys[i]))
+            else:
+                tkey = int(line.split("\t")[0].split()[0])
+                taxon = mapping.get(tkey)
+            node = tax.node(taxon) if taxon else None
+            if node is None:
+                continue
+            out.append(line + "\t"
+                       + _tax_result_suffix(tax, node, ranks, show_lineage))
+        w.write(int(db.keys[i]),
+                "".join(l + "\n" for l in out).encode(),
+                add_newline=False)
+    w.finish().save(positional[2])
+    return 0
+
+
+def _taxonomyreport(positional, space, stats):
+    """taxonomyreport.cpp: Kraken-style clade report from a taxonomy
+    result DB (children sorted by descending clade count)."""
+    from ..data import taxonomy as taxmod
+    if len(positional) != 3:
+        raise ValueError(
+            "usage: taxonomyreport <i:taxSeqDB> <i:taxResultDB> <o:tsv>")
+    tax = taxmod.Taxonomy.open(positional[0])
+    db = seqdb.SeqDB.open(positional[1])
+    per_taxon = {}
+    total = db.size
+    for i in range(db.size):
+        data = db.get_data(i).tobytes().decode()
+        taxon = 0
+        first = data.split("\n", 1)[0]
+        if first:
+            taxon = int(first.split("\t")[0])
+        per_taxon[taxon] = per_taxon.get(taxon, 0) + 1
+    # clade counts + children
+    clade = {}
+    children = {}
+    for taxon, cnt in per_taxon.items():
+        if taxon == 0:
+            clade[0] = clade.get(0, 0) + cnt
+            continue
+        lineage = tax._lineage_ids(taxon)
+        for t in lineage:
+            clade[t] = clade.get(t, 0) + cnt
+        for child, parent in zip(lineage[:-1], lineage[1:]):
+            children.setdefault(parent, set()).add(child)
+    out = open(positional[2], "w")
+
+    def emit(taxon, depth):
+        cnt = clade.get(taxon, 0)
+        if cnt == 0:
+            return
+        node = tax.node(taxon)
+        out.write(f"{100 * cnt / float(total):.4f}\t{cnt}\t"
+                  f"{per_taxon.get(taxon, 0)}\t{node.rank}\t{taxon}\t"
+                  f"{'  ' * depth}{node.name}\n")
+        for c in sorted(children.get(taxon, ()),
+                        key=lambda t: -clade.get(t, 0)):
+            emit(c, depth + 1)
+    if clade.get(0, 0) > 0:
+        out.write(f"{100 * clade[0] / float(total):.4f}\t{clade[0]}\t"
+                  f"{per_taxon.get(0, 0)}\tno rank\t0\tunclassified\n")
+    emit(1, 0)
+    out.close()
+    return 0
+
+
+def _filtertaxdb(positional, space, stats):
+    """filtertaxdb.cpp: keep result lines whose taxon matches the
+    taxonomy expression (--taxon-list, '!' negates)."""
+    from ..data import taxonomy as taxmod
+    if len(positional) != 3:
+        raise ValueError(
+            "usage: filtertaxdb <i:taxSeqDB> <i:taxResultDB> <o:taxResultDB>")
+    tax = taxmod.Taxonomy.open(positional[0])
+    expr = taxmod.TaxonomyExpression(
+        space.values.get("taxon_list", ""), tax)
+    db = seqdb.SeqDB.open(positional[1])
+    w = seqdb.DBWriter(db.dbtype)
+    for i in seqdb.data_order(db):
+        out = []
+        for line in db.get_data(i).tobytes().decode().splitlines():
+            if not line:
+                continue
+            taxon = int(line.split("\t")[0])
+            if expr.matches(taxon):
+                out.append(line)
+        w.write(int(db.keys[i]),
+                "".join(l + "\n" for l in out).encode(),
+                add_newline=False)
+    w.finish().save(positional[2])
+    return 0
+
+
+def _aggregate_tax(positional, space, stats, use_aln):
+    """aggregatetax / aggregatetaxweights (taxonomy/aggregatetax.cpp:15-188):
+    weighted-majority-LCA over the taxa of each set's member sequences;
+    weights from the member's alignment E-value or score when use_aln."""
+    import math
+
+    import numpy as np
+
+    from ..data import taxonomy as taxmod
+    n_pos = 5 if use_aln else 4
+    if len(positional) != n_pos:
+        raise ValueError("aggregatetax needs %d positional args" % n_pos)
+    v = space.values
+    tax = taxmod.Taxonomy.open(positional[0])
+    set_db = seqdb.SeqDB.open(positional[1])
+    tax_db = seqdb.SeqDB.open(positional[2])
+    aln_db = seqdb.SeqDB.open(positional[3]) if use_aln else None
+    out_path = positional[4] if use_aln else positional[3]
+    ranks = [r for r in v.get("lca_ranks", "").split(",") if r]
+    vote_mode = v.get("vote_mode", taxmod.AGG_TAX_MINUS_LOG_EVAL)
+    majority = v.get("majority", 0.5)
+    show_lineage = v.get("tax_lineage", 0)
+    writer = seqdb.DBWriter(seqdb.TAX_RES)
+    flt_max = 3.4028234663852886e38
+    for i in seqdb.data_order(set_db):
+        set_key = int(set_db.keys[i])
+        hits = []
+        for line in set_db.get_data(i).tobytes().decode().split("\n"):
+            if not line:
+                continue
+            seq_key = int(line.split()[0])
+            tid = tax_db.key_to_id(seq_key)
+            if tid is None:
+                raise ValueError(f"Missing key {seq_key} in tax result")
+            taxon = int(tax_db.get_data(tid).tobytes().decode().split()[0])
+            if use_aln and taxon != 0:
+                aid = aln_db.key_to_id(seq_key)
+                if aid is None:
+                    raise ValueError("Missing key in alignment result")
+                cols = (aln_db.get_data(aid).tobytes().decode()
+                        .split("\n")[0].split())
+                weight = flt_max
+                if vote_mode == taxmod.AGG_TAX_MINUS_LOG_EVAL:
+                    weight = float(cols[3])
+                elif vote_mode == taxmod.AGG_TAX_SCORE:
+                    weight = float(cols[1])
+                hits.append((taxon,
+                             taxmod.weighted_tax_hit_weight(weight,
+                                                            vote_mode)))
+            else:
+                hits.append((taxon, 1.0))
+        (sel, assigned, unassigned, agree,
+         percent) = taxmod.weighted_majority_lca_full(tax, hits, majority)
+        node = tax.node(sel)
+        total = assigned + unassigned
+        # SSTR(roundf(p*100)/100): float round-half-away, then %.3f
+        fv = float(np.float32(percent * 100))
+        r = math.floor(fv) + (1 if fv - math.floor(fv) >= 0.5 else 0)
+        pct_str = "%.3f" % float(np.float32(r) / np.float32(100))
+        if sel == 0 or node is None:
+            parts = ["0", "no rank", "unclassified", str(total),
+                     str(assigned), str(agree), pct_str]
+            line = "\t".join(parts)
+            if ranks:
+                line += "\t"
+            if show_lineage > 0:
+                line += "\t"
+        else:
+            parts = [str(node.tax_id), node.rank, node.name, str(total),
+                     str(assigned), str(agree), pct_str]
+            line = "\t".join(parts)
+            if ranks:
+                line += "\t" + ";".join(tax.at_ranks(node, ranks))
+            if show_lineage == 1:
+                line += "\t" + tax.tax_lineage(node, True)
+            elif show_lineage == 2:
+                line += "\t" + tax.tax_lineage(node, False)
+        writer.write(set_key, (line + "\n").encode(), add_newline=False)
+    writer.finish().save(out_path)
+    return 0
+
+
+def _aggregatetax(positional, space, stats):
+    return _aggregate_tax(positional, space, stats, False)
+
+
+def _aggregatetaxweights(positional, space, stats):
+    return _aggregate_tax(positional, space, stats, True)
+
+
+def _filtertaxseqdb(positional, space, stats):
+    """filtertaxseqdb (taxonomy/filtertaxseqdb.cpp:19-115): keep sequence
+    records whose _mapping taxon matches the taxonomy expression; hard
+    mode rewrites data, soft mode (--subdb-mode 1) keeps only the index
+    and links the data file; ancillary files are symlinked either way."""
+    from ..data import taxonomy as taxmod
+    from ..data.dbtools import softlink_ancillary
+    if len(positional) != 2:
+        raise ValueError("usage: filtertaxseqdb <i:taxSeqDB> <o:taxSeqDB>")
+    src, dst = positional
+    tax = taxmod.Taxonomy.open(src)
+    mapping = taxmod.read_mapping(src + "_mapping")
+    expr = taxmod.TaxonomyExpression(
+        space.values.get("taxon_list", ""), tax)
+    db = seqdb.SeqDB.open(src)
+    soft = space.values.get("subdb_mode", 0) == 1
+    keep = [i for i in seqdb.data_order(db)
+            if expr.matches(mapping.get(int(db.keys[i]), 0))]
+    if soft:
+        # SUBDB_MODE_SOFT: index entries point into the original data
+        order = sorted(keep, key=lambda i: int(db.keys[i]))
+        seqdb._write_index(dst + ".index", db.keys[order],
+                           db.offsets[order], db.lengths[order])
+        # DBFiles::SEQUENCE_NO_DATA_INDEX — link data + dbtype too
+        for s in ("", ".dbtype"):
+            if os.path.lexists(dst + s):
+                os.unlink(dst + s)
+            os.symlink(os.path.abspath(src + s), dst + s)
+    else:
+        w = seqdb.DBWriter(db.dbtype)
+        for i in keep:
+            w.write(int(db.keys[i]), db.get_data(i).tobytes(),
+                    add_newline=False)
+        w.finish().save(dst)
+    softlink_ancillary(src, dst)
+    return 0
+
+
+def _taxonomy(positional, space, stats):
+    """taxonomy workflow (Taxonomy.cpp:40-160 + taxonomy.sh): search
+    (approximate-2bLCA via lcaalign by default, --lca-mode 4 = top hit,
+    1 = all hits) -> lca; --tax-output-mode 1/2 exports the alignments."""
+    from ..data.dbtools import mvdb
+    if len(positional) != 4:
+        raise ValueError(
+            "usage: taxonomy <i:qDB> <i:taxSeqDB> <o:taxDB> <tmpDir>")
+    q, t, out, tmp = positional
+    os.makedirs(tmp, exist_ok=True)
+    # setTaxonomyDefaults (Taxonomy.cpp:13-24): sensitivity 2, -e 1,
+    # --max-accept 30 --max-rejected 5
+    v = space.values
+    if "sensitivity" not in space.was_set:
+        v["sensitivity"] = 2.0
+        space.was_set.add("sensitivity")
+    if "eval_thr" not in space.was_set:
+        v["eval_thr"] = 1.0
+        space.was_set.add("eval_thr")
+    if "max_accept" not in space.was_set:
+        v["max_accept"] = 30
+    if "max_rejected" not in space.was_set:
+        v["max_rejected"] = 5
+    if "alignment_mode" not in space.was_set:
+        v["alignment_mode"] = 1  # ALIGNMENT_MODE_SCORE_ONLY
+        space.was_set.add("alignment_mode")
+    lca_mode = v.get("lca_mode", 3)
+    if lca_mode == 2:  # 2bLCA was replaced by approximate 2bLCA
+        lca_mode = 3
+    v["lca_search"] = lca_mode == 3
+    first = os.path.join(tmp, "first")
+    if not os.path.exists(first + ".dbtype"):
+        _search([q, t, first, os.path.join(tmp, "tmp_hsp1")], space, stats)
+    lca_in = first
+    if lca_mode == 4:  # TOPHIT_MODE: keep hits tied with the best e-value
+        top1 = os.path.join(tmp, "top1")
+        sv = dict(space.values)
+        space.values.update({"filter_file": "", "sort_entries": 0,
+                             "extract_lines": 0, "beats_first": True,
+                             "comparison_operator": "le",
+                             "comparison_value": 0.0, "filter_column": 4})
+        _filterdb([first, top1], space, stats)
+        space.values.update(sv)
+        lca_in = top1
+    tax_output = v.get("tax_output_mode", 0)
+    if tax_output == 0:
+        return _lca([t, lca_in, out], space, stats)
+    if tax_output == 2:
+        rc = _lca([t, lca_in, out], space, stats)
+        mvdb(lca_in, out + "_aln")
+        return rc
+    mvdb(lca_in, out)
+    return 0
+
+
+def _proteinaln2nucl(positional, space, stats):
+    """proteinaln2nucl (util/proteinaln2nucl.cpp): map an amino-acid
+    alignment DB onto the nucleotide sequences the proteins were
+    translated from. Query and target are read from the query nucleotide
+    and amino-acid DBs, as in the JAX package."""
+    from ..ops.proteinaln2nucl import (nucl_results_to_db,
+                                       protein_aln_to_nucl_records)
+    if len(positional) != 6:
+        raise ValueError("usage: proteinaln2nucl <i:qNuclDB> <i:tNuclDB> "
+                         "<i:qAaDB> <i:tAaDB> <i:alnDB> <o:alnDB>")
+    nucl_db = seqdb.SeqDB.open(positional[0])
+    aa_db = seqdb.SeqDB.open(positional[2])
+    alns = load_alignments_with_backtrace(positional[4])
+    v = space.values
+    out = protein_aln_to_nucl_records(nucl_db, aa_db, alns,
+                                      gap_open=v.get("gap_open", 5),
+                                      gap_extend=v.get("gap_extend", 2))
+    nucl_results_to_db(out).save(positional[5])
+    return 0
+
+
 def _createtsv(positional, space, stats):
     from ..data.dbtools import create_tsv
     if len(positional) == 4:
@@ -1771,6 +2326,52 @@ BASE_COMMANDS.extend([
     Command("multihitsearch", _multihitsearch, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
         P.Flag("--simple-best-hit", "simple_best_hit", bool, False, "Use E-value instead of corrected P")]),
             "<i:qSetDB> <i:tSetDB> <o:db> <tmpDir>", "Search with per-set aggregation", hidden=True),
+    Command("createtaxdb", _createtaxdb, lambda: port_space(P.common_flags() + [
+        P.Flag("--ncbi-tax-dump", "ncbi_tax_dump", str, "", "Directory with NCBI nodes/names/merged dmp files"),
+        P.Flag("--tax-mapping-file", "tax_mapping_file", str, "", "Accession to taxid TSV"),
+        P.Flag("--tax-db-mode", "tax_db_mode", int, 1,
+               "0: .dmp flat files, 1: binary dump", r"[0-1]")]),
+            "<i:seqDB> <tmpDir>", "Attach an NCBI taxonomy to a sequence DB", hidden=True),
+    Command("nrtotaxmapping", _nrtotaxmapping,
+            lambda: port_space(P.common_flags()),
+            "<i:acc2taxid...> <i:seqDB> <o:mappingFile>",
+            "Create a taxonomy mapping for NR-style headers", hidden=True),
+    Command("createbintaxonomy", _createbintaxonomy,
+            lambda: port_space(P.common_flags()),
+            "<i:names.dmp> <i:nodes.dmp> <i:merged.dmp> <o:taxonomyFile>",
+            "Serialize an NCBI taxonomy dump to a binary file", hidden=True),
+    Command("lca", _lca, lambda: port_space(P.common_flags() + P.tax_flags()),
+            "<i:taxSeqDB> <i:resultDB> <o:taxDB>", "Lowest common ancestor per query", hidden=True),
+    Command("majoritylca", _majoritylca, lambda: port_space(P.common_flags() + P.tax_flags()),
+            "<i:taxSeqDB> <i:resultDB> <o:taxDB>", "Weighted majority LCA per query", hidden=True),
+    Command("addtaxonomy", _addtaxonomy, lambda: port_space(P.common_flags() + P.tax_flags() + [
+        P.Flag("--pick-id-from", "pick_id_from", int, 2,
+               "Extract mode: 1 query, 2 target", r"[1-2]")]),
+            "<i:taxSeqDB> <i:resultDB> <o:resultDB>", "Annotate result lines with taxonomy", hidden=True),
+    Command("taxonomyreport", _taxonomyreport, lambda: port_space(P.common_flags() + P.tax_flags()),
+            "<i:taxSeqDB> <i:taxResultDB> <o:tsv>", "Kraken-style taxonomy report", hidden=True),
+    Command("aggregatetax", _aggregatetax, lambda: port_space(
+        P.common_flags() + P.tax_flags()),
+            "<i:taxSeqDB> <i:setToSeqMap> <i:taxResPerSeqDB> <o:taxResPerSetDB>",
+            "Aggregate multiple taxon labels to a single label", hidden=True),
+    Command("aggregatetaxweights", _aggregatetaxweights, lambda: port_space(
+        P.common_flags() + P.tax_flags()),
+            "<i:taxSeqDB> <i:setToSeqMap> <i:taxResPerSeqDB> <i:alnPerSeqDB> <o:taxResPerSetDB>",
+            "Aggregate multiple taxon labels to a single label", hidden=True),
+    Command("filtertaxseqdb", _filtertaxseqdb, lambda: port_space(
+        P.common_flags() + P.tax_flags() + [
+            P.Flag("--subdb-mode", "subdb_mode", int, 0,
+                   "0: copy data, 1: soft link data and write index",
+                   r"[0-1]")]),
+            "<i:taxSeqDB> <o:taxSeqDB>",
+            "Filter taxonomy sequence database", hidden=True),
+    Command("filtertaxdb", _filtertaxdb, lambda: port_space(P.common_flags() + P.tax_flags()),
+            "<i:taxSeqDB> <i:taxResultDB> <o:taxResultDB>", "Filter by taxonomy expression", hidden=True),
+    Command("taxonomy", _taxonomy, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + P.tax_flags()),
+            "<i:qDB> <i:taxSeqDB> <o:taxDB> <tmpDir>", "Taxonomic classification (search + LCA)", hidden=True),
+    Command("proteinaln2nucl", _proteinaln2nucl, lambda: port_space(P.common_flags() + P.align_flags()),
+            "<i:qNuclDB> <i:tNuclDB> <i:qAaDB> <i:tAaDB> <i:alnDB> <o:alnDB>",
+            "Map protein alignments to nucleotide space", hidden=True),
 ])
 
 from .tools_profile import COMMANDS as _PROFILE_COMMANDS  # noqa: E402

@@ -1,13 +1,16 @@
-"""Misc base tools: alignbykmer and easy-rbh (reference:
-lib/mmseqs/src/util/alignbykmer.cpp, lib/mmseqs/src/workflow/EasyRbh.cpp
-+ data/workflow/easyrbh.sh).
+"""Misc base tools: version, ungappedprefilter, easy-rbh, easy-taxonomy
+and alignbykmer (reference: lib/mmseqs/src/util/{versionstring,
+alignbykmer}.cpp, lib/mmseqs/src/prefiltering/ungappedprefilter.cpp,
+lib/mmseqs/src/workflow/{EasyRbh,EasyTaxonomy}.cpp + data/workflow/
+{easyrbh,easytaxonomy}.sh).
 
-A copy of two of the JAX package's cli/tools_misc.py commands; each takes
+A copy of five of the JAX package's cli/tools_misc.py commands; each takes
 the port's (positional, space, stats) and the flag list of its JAX
-counterpart plus --device, which reaches easy-rbh's two searches (kernel
-B9 scores their candidate pairs on a card). alignbykmer is host code on
-every device, as in the JAX package. The file's other commands are not
-ported yet (ROADMAP items 23.4-23.6).
+counterpart plus --device, which reaches the searches of easy-rbh and
+easy-taxonomy (kernel B9 scores their candidate pairs on a card).
+ungappedprefilter and alignbykmer are host code on every device, as in
+the JAX package. The file's other commands are not ported yet (ROADMAP
+item 23.5).
 """
 import os
 
@@ -87,12 +90,114 @@ def _alignbykmer(positional, space, stats):
     return 0
 
 
+def _version(positional, space, stats):
+    """versionstring.cpp: print the version string."""
+    from .. import __version__
+    print(__version__)
+    return 0
+
+
+def _ungappedprefilter(positional, space, stats):
+    """ungappedprefilter.cpp: optimal ungapped-diagonal all-vs-all search."""
+    from ..ops.prefilter import prefilter_to_db, ungapped_prefilter
+    if len(positional) != 3:
+        raise ValueError(
+            "usage: ungappedprefilter <i:qDB> <i:tDB> <o:prefDB>")
+    qdb = seqdb.SeqDB.open(positional[0])
+    same = (os.path.realpath(positional[0])
+            == os.path.realpath(positional[1]))
+    tdb = None if same else seqdb.SeqDB.open(positional[1])
+    v = space.values
+    hits = ungapped_prefilter(
+        qdb, tdb,
+        eval_thr=v["eval_thr"] if "eval_thr" in space.was_set else 1e-3,
+        cov_thr=v["cov_thr"], cov_mode=v["cov_mode"],
+        min_diag_score=v["min_ungapped_score"], max_seqs=v["max_seqs"],
+        comp_bias_corr=bool(v["comp_bias_corr"]),
+        include_identity=v["add_self_matches"])
+    prefilter_to_db(hits, qkeys=[int(k) for k in qdb.keys]) \
+        .save(positional[2])
+    return 0
+
+
+def _easy_taxonomy(positional, space, stats):
+    """easy-taxonomy (EasyTaxonomy.cpp:19-80 + easytaxonomy.sh): createdb
+    -> taxonomy (output mode BOTH) -> <out>_lca.tsv, <out>_report,
+    <out>_tophit_report (swap/summarize/addtaxonomy) and
+    <out>_tophit_aln."""
+    from ..data.createdb import create_db
+    from .tools import (_addtaxonomy, _convertalis, _createtsv,
+                        _swapresults, _taxonomy, _taxonomyreport)
+    from .tools_profile import _summarizealis
+    if len(positional) != 4:
+        raise ValueError("usage: easy-taxonomy <i:queryFasta> "
+                         "<i:taxSeqDB> <o:out> <tmpDir>")
+    fasta, target, results, tmp = positional
+    os.makedirs(tmp, exist_ok=True)
+    query = os.path.join(tmp, "query")
+    if not os.path.exists(query + ".dbtype"):
+        # createdbMode = SEQUENCE_SPLIT_MODE_SOFT (EasyTaxonomy.cpp:10)
+        sdb, hdb = create_db([fasta], raw_headers=True)
+        sdb.save(query)
+        hdb.save(query + "_h")
+    result = os.path.join(tmp, "result")
+    v = space.values
+    sv_out = v.get("tax_output_mode", 0)
+    v["tax_output_mode"] = 2  # TAXONOMY_OUTPUT_BOTH (EasyTaxonomy.cpp:62)
+    if not os.path.exists(result + ".dbtype"):
+        _taxonomy([query, target, result,
+                   os.path.join(tmp, "taxonomy_tmp")], space, stats)
+    v["tax_output_mode"] = sv_out
+    _createtsv([query, result, results + "_lca.tsv"], space, stats)
+    _taxonomyreport([target, result, results + "_report"], space, stats)
+    aln = result + "_aln"
+    swapped = os.path.join(tmp, "result_aln_swapped")
+    sv = "eval_thr" in space.was_set
+    if not sv:
+        # par.evalThr = FLT_MAX for swapresults (EasyTaxonomy.cpp:70)
+        v["eval_thr"] = 3.4028234663852886e38
+        space.was_set.add("eval_thr")
+    _swapresults([query, target, aln, swapped], space, stats)
+    if not sv:
+        space.was_set.discard("eval_thr")
+    summ = swapped + "_sum"
+    _summarizealis([swapped, summ], space, stats)
+    summ_tax = summ + "_tax"
+    sv_pick = v.get("pick_id_from", 2)
+    v["pick_id_from"] = 1  # EXTRACT_QUERY (EasyTaxonomy.cpp:72)
+    _addtaxonomy([target, summ, summ_tax], space, stats)
+    v["pick_id_from"] = sv_pick
+    _createtsv([target, summ_tax, results + "_tophit_report"], space, stats)
+    _convertalis([query, target, aln, results + "_tophit_aln"], space, stats)
+    return 0
+
+
 COMMANDS = [
+    Command("version", _version, lambda: port_space([]),
+            "", "Print version", hidden=True),
+    Command("ungappedprefilter", _ungappedprefilter, lambda: port_space(
+        P.common_flags() + P.search_flags() + P.align_flags()),
+            "<i:qDB> <i:tDB> <o:prefDB>", "Optimal diagonal score search",
+            hidden=True),
     Command("easy-rbh", _easy_rbh, lambda: port_space(
         P.common_flags() + P.search_flags() + P.align_flags()),
             "<i:qFasta> <i:tFasta> <o:tsv> <tmpDir>",
             "Reciprocal best hit search (FASTA in, BLAST-tab out)",
             hidden=True),
+    Command("easy-taxonomy", _easy_taxonomy, lambda: port_space(
+        P.common_flags() + P.search_flags() + P.align_flags()
+        + P.tax_flags() + [
+            P.Flag("--alignment-mode", "alignment_mode", int, 0,
+                   "0 auto, 1 score+end, 2 +start+cov, 3 +seq.id",
+                   r"[0-5]"),
+            P.Flag("--max-accept", "max_accept", int, 2**31 - 1,
+                   "Maximum accepted alignments per query"),
+            P.Flag("--max-rejected", "max_rejected", int, 2**31 - 1,
+                   "Maximum rejected alignments before give-up"),
+            P.Flag("--pick-id-from", "pick_id_from", int, 2,
+                   "Extract mode: 1 query, 2 target", r"[1-2]")]),
+            "<i:queryFasta> <i:taxSeqDB> <o:out> <tmpDir>",
+            "Taxonomy assignment from FASTA input", hidden=True),
     Command("alignbykmer", _alignbykmer, lambda: port_space(
         P.common_flags() + P.search_flags() + P.align_flags() + [
             P.Flag("--spaced-kmer-mode", "spaced_kmer_mode", int, 1,

@@ -80,6 +80,17 @@ def test_cpu_rehearsal_runs_every_phase():
                 "B9 launches by search [0, 0]",
                 "[multihit-nt] 16 coding genomes of 2000 nt in 8 target sets",
                 "[multihit-nt] seconds per stage: prefilter",
+                "[easy-aa] dev: easy-taxonomy of records f1, f3, ... against "
+                "the taxonomy DB of f0, f2, ... to f99", "_tophit_aln ",
+                "[taxonomy-aa] 10 queries (every 5th record) and 37 targets",
+                "`plass createtaxdb`", "[taxonomy-aa] default: `plass "
+                "taxonomy` in", "[taxonomy-aa] lca-mode-4: `plass taxonomy "
+                "--lca-mode 4` in", "ranks {", "[taxonomy-aa] lca-mode-4: "
+                "seconds per stage: prefilter", "[taxonomy-aa] lca-mode-4: "
+                "the align stage byte-identical with --device cpu",
+                "[sw-side] waited", "[sw-side] B9 on the 36 candidate pairs "
+                "of taxonomy's align stage", "[sw-side] B9 on linsearch's ",
+                "[sw-side] B9 on rbh's ", "[sw-side] B9 on multihit's ",
                 "[sw-main] B9 on the contigs' ",
                 "[sw-main] B9 on the families' ", "[sw-main] B9 on "
                 "search-aa's ", "candidate pairs of search-aa's align stage",
@@ -285,3 +296,62 @@ def test_kernels_line_counts_the_linsearch_rbh_and_multihit_paths():
     assert chip_smoke.RBH_RECORDS == 1200
     assert (chip_smoke.MULTIHIT_SETS, chip_smoke.MULTIHIT_EVERY,
             chip_smoke.MULTIHIT_QUERY_FILES) == (8, 13, 2)
+
+
+def test_kernels_line_counts_the_taxonomy_path_and_the_side_pairs():
+    """B9's launches on taxonomy-aa (the slice's process) are a path of
+    their own, and its measurements on the side process's pairs
+    (linsearch, rbh, multihit, taxonomy) go into its entry; the default
+    run's and the --lca-mode 4 run's sha256 are recorded."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    m = {"max_abs_err": 0, "ms": 0.05, "plain_ms": 3.0, "bound_ms": 0.01,
+         "bound_by": "bytes", "bytes": 1000}
+    sw = dict(m, bound_by="operations", operations=6000, cells=1000,
+              gcups=20.0, pairs=10)
+    side = {name: dict(sw, pairs=n, block_pairs=1) for name, n in (
+        ("linsearch", 2390), ("rbh", 1510), ("multihit", 3141),
+        ("taxonomy", 3663))}
+    launches = {"search": {"sw_score": 1}, "linsearch": {"sw_score": 1},
+                "rbh": {"sw_score": 2}, "multihit": {"sw_score": 1},
+                "taxonomy": {"sw_score": 1}}
+    kernels = chip_smoke.kernels_summary(
+        dict(m, copy_ms=0.06, elements=100), m,
+        {n: m for n in ("rescore_e2e_rev", "rescore_e2e_rev_uniform")},
+        launches, dict(sw, **side))
+    line = json.loads(json.dumps({"kernels": kernels}))["kernels"]
+    b9 = next(k for k in line if k["name"] == "sw_score")
+    assert b9["launches_by_path"]["taxonomy"] == 1
+    assert b9["launches"] == 6
+    for name, n in (("linsearch", 2390), ("taxonomy", 3663)):
+        assert b9[name]["pairs"] == n and b9[name]["block_pairs"] == 1
+        assert set(b9[name]) == {"ms", "plain_ms", "bound_ms", "cells",
+                                 "gcups", "pairs", "block_pairs"}
+    assert "[taxonomy-aa]" in chip_smoke.SIDE_TAGS["slice"]
+    assert "[sw-side]" in chip_smoke.SIDE_TAGS["slice"]
+    assert "taxonomy" in chip_smoke.REFERENCE_RUNS
+    assert set(chip_smoke.TAXONOMY_SHA256) == {"default", "lca-mode-4"}
+    assert all(len(v) == 64 for v in chip_smoke.TAXONOMY_SHA256.values())
+    assert (chip_smoke.TAX_GENERA, chip_smoke.TAX_FAMILIES,
+            chip_smoke.TAX_SPECIES, chip_smoke.TAXONOMY_QUERY_EVERY) == \
+        (150, 10, 3, 5)
+
+
+def test_family_fasta_names_each_records_family(tmp_path):
+    """family_fasta's optional out-list leaves the FASTA's bytes as they
+    are and gives each record's family: a family's records follow its root
+    in f<i> order, the roots numbered 0, 1, ..."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    families = []
+    n = chip_smoke.family_fasta(str(tmp_path / "a.fasta"), 40,
+                                families=families)
+    chip_smoke.family_fasta(str(tmp_path / "b.fasta"), 40)
+    assert (tmp_path / "a.fasta").read_bytes() == \
+        (tmp_path / "b.fasta").read_bytes()
+    assert len(families) == n and families == sorted(families)
+    assert set(families) == set(range(40)) and n > 80

@@ -194,18 +194,70 @@ def test_guided_assemble_three_iterations_equal_jax(seeded):
     assert int(pn.seq_lens().max()) > 300
 
 
+def _with_extra_aa_record(aa):
+    """aa with one more record, under a key after its last: the two DBs
+    of a guided pass are then not row-aligned."""
+    recs = [aa.get_seq_bytes(i) for i in range(aa.size)] + [b"MKVLAT*"]
+    return ref_seqdb.SeqDB.from_records(
+        recs, keys=np.append(aa.keys, aa.keys.max() + 1), dbtype=aa.dbtype)
+
+
 def test_guided_assemble_refuses_what_the_native_engine_cannot_do(seeded):
+    """What the native engine cannot do, the Python pass does, as the JAX
+    package's: the HAMMING rescore (mode 0) on the seeded DBs, and DBs
+    whose key lists differ (the amino-acid DB holds one record more). On
+    row-aligned DBs at END_TO_END the native engine takes the flat records
+    only: records as dicts raise TypeError."""
     _, nucl, aa, alns = seeded
     pn, pa = _port_db(nucl), _port_db(aa)
     flat = port_p2n.protein_aln_to_nucl(pn, pa, alns)
-    with pytest.raises(NotImplementedError, match="END_TO_END"):
-        port_gext.guided_assemble(pn, pa, flat, rescore_mode=0)
+    ref_flat = ref_p2n.protein_aln_to_nucl(nucl, aa, alns, 5, 2)
     with pytest.raises(TypeError, match="flat records"):
         port_gext.guided_assemble(pn, pa, {})
-    shifted = seqdb.SeqDB(aa.data, aa.keys + 1, aa.offsets, aa.lengths,
-                          aa.dbtype)
-    with pytest.raises(ValueError, match="row-aligned"):
-        port_gext.guided_assemble(pn, shifted, flat)
+    extra = _with_extra_aa_record(aa)
+    for r_aa, p_aa, kw in ((aa, pa, dict(rescore_mode=0)),
+                           (extra, _port_db(extra), {}),
+                           (extra, _port_db(extra), dict(rescore_mode=0))):
+        want = ref_gext.guided_assemble(nucl, r_aa, ref_flat,
+                                        seq_id_thr=0.99, **kw)
+        got = port_gext.guided_assemble(pn, p_aa, flat, seq_id_thr=0.99,
+                                        **kw)
+        _assert_db_equal(got[0], want[0])
+        _assert_db_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+        assert int((got[2] & 0x20 != 0).sum()) > 5     # contigs grew
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_guidedassembleresults_cli_as_the_jax_package(seeded, tmp_path,
+                                                      aligned):
+    """`penguin guidedassembleresults` through both CLIs on the seeded
+    DBs and a nucleotide alignment DB (the JAX package's proteinaln2nucl
+    of the amino-acid records): row-aligned (the port's native engine) and
+    with the extra amino-acid record (both packages' Python pass)."""
+    from plass_tpu.cli import penguin as ref_penguin
+    from plass_tpu.cli.app import run_app
+    from plass_tpu_torch.cli import penguin as port_penguin
+    _, nucl, aa, alns = seeded
+    by_query = {}
+    for q, rec in zip(alns["qk"], alns["rec"]):
+        by_query.setdefault(int(q), []).append(rec)
+    d = str(tmp_path)
+    nucl.save(f"{d}/nucl")
+    (aa if aligned else _with_extra_aa_record(aa)).save(f"{d}/aa")
+    ref_p2n.nucl_results_to_db(ref_p2n.protein_aln_to_nucl(
+        nucl, aa, by_query, 5, 2)).save(f"{d}/aln")
+    outs = {}
+    for tag, run in (("ref", lambda a: run_app(
+            "penguin", ref_penguin.commands(), a)),
+                     ("port", lambda a: port_penguin.run(
+                         [*a, "--device", "cpu"]))):
+        assert run(["guidedassembleresults", f"{d}/nucl", f"{d}/aa",
+                    f"{d}/aln", f"{d}/{tag}_n", f"{d}/{tag}_a"]) == 0
+        outs[tag] = [open(f"{d}/{tag}_{x}{ext}", "rb").read()
+                     for x in "na" for ext in ("", ".index", ".dbtype")]
+    assert outs["port"] == outs["ref"]
+    assert len(outs["ref"][0]) > sum(nucl.seq_lens()) // 2
 
 
 def test_numpy_hashes_equal_jax_package():

@@ -18,12 +18,14 @@ from plass_tpu_torch.ops import prefilter as port_pf
 from plass_tpu_torch.ops import tantan as port_tantan
 
 
-def family_records(n_fam, seed=17, median=150):
+def family_records(n_fam, seed=17, median=150, families=None):
     """Seeded protein families the way chip_smoke.family_fasta makes them
     (BLOSUM62 background letters; 1 + Poisson(3) members with 1-20%
     substitutions, indels and trimmed ends; shuffled), with shorter roots
     (log-normal of the given median, 40 to 400 residues) to keep the JAX
-    package's prefilter quick on the CPU. Returns the records' bytes."""
+    package's prefilter quick on the CPU. Returns the records' bytes; a
+    `families` list receives each record's family number, in the same
+    order."""
     mat = ref_constants.blosum62()
     freq = np.asarray(mat.pback[:20], dtype=np.float64)
     freq /= freq.sum()
@@ -33,10 +35,11 @@ def family_records(n_fam, seed=17, median=150):
     def draw(n):
         return letters[rng.choice(20, n, p=freq)]
 
-    recs = []
-    for _ in range(n_fam):
+    recs, fam = [], []
+    for f in range(n_fam):
         root = draw(int(np.clip(rng.lognormal(np.log(median), 0.5), 40, 400)))
         recs.append(root)
+        fam.append(f)
         for _ in range(rng.poisson(3)):
             s = root.copy()
             mut = rng.random(len(s)) < rng.uniform(0.01, 0.2)
@@ -48,7 +51,11 @@ def family_records(n_fam, seed=17, median=150):
             cut = int(rng.integers(0, max(1, int(0.15 * len(s)))))
             a = int(rng.integers(0, cut + 1))
             recs.append(s[a:len(s) - (cut - a)])
-    return [recs[i].tobytes() for i in rng.permutation(len(recs))]
+            fam.append(f)
+    order = rng.permutation(len(recs))
+    if families is not None:
+        families.extend(fam[i] for i in order)
+    return [recs[i].tobytes() for i in order]
 
 
 def family_dbs(n_fam, seed=17, median=150):

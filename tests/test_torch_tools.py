@@ -86,11 +86,41 @@ def test_command_parses_as_the_jax_package(binary, name):
 
 def test_the_commands_left_out_are_unregistered(capsys):
     ported = {c.name for c in port_plass.commands()}
-    for name in ("taxonomy", "lca", "ungappedprefilter", "view",
-                 "alignall", "createtaxdb", "proteinaln2nucl"):
+    for name in ("view", "alignall", "compress", "splitdb", "databases"):
         assert name not in ported
         assert port_plass.run([name, "a", "b"]) == 1
-    assert "Invalid command 'taxonomy'" in capsys.readouterr().err
+    assert "Invalid command 'databases'" in capsys.readouterr().err
+
+
+# the shell's built-ins and a mistyped command, as plass_tpu's shell
+# answers them; `shellcompletion <command>` lists the port's --device too
+SHELL_ARGV = {"version": ["--version"], "version-command": ["version"],
+              "commands": ["shellcompletion"],
+              "command-flags": ["shellcompletion", "CMD"],
+              "unknown-command": ["shellcompletion", "nosuchcommand"],
+              "mistyped": ["TYPO"], "far-off": ["zzzzzzzzzzzzzzzz"]}
+SHELL_CMD = {"plass": ("assemble", "assembel"),
+             "penguin": ("guided_nuclassemble", "guided_nuclasemble")}
+
+
+@pytest.mark.parametrize("binary", list(CLIS))
+@pytest.mark.parametrize("case", list(SHELL_ARGV))
+def test_shell_builtins_as_the_jax_package(capsys, binary, case):
+    cmd, typo = SHELL_CMD[binary]
+    argv = [{"CMD": cmd, "TYPO": typo}.get(a, a) for a in SHELL_ARGV[case]]
+    want_rc = ref_app.run_app(binary, CLIS[binary][0].commands(), argv)
+    want = capsys.readouterr()
+    got_rc = CLIS[binary][1].run(argv)
+    got = capsys.readouterr()
+    assert got_rc == want_rc
+    assert got.err == want.err
+    if case == "command-flags":
+        assert got.out == want.out[:-3] + " --device \n\n"
+        assert got.out.count("--") > 10
+    else:
+        assert got.out == want.out
+    if case == "mistyped":
+        assert got.err.endswith(f"Did you mean '{cmd}'?\n")
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +236,9 @@ TOOL_CASES = {
                         "--rescore-mode", "2", "-c", "0.5"],
     "rescorediagonal-hamming": ["rescorediagonal", "{seq}", "{seq}",
                                 "{kpref}", "OUT", "--rescore-mode", "0"],
+    "ungappedprefilter": ["ungappedprefilter", "{sub}", "{seq}", "OUT"],
+    "ungappedprefilter-self": ["ungappedprefilter", "{seq}", "{seq}", "OUT",
+                               "-e", "0.1", "--add-self-matches"],
     "renamedbkeys": ["renamedbkeys", "{keymap}", "{seq}", "OUT"],
     "diffseqdbs": ["diffseqdbs", "{seq}", "{sub}", "OUT_removed",
                    "OUT_kept", "OUT_new"],
