@@ -120,12 +120,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      seeded 150-nt reads whose table the monolithic matcher would need more
      than the card's free memory for, with the automatic budget and at half
      of it: equal hits, peak memory under the card's (the matcher only).
-Phases 22-25 run one after the other in a process of their own beside
-phases 17-20, started with phase 16's (they count their own launches and
+Phases 22-26 run one after the other in a process of their own beside
+phases 17-20, started with phase 16's (22-25 count their own launches and
 print them for the kernels line); once the main process has finished
 phase 20, that process also holds B9 against its plain version (and the
-native ssw on 300 pairs) on each phase's largest align call and times it
-there beside its bound, as sw-main does ([sw-side]):
+native ssw on 300 pairs) on each of phases 22-25's largest align calls
+and times it there beside its bound, as sw-main does ([sw-side]):
  22. linsearch-aa: `plass createlinindex` and `plass linsearch` through
      the CLI on the card, the odd-numbered keys of phase 14's family
      proteins against the even-numbered (both made with `plass
@@ -153,14 +153,34 @@ there beside its bound, as sw-main does ([sw-side]):
      same prefilter DB, byte for byte equal; both taxonomy DBs' sha256
      must equal those of --cpu-reference taxonomy; seconds per stage,
      candidate pairs, the pairs B9 scored and rejected, its launches, peak
-     device memory and the ranks of each output.
+     device memory and the ranks of each output;
+ 26. db-tools: the thirty DB, misc, domain and `databases` tools, which do
+     no device work in either package, through the CLI (penguin's for
+     extractframes) at the default device and again with --device cpu,
+     all outputs (files and standard output) byte for byte equal: on phase
+     14's family proteins (compress, decompress, dbtype, view, touchdb,
+     unpackdb, splitdb, countkmer, masksequence, translateaa, clusthash,
+     tar2db of their FASTA in ten members, tsv2db, convertkb of UniProtKB
+     text made of them, `databases` listing and building its Swiss-Prot
+     entry from a UniProt-headed FASTA placed in its <tmpDir>, then
+     summarizeheaders of that DB's headers), on their `plass kmermatcher`
+     + `plass align -a` alignments (suffixid, prefixid, summarizeresult,
+     extractalignedregion, transitivealign, summarizetabs of a BLAST-tab
+     DB made of them and extractdomains of its output through their `plass
+     result2msa` MSAs), alignall on the first DB_TOOLS_CLUSTERS clusters of
+     phase 14's families linclust, on phase 10's 104 coding genomes
+     (countkmer, masksequence, clusthash, reverseseq, extractframes,
+     gff2db and maskbygff with seeded GFFs, apply with a short program) and
+     diskspaceavail of the work dir; each command's seconds both ways and
+     its outputs' sha256.
 The kernels' launch counters are set to 0 just before phases 4, 7, 10, 13,
 14, 15, 16, 17, 18, 20, 22, 23, 24 and 25's CLI runs and read just after;
-every kernel of each path must have run there. The last lines are the script's
-seconds, a JSON summary of the kernels (times, launches by path, bytes or
-operations counted and the bound they give at 3.35 TB/s or the card's
-integer rate), the card's name and power limit, and {"ok": true,
-"device": {...}}.
+every kernel of each path must have run there. Before phase 26's runs
+they are set to 0 too, and none may have run after them. The last lines
+are the script's seconds, a JSON summary of the kernels (times, launches
+by path, bytes or operations counted and the bound they give at 3.35 TB/s
+or the card's integer rate), the card's name and power limit, and {"ok":
+true, "device": {...}}.
 
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
@@ -174,8 +194,10 @@ import argparse
 import contextlib
 import gzip
 import hashlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2052,7 +2074,7 @@ def recorded_align_launches():
 # side_result(name)
 SIDE_TAGS = {"profile-aa": ("[profile-aa]",),
              "slice": ("[linsearch-aa]", "[rbh-aa]", "[multihit-nt]",
-                       "[taxonomy-aa]", "[sw-side]")}
+                       "[taxonomy-aa]", "[db-tools]", "[sw-side]")}
 PROFILE_TIMEOUT = 1000
 SLICE_TIMEOUT = 900
 
@@ -2689,6 +2711,312 @@ def phase_taxonomy_aa(device, work, fasta, check_sha=False):
     return total
 
 
+# ---------------------------------------------------------------------------
+# db-tools: the thirty DB, misc, domain and `databases` tools of the CLIs,
+# host code on every device as in the JAX package, each through the CLI at
+# the default device and again with --device cpu
+
+# alignall's input: the first DB_TOOLS_CLUSTERS clusters (by key) of phase
+# 14's `plass linclust` of the families, a third of them (the cut keeps the
+# phase short)
+DB_TOOLS_CLUSTERS = 1600
+# the `databases` entry built from its file placed in <tmpDir> beforehand
+DB_TOOLS_ENTRY = ("UniProtKB/Swiss-Prot", "uniprot_sprot.fasta.gz")
+# apply's program: each record's bases complemented
+APPLY_PROGRAM = ("tr", "ACGT", "TGCA")
+
+
+def tool_cli(binary, args, device):
+    """`<binary> <args> --device <device>` in this process; returns the
+    bytes of its standard output. Raises unless it exits 0."""
+    from plass_tpu_torch.cli import penguin, plass
+    run = plass.run if binary == "plass" else penguin.run
+    buf = io.BytesIO()
+    fh = io.TextIOWrapper(buf, encoding="utf-8", write_through=True)
+    with contextlib.redirect_stdout(fh):
+        rc = run([*args, "--device", str(device)])
+    fh.flush()
+    if rc != 0:
+        raise AssertionError(f"{binary} {args[0]}: CLI exit code {rc}")
+    return buf.getvalue()
+
+
+def tree_bytes(d):
+    """{path under d: bytes} of every file under d."""
+    out = {}
+    for root, _, files in os.walk(d):
+        for name in files:
+            path = os.path.join(root, name)
+            out[os.path.relpath(path, d)] = open(path, "rb").read()
+    return out
+
+
+def free_bytes(path):
+    st = os.statvfs(path)
+    return st.f_bavail * st.f_frsize
+
+
+def db_tools_inputs(d, work, famdb, fasta, genomes, device):
+    """The phase's inputs, made before its launch counters are set to 0:
+    the coding genomes' DB (`plass createdb`) and two seeded GFFs of it;
+    the families' `plass kmermatcher` prefilter, `plass align -a`
+    alignments and `plass result2msa` MSAs, and a BLAST-tab DB with a
+    length file made from the alignments; the first DB_TOOLS_CLUSTERS
+    clusters of phase 14's families linclust (`plass createsubdb`); a tar
+    of the families' FASTA in ten members, a TSV, UniProtKB text and a
+    UniProt-headed gzip FASTA of the families. Returns their paths."""
+    from plass_tpu_torch.data import seqdb
+    from plass_tpu_torch.data.createdb import read_lookup
+    import tarfile
+    p = {k: os.path.join(d, k) for k in (
+        "genomes.fasta", "G", "gff", "gffkeys", "pref", "ALN", "MSA",
+        "TAB", "lens", "CLU", "tar", "tsv", "kb", "sprot")}
+    p["F"], p["LC"] = famdb, os.path.join(work, "families_db", "families")
+    with open(p["genomes.fasta"], "wb") as fh:
+        fh.writelines(b">g%d coding genome %d\n%s\n" % (i, i, g.tobytes())
+                      for i, g in enumerate(genomes))
+    plass_cli(["createdb", p["genomes.fasta"], p["G"]], device)
+    rng = np.random.default_rng(29)
+    n, glen = genomes.shape
+    with open(p["gff"], "w") as gff, open(p["gffkeys"], "w") as keyed:
+        gff.write("##gff-version 3\n")
+        keyed.write("# masked regions\n")
+        for g in range(n):
+            for f in range(3):
+                a = int(rng.integers(1, glen - 500))
+                b = a + int(rng.integers(90, 450))
+                kind = ("CDS", "gene")[f % 2]
+                strand = "+-"[int(rng.integers(2))]
+                gff.write(f"g{g}\tsim\t{kind}\t{a}\t{b}\t.\t{strand}\t0\t"
+                          f"ID=g{g}_{f}\n")
+                keyed.write(f"{g}\tsim\t{('CDS', 'repeat')[f % 2]}\t{a}\t"
+                            f"{b}\t.\t+\t0\t.\n")
+        gff.write("g0\tsim\tCDS\t40\t40\t.\t+\t0\tID=empty\n")
+        keyed.write("1\tsim\tCDS\t30\t10\t.\t+\t0\t.\n")
+    families = np.load(fasta + ".families.npy")
+    name2key = {name: k for k, name, _ in read_lookup(famdb)}
+    plass_cli(["kmermatcher", famdb, p["pref"]], device)
+    plass_cli(["align", famdb, famdb, p["pref"], p["ALN"], "-a"], device)
+    plass_cli(["result2msa", famdb, famdb, p["ALN"], p["MSA"]], device)
+    aln, fdb = seqdb.SeqDB.open(p["ALN"]), seqdb.SeqDB.open(famdb)
+    tabs = []
+    for i in range(aln.size):
+        lines = []
+        for line in aln.get_data(i).tobytes().decode().splitlines():
+            f = line.split("\t")
+            if len(f) < 10:
+                continue
+            qs, qe, ts, te = (int(f[j]) + 1 for j in (4, 5, 7, 8))
+            lines.append(f"{int(aln.keys[i])}\t{f[0]}\t{float(f[2]) * 100:.1f}"
+                         f"\t{abs(qe - qs) + 1}\t0\t0\t{qs}\t{qe}\t{ts}\t{te}\t"
+                         f"{f[3]}\t{f[1]}\n")
+        tabs.append((int(aln.keys[i]), "".join(lines).encode()))
+    w = seqdb.DBWriter(seqdb.GENERIC_DB)
+    for key, body in tabs:
+        w.write(key, body, add_newline=False)
+    w.finish().save(p["TAB"])
+    with open(p["lens"], "w") as fh:
+        fh.writelines(f"{int(k)}\t{fdb.seq_len(i)}\n"
+                      for i, k in enumerate(fdb.keys))
+    clu = os.path.join(work, "lc_familiesdefaults", "clu")
+    keyed_subdb(clu, np.sort(seqdb.SeqDB.open(clu).keys)[:DB_TOOLS_CLUSTERS],
+                p["CLU"], device)
+    lines = open(fasta).read().splitlines()
+    records = list(zip(lines[::2], lines[1::2]))
+    with tarfile.open(p["tar"], "w") as tf:
+        for c, part in enumerate(np.array_split(np.arange(len(records)), 10)):
+            chunk = os.path.join(d, f"families_{c}.fasta")
+            with open(chunk, "w") as fh:
+                fh.writelines(f"{records[j][0]}\n{records[j][1]}\n"
+                              for j in part)
+            tf.add(chunk, arcname=f"families/part_{c}.fasta")
+    # the gzip header's time set to 0, so that the file's bytes are the
+    # same in every run
+    with open(p["tsv"], "w") as tsv, open(p["kb"], "w") as kb, \
+            gzip.GzipFile(p["sprot"], "wb", mtime=0) as gz, \
+            io.TextIOWrapper(gz) as sprot:
+        for j, (head, seq) in enumerate(records):
+            i = int(head[2:])
+            fam = int(families[i])
+            tsv.write(f"{name2key[head[1:]]}\tfamily {fam}\t{len(seq)}\n")
+            kb.write(f"ID   F{i}_SYNTH               Reviewed;   {len(seq)} "
+                     f"AA.\nAC   Q{i:05d}; R{fam:05d};\nDE   RecName: "
+                     f"Full=Family {fam} protein;\nGN   Name=fam{fam};\n"
+                     f"OS   Synthetic organism {fam % 7}.\nOX   "
+                     f"NCBI_TaxID={1000 + fam % 7};\nPE   {1 + i % 5}: "
+                     f"Predicted;\nSQ   SEQUENCE   {len(seq)} AA;\n")
+            kb.writelines("     " + " ".join(
+                seq[k + c:k + c + 10] for c in range(0, 60, 10)
+                if k + c < len(seq)) + "\n" for k in range(0, len(seq), 60))
+            kb.write("//\n")
+            sprot.write(f">{('tr', 'sp')[fam % 2]}|Q{i:05d}|F{i}_SYNTH "
+                        f"Family {fam} protein{' fragment' * (i % 9 == 0)} "
+                        f"OS=Synthetic organism {fam % 7} OX={1000 + fam % 7} "
+                        f"GN=fam{fam} PE={1 + i % 5} SV=1\n{seq}\n")
+    return p
+
+
+def db_tools_runs(p, work):
+    """(name, binary, argv with OUT and TMP for paths in the run's dir,
+    setup of the run's dir or None) of each command, in the order run."""
+    def entry_file(run_dir):
+        os.makedirs(os.path.join(run_dir, "TMP"))
+        shutil.copyfile(p["sprot"], os.path.join(run_dir, "TMP",
+                                                  DB_TOOLS_ENTRY[1]))
+
+    F, G, ALN = p["F"], p["G"], p["ALN"]
+    keys = ",".join(str(k) for k in range(0, 300, 3))
+    return [
+        ("compress", "plass", ["compress", F, "OUT"], None),
+        ("decompress", "plass", ["decompress", p["Fz"], "OUT"], None),
+        ("dbtype", "plass", ["dbtype", F], None),
+        ("view", "plass", ["view", F, "--id-list", keys], None),
+        ("touchdb", "plass", ["touchdb", F], None),
+        ("diskspaceavail", "plass", ["diskspaceavail", work], None),
+        ("unpackdb", "plass", ["unpackdb", F, "OUT", "--unpack-suffix",
+                               ".fasta"], None),
+        ("splitdb", "plass", ["splitdb", F, "OUT", "--split", "3"], None),
+        ("countkmer", "plass", ["countkmer", F], None),
+        ("masksequence", "plass", ["masksequence", F, "OUT"], None),
+        ("translateaa", "plass", ["translateaa", F, "OUT"], None),
+        ("clusthash", "plass", ["clusthash", F, "OUT"], None),
+        ("suffixid", "plass", ["suffixid", ALN, "OUT"], None),
+        ("prefixid", "plass", ["prefixid", ALN, "OUT"], None),
+        ("summarizeresult", "plass", ["summarizeresult", ALN, "OUT"], None),
+        ("extractalignedregion", "plass", ["extractalignedregion", F, F,
+                                           ALN, "OUT"], None),
+        ("transitivealign", "plass", ["transitivealign", F, ALN, "OUT"],
+         None),
+        ("alignall", "plass", ["alignall", p["LC"], p["CLU"], "OUT"], None),
+        ("summarizetabs", "plass", ["summarizetabs", p["TAB"], p["lens"],
+                                    "OUT"], None),
+        ("extractdomains", "plass", ["extractdomains", p["DOM"], p["MSA"],
+                                     "OUT", "-e", "1000"], None),
+        ("convertkb", "plass", ["convertkb", p["kb"], "OUT"], None),
+        ("tar2db", "plass", ["tar2db", p["tar"], "OUT"], None),
+        ("tsv2db", "plass", ["tsv2db", p["tsv"], "OUT"], None),
+        ("databases", "plass", ["databases"], None),
+        ("databases-entry", "plass", ["databases", DB_TOOLS_ENTRY[0], "OUT",
+                                      "TMP"], entry_file),
+        ("summarizeheaders", "plass", ["summarizeheaders", p["SP"] + "_h",
+                                       p["SP"] + "_h", p["CLU"], "OUT"],
+         None),
+        ("countkmer-nucl", "plass", ["countkmer", G], None),
+        ("masksequence-nucl", "plass", ["masksequence", G, "OUT"], None),
+        ("clusthash-nucl", "plass", ["clusthash", G, "OUT"], None),
+        ("reverseseq", "plass", ["reverseseq", G, "OUT"], None),
+        ("extractframes", "penguin", ["extractframes", G, "OUT",
+                                      "--forward-frames", "1",
+                                      "--reverse-frames", "1"], None),
+        ("gff2db", "plass", ["gff2db", p["gff"], G, "OUT"], None),
+        ("maskbygff", "plass", ["maskbygff", p["gffkeys"], G, "OUT",
+                                "--gff-type", "CDS"], None),
+        ("apply", "plass", ["apply", G, "OUT", *APPLY_PROGRAM], None),
+    ]
+
+
+def db_tool_pair(d, name, binary, argv, setup, device, work):
+    """A command through the CLI on the device and again with --device cpu,
+    each in a dir of its own (OUT and TMP name paths there): the files
+    they write and what they print must be equal byte for byte. For
+    diskspaceavail, whose answer moves with the disk, the pair is run
+    again until no byte of work's filesystem was taken or freed between
+    the two runs (at most 20 times). Returns (seconds on the device, with
+    --device cpu, the outputs' sha256, files, bytes)."""
+    tries = 20 if name == "diskspaceavail" else 1
+    for attempt in range(tries):
+        runs = [(os.path.join(d, name, f"{tag}{attempt}"), dev)
+                for tag, dev in (("card", device), ("cpu", "cpu"))]
+        for run_dir, _ in runs:
+            os.makedirs(run_dir)
+            if setup is not None:
+                setup(run_dir)
+        free, outs, secs = [free_bytes(work)], [], []
+        for run_dir, dev in runs:
+            t0 = time.perf_counter()
+            outs.append(tool_cli(binary, [
+                os.path.join(run_dir, a) if a in ("OUT", "TMP") else a
+                for a in argv], dev))
+            secs.append(time.perf_counter() - t0)
+            free.append(free_bytes(work))
+        if tries == 1 or len(set(free)) == 1:
+            break
+    else:
+        raise AssertionError(f"db-tools: {name}: the free space of {work} "
+                             f"moved during each of 20 pairs of runs")
+    got = [(out, tree_bytes(run_dir)) for out, (run_dir, _) in zip(outs, runs)]
+    if got[0] != got[1]:
+        raise AssertionError(f"db-tools: {name}: the outputs differ from "
+                             f"the run with --device cpu")
+    out, files = got[0]
+    if not out and not files and name != "touchdb":
+        raise AssertionError(f"db-tools: {name} wrote and printed nothing")
+    h = hashlib.sha256(b"stdout\0" + out)
+    for rel in sorted(files):
+        h.update(b"\0" + rel.encode() + b"\0" + files[rel])
+    return (secs[0], secs[1], h.hexdigest(), len(files),
+            len(out) + sum(len(b) for b in files.values()))
+
+
+def phase_db_tools(device, work, famdb, fasta, rehearsal):
+    """The thirty DB, misc, domain and `databases` tools through the port's
+    CLI (penguin's for extractframes), on the amino-acid inputs of phase
+    14's family proteins and the nucleotide inputs of phase 10's coding
+    genomes (db_tools_inputs), each at the default device and again with
+    --device cpu: equal outputs byte for byte (db_tool_pair). The kernels'
+    launch counters are set to 0 after the inputs are made and must still
+    be 0 after the runs: these tools keep the card idle. `databases`
+    builds its entry from a file placed in its <tmpDir>; any download
+    raises instead."""
+    import urllib.request
+    # host work that fills the side process's wait for the main process:
+    # at a lower priority, it takes no CPU from the main process's phases
+    # or profile-aa's
+    os.nice(10)
+    d = os.path.join(work, "db_tools")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    genomes = coding_genomes(np.random.default_rng(19), *(
+        (16, 2000) if rehearsal else GUIDED_GENOMES))
+    p = db_tools_inputs(d, work, famdb, fasta, genomes, device)
+    inputs_s = time.perf_counter() - t0
+    p["Fz"] = os.path.join(d, "compress", "card0", "OUT")
+    p["DOM"] = os.path.join(d, "summarizetabs", "card0", "OUT")
+    p["SP"] = os.path.join(d, "databases-entry", "card0", "OUT")
+
+    def no_download(url, *args, **kw):
+        raise AssertionError(f"db-tools: a download of {url} was attempted")
+
+    real = urllib.request.urlretrieve
+    urllib.request.urlretrieve = no_download
+    _reset_launches()
+    rows, runs = [], db_tools_runs(p, work)
+    t0 = time.perf_counter()
+    try:
+        for name, binary, argv, setup in runs:
+            rows.append((name, *db_tool_pair(d, name, binary, argv, setup,
+                                             device, work)))
+    finally:
+        urllib.request.urlretrieve = real
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"db-tools: kernels launched: {launches}")
+    from plass_tpu_torch.data import seqdb
+    n_f, n_c = seqdb.SeqDB.open(famdb).size, seqdb.SeqDB.open(p["CLU"]).size
+    say(f"[db-tools] {len(rows)} runs of {len({r[2][0] for r in runs})} "
+        f"commands on {n_f} family proteins and {len(genomes)} coding genomes "
+        f"of {genomes.shape[1]} nt, each on the card and with --device cpu, "
+        f"byte for byte equal, in {wall:.1f} s (inputs in {inputs_s:.1f} s); "
+        f"cut: alignall on the first {n_c} of the linclust's clusters; "
+        f"transitivealign on `plass kmermatcher` + `plass align -a` of all "
+        f"the proteins; kernel launches during the runs: "
+        f"{sum(launches.values())}")
+    for name, card_s, cpu_s, digest, n_files, n_bytes in rows:
+        say(f"[db-tools] {name}: {card_s:.2f} s (--device cpu {cpu_s:.2f} "
+            f"s), {n_files} files and {n_bytes} bytes out, sha256 {digest}")
+
+
 # B9's measurements in the side process: on the largest align call of
 # phases 22-25, timed once the main process has finished its own work on
 # the card (it writes MAIN_IDLE into the work dir); the first
@@ -2699,7 +3027,8 @@ MAIN_IDLE = "main_idle"
 
 def phase_slice(device, work, famdb, fasta, rehearsal):
     """linsearch-aa, rbh-aa, multihit-nt and taxonomy-aa, one after the
-    other, each align call recorded; then, once the main process is idle,
+    other, each align call recorded, and db-tools; then, once the main
+    process is idle,
     B9 on each phase's largest call against its plain version and the
     native ssw, timed beside its bound as in sw-main. Returns
     {"launches": {path: launches}, "sw": {path: measurements}}."""
@@ -2714,6 +3043,7 @@ def phase_slice(device, work, famdb, fasta, rehearsal):
         with recorded_align_calls() as spied:
             launches[name] = run()
         calls[name] = max(spied, key=lambda c: len(c["pairs"]))
+    phase_db_tools(device, work, famdb, fasta, rehearsal)
     t0 = time.perf_counter()
     while not os.path.exists(os.path.join(work, MAIN_IDLE)):
         time.sleep(0.5)

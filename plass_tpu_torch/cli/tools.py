@@ -3,21 +3,22 @@ the sensitive prefilter, `align`, `search` (against sequences, against
 profiles, exhaustive and iterative) and cascaded `cluster` with their
 easy-* forms, `rbh`, `map`, the multi-hit tools, the taxonomy tools and
 the `taxonomy` workflow (data/taxonomy.py), `proteinaln2nucl`, the
-profile and MSA tools (cli/tools_profile.py), linsearch and its
-relatives (cli/tools_linsearch.py, cli/tools_misc.py, cli/tools_db.py),
-and the alignment-DB readers the product CLIs' hidden tools share.
+profile and MSA tools (cli/tools_profile.py), the DB utilities
+(cli/tools_db.py), linsearch and its relatives (cli/tools_linsearch.py),
+the misc and domain tools (cli/tools_misc.py, cli/tools_domain.py),
+`databases` (cli/tools_databases.py), and the alignment-DB readers the
+product CLIs' hidden tools share.
 
-A copy of the JAX package's cli/tools.py, cut to these commands; each
-keeps its flag list there (cli/params.py) plus --device, which sets where
-the aligner scores its candidate pairs (kernel B9, ops/protein_align.py).
-Everything else runs on the host, as in the JAX package (`taxonomy`'s
-default --lca-mode 3 aligns with the host's lcaalign; --lca-mode 4 and 1
-align through `search`). One command departs from it: `rescorediagonal` looks its hits' target keys up in its
-<i:tDB>, as the reference does (ROADMAP C4). The base tools of the JAX
-package not listed in BASE_COMMANDS are not registered (ROADMAP item
-23). A command's `stats` dict receives the stage seconds of its workflow
-under "seconds" and the aligner's pair counts under "pairs" (see
-align_protein).
+A copy of the JAX package's cli/tools.py: BASE_COMMANDS registers every
+base tool of the JAX package, in its order. Each keeps its flag list there
+(cli/params.py) plus --device, which sets where the aligner scores its
+candidate pairs (kernel B9, ops/protein_align.py). Everything else runs on
+the host, as in the JAX package (`taxonomy`'s default --lca-mode 3 aligns
+with the host's lcaalign; --lca-mode 4 and 1 align through `search`). One
+command departs from it: `rescorediagonal` looks its hits' target keys up
+in its <i:tDB>, as the reference does (ROADMAP C4). A command's `stats`
+dict receives the stage seconds of its workflow under "seconds" and the
+aligner's pair counts under "pairs" (see align_protein).
 """
 import os
 import re
@@ -1183,6 +1184,17 @@ def _mergedbs(positional, space, stats):
     return 0
 
 
+def _splitdb(positional, space, stats):
+    from ..data.dbtools import split_db
+    if len(positional) != 2:
+        raise ValueError("usage: splitdb <i:db> <o:dbPrefix> --split N")
+    n = int(space.values.get("split", 2))
+    shards = split_db(seqdb.SeqDB.open(positional[0]), n)
+    for i, s in enumerate(shards):
+        s.save(f"{positional[1]}_{i}_{n}")
+    return 0
+
+
 RESULT_DBTYPES = (seqdb.ALIGNMENT_RES, seqdb.CLUSTER_RES,
                   seqdb.PREFILTER_RES)
 
@@ -1440,6 +1452,106 @@ def _splitsequence(positional, space, stats):
     else:
         sw.finish(sort_by_key=False).save(positional[1])
     hw.finish(sort_by_key=False).save(positional[1] + "_h")
+    return 0
+
+
+def _extractframes(positional, space, stats):
+    """extractframes.cpp: emit the chosen reading frame(s) per strand with
+    ORF headers, renumbered keys."""
+    from ..data.createdb import iupac_revcomp
+    from ..ops.orf import _orf_header
+    if len(positional) != 2:
+        raise ValueError("usage: extractframes <i:seqDB> <o:seqDB>")
+    db = seqdb.SeqDB.open(positional[0])
+    v = space.values
+    fwd = _frames(v.get("forward_frames", "1,2,3"))
+    rev = _frames(v.get("reverse_frames", "1,2,3"))
+    sw = seqdb.DBWriter(db.dbtype)
+    hw = seqdb.DBWriter(seqdb.GENERIC_DB)
+    new_key = 0
+    # the reference's switch handles only exact single-frame masks;
+    # combined masks (like the "1,2,3" default) emit NOTHING
+    # (extractframes.cpp:58-110 — quirk kept for parity)
+    fwd_frame = {1: 0, 2: 1, 4: 2}.get(fwd)
+    rev_frame = {1: 0, 2: 1, 4: 2}.get(rev)
+    order = sorted(range(db.size), key=lambda j: int(db.offsets[j]))
+    for i in order:
+        key = int(db.keys[i])
+        seq = bytes(db.get_seq(i))
+        L = len(seq)
+        if fwd_frame is not None and L > fwd_frame:
+            f = fwd_frame
+            sw.write(new_key, seq[f:])
+            # writeOrfHeader(key, f, L-1-f): the frame offset shifts
+            # both coordinate ends (extractframes.cpp:59-76)
+            hw.write(new_key, _orf_header(key, f, L - 1 - f, 0, 0))
+            new_key += 1
+        if rev_frame is not None and L > rev_frame:
+            f = rev_frame
+            rc = bytes(iupac_revcomp(np.frombuffer(seq, dtype=np.uint8)))
+            sw.write(new_key, rc[f:])
+            hw.write(new_key, _orf_header(key, L - 1 - f, f, 0, 0))
+            new_key += 1
+    sw.finish(sort_by_key=False).save(positional[1])
+    hw.finish(sort_by_key=False).save(positional[1] + "_h")
+    return 0
+
+
+def _touchdb(positional, space, stats):
+    """touchdb.cpp: page the DB into memory (posix_madvise WILLNEED)."""
+    db = seqdb.SeqDB.open(positional[0])
+    _ = int(np.asarray(db.data[:: max(len(db.data) // 4096, 1)]).sum())
+    return 0
+
+
+def _diskspaceavail(positional, space, stats):
+    """diskspaceavail.cpp: print available disk space of the path."""
+    st = os.statvfs(positional[0] if positional else ".")
+    print((st.f_bavail * st.f_frsize) / 1024)
+    return 0
+
+
+def _apply(positional, space, stats):
+    """apply.cpp: run a program per DB entry (record on stdin, new record
+    from stdout)."""
+    import subprocess
+    if len(positional) < 3:
+        raise ValueError("usage: apply <i:db> <o:db> -- <program> [args]")
+    db = seqdb.SeqDB.open(positional[0])
+    prog = positional[2:]
+    w = seqdb.DBWriter(seqdb.GENERIC_DB)
+    for i in range(db.size):
+        data = db.get_data(i).tobytes()
+        env = dict(os.environ,
+                   MMSEQS_ENTRY_NAME=str(int(db.keys[i])))
+        r = subprocess.run(prog, input=data, stdout=subprocess.PIPE,
+                           env=env, check=True)
+        w.write(int(db.keys[i]), r.stdout, add_newline=False)
+    w.finish().save(positional[1])
+    return 0
+
+
+def _tar2db(positional, space, stats):
+    """tar2db.cpp: one record per tar member + .lookup/.source files."""
+    import tarfile
+    if len(positional) != 2:
+        raise ValueError("usage: tar2db <i:tar> <o:db>")
+    w = seqdb.DBWriter(seqdb.GENERIC_DB)
+    lookup = []
+    key = 0
+    with tarfile.open(positional[0]) as tf:
+        for m in tf:
+            if not m.isfile():
+                continue
+            w.write(key, tf.extractfile(m).read(), add_newline=False)
+            lookup.append((key, m.name))
+            key += 1
+    w.finish(sort_by_key=False).save(positional[1])
+    with open(positional[1] + ".lookup", "w") as f:
+        for k, name in lookup:
+            f.write(f"{k}\t{name}\t0\n")
+    with open(positional[1] + ".source", "w") as f:
+        f.write(f"0\t{os.path.basename(positional[0])}\n")
     return 0
 
 
@@ -2180,9 +2292,36 @@ def _createtsv(positional, space, stats):
     return 0
 
 
+def _tsv2db(positional, space, stats):
+    from ..data.dbtools import tsv_to_db
+    tsv_to_db(open(positional[0]).read(),
+              int(space.values.get("output_dbtype", seqdb.GENERIC_DB))).save(positional[1])
+    return 0
+
+
+def _prefixid(positional, space, stats):
+    from ..data.dbtools import prefix_id
+    prefix_id(seqdb.SeqDB.open(positional[0])).save(positional[1])
+    return 0
+
+
+def _reverseseq(positional, space, stats):
+    from ..data.dbtools import reverse_seq_db
+    reverse_seq_db(seqdb.SeqDB.open(positional[0])).save(positional[1])
+    return 0
+
+
 BASE_COMMANDS = [
     Command("createdb", _createdb, lambda: port_space(P.common_flags() + P.orf_flags()),
             "<i:fastaFile1[.gz]> ... <o:seqDB>", "Convert FASTA/Q to sequence DB", hidden=True),
+    Command("extractorfs", _extractorfs, lambda: port_space(P.common_flags() + P.orf_flags()),
+            "<i:seqDB> <o:seqDB>", "Six-frame ORF extraction", hidden=True),
+    Command("translatenucs", _translatenucs, lambda: port_space(P.common_flags() + P.orf_flags()),
+            "<i:seqDB> <o:seqDB>", "Translate nucleotides to proteins", hidden=True),
+    Command("kmermatcher", _kmermatcher, lambda: port_space(P.common_flags() + P.kmermatcher_flags() + P.align_flags()),
+            "<i:seqDB> <o:prefDB>", "Find overlapping k-mers", hidden=True),
+    Command("rescorediagonal", _rescorediagonal, lambda: port_space(P.common_flags() + P.kmermatcher_flags() + P.align_flags()),
+            "<i:qDB> <i:tDB> <i:prefDB> <o:alnDB>", "Ungapped diagonal rescoring", hidden=True),
     Command("concatdbs", _concatdbs, lambda: port_space(P.common_flags() + [
         P.Flag("--preserve-keys", "preserve_keys", bool, False,
                "Keep the keys of both DBs (must be disjoint or "
@@ -2200,46 +2339,6 @@ BASE_COMMANDS = [
             "<i:seqDB> <o:fasta>", "Convert DB to FASTA", hidden=True),
     Command("rmdb", _rmdb, lambda: port_space(P.common_flags()),
             "<i:db>", "Remove a DB file family", hidden=True),
-    Command("mvdb", _mvdb, lambda: port_space(P.common_flags()),
-            "<i:db> <o:db>", "Move a DB file family", hidden=True),
-    Command("cpdb", _cpdb, lambda: port_space(P.common_flags()),
-            "<i:db> <o:db>", "Copy a DB file family", hidden=True),
-    Command("lndb", _lndb, lambda: port_space(P.common_flags()),
-            "<i:db> <o:db>", "Symlink a DB file family", hidden=True),
-    Command("filterdb", _filterdb, lambda: port_space(P.common_flags() + [
-        P.Flag("--filter-file", "filter_file", str, "", "Keep lines whose first column is in file"),
-        P.Flag("--positive-filter", "positive_filter", bool, True,
-               "1: keep matching lines, 0: drop matching lines", r"[0-1]"),
-        P.Flag("--filter-column", "filter_column", int, 1, "Column to filter on (1-based)"),
-        P.Flag("--comparison-operator", "comparison_operator", str, "", "le, ge or e"),
-        P.Flag("--comparison-value", "comparison_value", float, 0.0, "Comparison value"),
-        P.Flag("--sort-entries", "sort_entries", int, 0, "1 increasing, 2 decreasing"),
-        P.Flag("--extract-lines", "extract_lines", int, 0, "Keep first N lines"),
-        P.Flag("--beats-first", "beats_first", bool, False, "Keep lines matching the first line's column"),
-        P.Flag("--filter-regex", "filter_regex", str, "", "Keep lines whose column matches the regex"),
-        P.Flag("--mapping-file", "mapping_file", str, "", "Map the filter column through a TSV"),
-        P.Flag("--filter-expression", "filter_expression", str, "",
-               "Keep lines where the expression over $1..$128 columns is nonzero"),
-        P.Flag("--trim-to-one-column", "trim_to_one_column", bool, False, "Output only the filter column")]),
-            "<i:db> <o:db>", "Filter result DB lines", hidden=True),
-    Command("result2repseq", _result2repseq, lambda: port_space(P.common_flags()),
-            "<i:seqDB> <i:resultDB> <o:seqDB>", "Extract representative sequences", hidden=True),
-    Command("createtsv", _createtsv, lambda: port_space(P.common_flags()),
-            "<i:db> [<i:hdb>] <o:tsv>", "Convert DB to TSV", hidden=True),
-    Command("mergedbs", _mergedbs, lambda: port_space(P.common_flags()),
-            "<i:qDB> <o:db> <i:db1> ...", "Concatenate records per key", hidden=True),
-    Command("sortresult", _sortresult, lambda: port_space(P.common_flags()),
-            "<i:resDB> <o:resDB>", "Sort result records by E-value/score", hidden=True),
-    Command("swapresults", _swapresults, lambda: port_space(P.common_flags() + P.align_flags()),
-            "<i:qDB> <i:tDB> <i:resDB> <o:resDB>", "Transpose query/target results", hidden=True),
-    Command("kmermatcher", _kmermatcher, lambda: port_space(P.common_flags() + P.kmermatcher_flags() + P.align_flags()),
-            "<i:seqDB> <o:prefDB>", "Find overlapping k-mers", hidden=True),
-    Command("rescorediagonal", _rescorediagonal, lambda: port_space(P.common_flags() + P.kmermatcher_flags() + P.align_flags()),
-            "<i:qDB> <i:tDB> <i:prefDB> <o:alnDB>", "Ungapped diagonal rescoring", hidden=True),
-    Command("prefilter", _prefilter, lambda: port_space(P.common_flags() + P.search_flags() + [
-        P.Flag("-c", "cov_thr", float, 0.0, "Coverage threshold"),
-        P.Flag("--cov-mode", "cov_mode", int, 0, "Coverage mode", r"[0-5]")]),
-            "<i:qDB> <i:tDB> <o:prefDB>", "Sensitive double-k-mer-match prefilter", hidden=True),
     Command("align", _align, lambda: port_space(P.common_flags() + P.kmermatcher_flags() + P.align_flags() + [
         P.Flag("--alignment-mode", "alignment_mode", int, 0,
                "0 auto, 1 score+end, 2 +start+cov, 3 +seq.id", r"[0-5]"),
@@ -2252,60 +2351,10 @@ BASE_COMMANDS = [
         P.Flag("--max-accept", "max_accept", int, 2**31 - 1, "Maximum accepted alignments per query"),
         P.Flag("--max-rejected", "max_rejected", int, 2**31 - 1, "Maximum rejected alignments before give-up")]),
             "<i:qDB> <i:tDB> <i:prefDB> <o:alnDB>", "Efficient gapped alignment for lca computation", hidden=True),
-    Command("search", _search, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
-        P.Flag("--num-iterations", "num_iterations", int, 1,
-               "Number of iterative profile search iterations"),
-        P.Flag("--e-profile", "eval_profile", float, 0.1,
-               "E-value threshold for intermediate profiles")]),
-            "<i:qDB> <i:tDB> <o:alnDB> <tmpDir>", "Sensitive homology search (prefilter + align)", hidden=True),
-    Command("easy-search", _easy_search, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags()),
-            "<i:queryFasta> <i:targetFasta> <o:tsv> <tmpDir>", "Sensitive homology search (FASTA in, BLAST-tab out)", hidden=True),
-    Command("convertalis", _convertalis, lambda: port_space(P.common_flags()),
-            "<i:qDB> <i:tDB> <i:alnDB> <o:tsv>", "Convert alignment DB to BLAST-tab TSV", hidden=True),
-    Command("clust", _clust, lambda: port_space(P.common_flags()),
-            "<i:seqDB> <i:alnDB> <o:cluDB>", "Greedy incremental clustering", hidden=True),
-    Command("mergeclusters", _mergeclusters, lambda: port_space(P.common_flags()),
-            "<i:seqDB> <o:cluDB> <i:clu1> ...", "Merge clustering steps", hidden=True),
-    Command("cluster", _cluster, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
-        P.Flag("--cluster-mode", "cluster_mode", int, 0, "0 set-cover, 1 connected component, 2 greedy", r"[0-3]"),
-        P.Flag("--cluster-steps", "cluster_steps", int, 3, "Cascaded clustering steps")]),
-            "<i:seqDB> <o:cluDB> <tmpDir>", "Cascaded clustering", hidden=True),
-    Command("easy-cluster", _easy_cluster, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
-        P.Flag("--cluster-mode", "cluster_mode", int, 0, "0 set-cover, 1 connected component, 2 greedy", r"[0-3]"),
-        P.Flag("--use-fasta-header", "use_fasta_header", bool, False, "Use full fasta header")]),
-            "<i:fasta> <o:prefix> <tmpDir>", "Cascaded clustering (FASTA in, FASTA/TSV out)", hidden=True),
-    Command("easy-linclust", _easy_linclust, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
-        P.Flag("--use-fasta-header", "use_fasta_header", bool, False, "Use full fasta header")]),
-            "<i:fasta> <o:prefix> <tmpDir>", "Linear-time clustering (FASTA in, FASTA/TSV out)", hidden=True),
-    Command("result2flat", _result2flat, lambda: port_space(P.common_flags() + [
-        P.Flag("--use-fasta-header", "use_fasta_header", bool, False, "Use full fasta header")]),
-            "<i:qDB> <i:tDB> <i:resDB> <o:fasta>", "Flatten result DB to FASTA", hidden=True),
-    Command("createseqfiledb", _createseqfiledb, lambda: port_space(P.common_flags()),
-            "<i:seqDB> <i:cluDB> <o:db>", "Per-cluster FASTA records", hidden=True),
-    Command("subtractdbs", _subtractdbs, lambda: port_space(P.common_flags() + [
-        P.Flag("-e", "eval_thr", float, 0.001, "E-value threshold"),
-        P.Flag("--e-profile", "eval_profile", float, 0.001, "Profile E-value threshold")]),
-            "<i:leftDB> <i:rightDB> <o:db>", "Remove right-side hits from left result DB", hidden=True),
-]
-
-BASE_COMMANDS.extend([
-    Command("extractorfs", _extractorfs, lambda: port_space(P.common_flags() + P.orf_flags()),
-            "<i:seqDB> <o:seqDB>", "Six-frame ORF extraction", hidden=True),
-    Command("translatenucs", _translatenucs, lambda: port_space(P.common_flags() + P.orf_flags()),
-            "<i:seqDB> <o:seqDB>", "Translate nucleotides to proteins", hidden=True),
-    Command("splitsequence", _splitsequence, lambda: port_space(P.common_flags() + [
-        P.Flag("--max-seq-len", "split_seq_len", int, 10000, "Window length"),
-        P.Flag("--sequence-overlap", "sequence_overlap", int, 300, "Window overlap"),
-        P.Flag("--sequence-split-mode", "sequence_split_mode", int, 1, "0 copy data, 1 soft link", r"[0-1]")]),
-            "<i:seqDB> <o:seqDB>", "Split long sequences into overlapping windows", hidden=True),
-    Command("swapdb", _swapdb, lambda: port_space(P.common_flags()),
-            "<i:resultDB> <o:resultDB>", "Transpose a result DB", hidden=True),
-    Command("result2rbh", _result2rbh, lambda: port_space(P.common_flags()),
-            "<i:resDB> <o:resDB>", "Extract reciprocal best hits", hidden=True),
-    Command("rbh", _rbh, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags()),
-            "<i:aDB> <i:bDB> <o:resDB> <tmpDir>", "Reciprocal best hit search", hidden=True),
-    Command("map", _map, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags()),
-            "<i:qDB> <i:tDB> <o:alnDB> <tmpDir>", "Fast exact mapping (high-identity search)", hidden=True),
+    Command("prefilter", _prefilter, lambda: port_space(P.common_flags() + P.search_flags() + [
+        P.Flag("-c", "cov_thr", float, 0.0, "Coverage threshold"),
+        P.Flag("--cov-mode", "cov_mode", int, 0, "Coverage mode", r"[0-5]")]),
+            "<i:qDB> <i:tDB> <o:prefDB>", "Sensitive double-k-mer-match prefilter", hidden=True),
     Command("orftocontig", _orftocontig, lambda: port_space(P.common_flags()),
             "<i:contigDB> <i:orfDB> <o:alnDB>", "Write ORF locations as alignment records", hidden=True),
     Command("result2stats", _result2stats, lambda: port_space(P.common_flags() + [
@@ -2369,16 +2418,121 @@ BASE_COMMANDS.extend([
             "<i:taxSeqDB> <i:taxResultDB> <o:taxResultDB>", "Filter by taxonomy expression", hidden=True),
     Command("taxonomy", _taxonomy, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + P.tax_flags()),
             "<i:qDB> <i:taxSeqDB> <o:taxDB> <tmpDir>", "Taxonomic classification (search + LCA)", hidden=True),
+    Command("subtractdbs", _subtractdbs, lambda: port_space(P.common_flags() + [
+        P.Flag("-e", "eval_thr", float, 0.001, "E-value threshold"),
+        P.Flag("--e-profile", "eval_profile", float, 0.001, "Profile E-value threshold")]),
+            "<i:leftDB> <i:rightDB> <o:db>", "Remove right-side hits from left result DB", hidden=True),
+    Command("splitsequence", _splitsequence, lambda: port_space(P.common_flags() + [
+        P.Flag("--max-seq-len", "split_seq_len", int, 10000, "Window length"),
+        P.Flag("--sequence-overlap", "sequence_overlap", int, 300, "Window overlap"),
+        P.Flag("--sequence-split-mode", "sequence_split_mode", int, 1, "0 copy data, 1 soft link", r"[0-1]")]),
+            "<i:seqDB> <o:seqDB>", "Split long sequences into overlapping windows", hidden=True),
+    Command("extractframes", _extractframes, lambda: port_space(P.common_flags() + [
+        P.Flag("--forward-frames", "forward_frames", str, "1,2,3", "Forward frames"),
+        P.Flag("--reverse-frames", "reverse_frames", str, "1,2,3", "Reverse frames")]),
+            "<i:seqDB> <o:seqDB>", "Extract reading frames", hidden=True),
+    Command("touchdb", _touchdb, lambda: port_space(P.common_flags()),
+            "<i:db>", "Page a DB into memory", hidden=True),
+    Command("diskspaceavail", _diskspaceavail, lambda: port_space(P.common_flags()),
+            "<i:path>", "Print available disk space (KB)", hidden=True),
+    Command("apply", _apply, lambda: port_space(P.common_flags()),
+            "<i:db> <o:db> -- <program> [args]", "Run a program on every DB entry", hidden=True),
+    Command("tar2db", _tar2db, lambda: port_space(P.common_flags()),
+            "<i:tar> <o:db>", "Convert tar archive members to DB records", hidden=True),
+    Command("swapdb", _swapdb, lambda: port_space(P.common_flags()),
+            "<i:resultDB> <o:resultDB>", "Transpose a result DB", hidden=True),
+    Command("cluster", _cluster, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
+        P.Flag("--cluster-mode", "cluster_mode", int, 0, "0 set-cover, 1 connected component, 2 greedy", r"[0-3]"),
+        P.Flag("--cluster-steps", "cluster_steps", int, 3, "Cascaded clustering steps")]),
+            "<i:seqDB> <o:cluDB> <tmpDir>", "Cascaded clustering", hidden=True),
+    Command("easy-cluster", _easy_cluster, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
+        P.Flag("--cluster-mode", "cluster_mode", int, 0, "0 set-cover, 1 connected component, 2 greedy", r"[0-3]"),
+        P.Flag("--use-fasta-header", "use_fasta_header", bool, False, "Use full fasta header")]),
+            "<i:fasta> <o:prefix> <tmpDir>", "Cascaded clustering (FASTA in, FASTA/TSV out)", hidden=True),
+    Command("easy-linclust", _easy_linclust, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
+        P.Flag("--use-fasta-header", "use_fasta_header", bool, False, "Use full fasta header")]),
+            "<i:fasta> <o:prefix> <tmpDir>", "Linear-time clustering (FASTA in, FASTA/TSV out)", hidden=True),
+    Command("result2flat", _result2flat, lambda: port_space(P.common_flags() + [
+        P.Flag("--use-fasta-header", "use_fasta_header", bool, False, "Use full fasta header")]),
+            "<i:qDB> <i:tDB> <i:resDB> <o:fasta>", "Flatten result DB to FASTA", hidden=True),
+    Command("createseqfiledb", _createseqfiledb, lambda: port_space(P.common_flags()),
+            "<i:seqDB> <i:cluDB> <o:db>", "Per-cluster FASTA records", hidden=True),
+    Command("easy-search", _easy_search, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags()),
+            "<i:queryFasta> <i:targetFasta> <o:tsv> <tmpDir>", "Sensitive homology search (FASTA in, BLAST-tab out)", hidden=True),
+    Command("convertalis", _convertalis, lambda: port_space(P.common_flags()),
+            "<i:qDB> <i:tDB> <i:alnDB> <o:tsv>", "Convert alignment DB to BLAST-tab TSV", hidden=True),
+    Command("search", _search, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags() + [
+        P.Flag("--num-iterations", "num_iterations", int, 1,
+               "Number of iterative profile search iterations"),
+        P.Flag("--e-profile", "eval_profile", float, 0.1,
+               "E-value threshold for intermediate profiles")]),
+            "<i:qDB> <i:tDB> <o:alnDB> <tmpDir>", "Sensitive homology search (prefilter + align)", hidden=True),
+    Command("clust", _clust, lambda: port_space(P.common_flags()),
+            "<i:seqDB> <i:alnDB> <o:cluDB>", "Greedy incremental clustering", hidden=True),
+    Command("mergeclusters", _mergeclusters, lambda: port_space(P.common_flags()),
+            "<i:seqDB> <o:cluDB> <i:clu1> ...", "Merge clustering steps", hidden=True),
+    Command("result2repseq", _result2repseq, lambda: port_space(P.common_flags()),
+            "<i:seqDB> <i:resultDB> <o:seqDB>", "Extract representative sequences", hidden=True),
+    Command("filterdb", _filterdb, lambda: port_space(P.common_flags() + [
+        P.Flag("--filter-file", "filter_file", str, "", "Keep lines whose first column is in file"),
+        P.Flag("--positive-filter", "positive_filter", bool, True,
+               "1: keep matching lines, 0: drop matching lines", r"[0-1]"),
+        P.Flag("--filter-column", "filter_column", int, 1, "Column to filter on (1-based)"),
+        P.Flag("--comparison-operator", "comparison_operator", str, "", "le, ge or e"),
+        P.Flag("--comparison-value", "comparison_value", float, 0.0, "Comparison value"),
+        P.Flag("--sort-entries", "sort_entries", int, 0, "1 increasing, 2 decreasing"),
+        P.Flag("--extract-lines", "extract_lines", int, 0, "Keep first N lines"),
+        P.Flag("--beats-first", "beats_first", bool, False, "Keep lines matching the first line's column"),
+        P.Flag("--filter-regex", "filter_regex", str, "", "Keep lines whose column matches the regex"),
+        P.Flag("--mapping-file", "mapping_file", str, "", "Map the filter column through a TSV"),
+        P.Flag("--filter-expression", "filter_expression", str, "",
+               "Keep lines where the expression over $1..$128 columns is nonzero"),
+        P.Flag("--trim-to-one-column", "trim_to_one_column", bool, False, "Output only the filter column")]),
+            "<i:db> <o:db>", "Filter result DB lines", hidden=True),
+    Command("result2rbh", _result2rbh, lambda: port_space(P.common_flags()),
+            "<i:resDB> <o:resDB>", "Extract reciprocal best hits", hidden=True),
+    Command("rbh", _rbh, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags()),
+            "<i:aDB> <i:bDB> <o:resDB> <tmpDir>", "Reciprocal best hit search", hidden=True),
+    Command("map", _map, lambda: port_space(P.common_flags() + P.search_flags() + P.align_flags()),
+            "<i:qDB> <i:tDB> <o:alnDB> <tmpDir>", "Fast exact mapping (high-identity search)", hidden=True),
     Command("proteinaln2nucl", _proteinaln2nucl, lambda: port_space(P.common_flags() + P.align_flags()),
             "<i:qNuclDB> <i:tNuclDB> <i:qAaDB> <i:tAaDB> <i:alnDB> <o:alnDB>",
             "Map protein alignments to nucleotide space", hidden=True),
-])
+    Command("mvdb", _mvdb, lambda: port_space(P.common_flags()),
+            "<i:db> <o:db>", "Move a DB file family", hidden=True),
+    Command("cpdb", _cpdb, lambda: port_space(P.common_flags()),
+            "<i:db> <o:db>", "Copy a DB file family", hidden=True),
+    Command("lndb", _lndb, lambda: port_space(P.common_flags()),
+            "<i:db> <o:db>", "Symlink a DB file family", hidden=True),
+    Command("sortresult", _sortresult, lambda: port_space(P.common_flags()),
+            "<i:resDB> <o:resDB>", "Sort result records by E-value/score", hidden=True),
+    Command("swapresults", _swapresults, lambda: port_space(P.common_flags() + P.align_flags()),
+            "<i:qDB> <i:tDB> <i:resDB> <o:resDB>", "Transpose query/target results", hidden=True),
+    Command("mergedbs", _mergedbs, lambda: port_space(P.common_flags()),
+            "<i:qDB> <o:db> <i:db1> ...", "Concatenate records per key", hidden=True),
+    Command("splitdb", _splitdb, lambda: port_space(P.common_flags() + [
+        P.Flag("--split", "split", int, 2, "Number of shards")]),
+            "<i:db> <o:dbPrefix>", "Split DB into shards", hidden=True),
+    Command("createtsv", _createtsv, lambda: port_space(P.common_flags()),
+            "<i:db> [<i:hdb>] <o:tsv>", "Convert DB to TSV", hidden=True),
+    Command("tsv2db", _tsv2db, lambda: port_space(P.common_flags() + [
+        P.Flag("--output-dbtype", "output_dbtype", int, 12, "Output DB type")]),
+            "<i:tsv> <o:db>", "Convert TSV to DB", hidden=True),
+    Command("prefixid", _prefixid, lambda: port_space(P.common_flags()),
+            "<i:db> <o:db>", "Prefix each line with the record key", hidden=True),
+    Command("reverseseq", _reverseseq, lambda: port_space(P.common_flags()),
+            "<i:seqDB> <o:seqDB>", "Reverse sequences", hidden=True),
+]
 
-from .tools_profile import COMMANDS as _PROFILE_COMMANDS  # noqa: E402
-BASE_COMMANDS.extend(_PROFILE_COMMANDS)
 from .tools_db import COMMANDS as _DB_COMMANDS  # noqa: E402
 BASE_COMMANDS.extend(_DB_COMMANDS)
+from .tools_profile import COMMANDS as _PROFILE_COMMANDS  # noqa: E402
+BASE_COMMANDS.extend(_PROFILE_COMMANDS)
 from .tools_misc import COMMANDS as _MISC_COMMANDS  # noqa: E402
 BASE_COMMANDS.extend(_MISC_COMMANDS)
+from .tools_domain import COMMANDS as _DOMAIN_COMMANDS  # noqa: E402
+BASE_COMMANDS.extend(_DOMAIN_COMMANDS)
 from .tools_linsearch import COMMANDS as _LINSEARCH_COMMANDS  # noqa: E402
 BASE_COMMANDS.extend(_LINSEARCH_COMMANDS)
+from .tools_databases import COMMANDS as _DATABASES_COMMANDS  # noqa: E402
+BASE_COMMANDS.extend(_DATABASES_COMMANDS)

@@ -245,7 +245,7 @@ def _decompress_db(data, keys, offsets, lengths, dbtype):
     is 0x00 for a ZSTD frame and 0xFF for a short (<60 byte) raw record; the
     index length keeps the UNCOMPRESSED record length (payload + NUL).
     """
-    import zstandard
+    from ..utils import zstd as zstandard
     dctx = zstandard.ZstdDecompressor()
     writer = DBWriter(dbtype)
     for i in range(len(keys)):
@@ -267,7 +267,7 @@ def save_compressed(db, path):
     the uncompressed length (+1 for the terminator); bit 31 of the dbtype
     marks the DB compressed.
     """
-    import zstandard
+    from ..utils import zstd as zstandard
     order = data_order(db)
     keys, lengths, offsets = [], [], []
     pos = 0

@@ -1,6 +1,6 @@
 """chip_smoke.py, the port's GPU smoke run, on a machine without a card:
 its CPU rehearsal drives every phase at a tiny size (the split matcher's
-phases included) and prints no result;
+phases and the DB tools' included) and prints no result;
 run alone, outside the repo, it fails without printing a result; its
 `kernels` line holds every key for every kernel."""
 import importlib.util
@@ -88,6 +88,13 @@ def test_cpu_rehearsal_runs_every_phase():
                 "--lca-mode 4` in", "ranks {", "[taxonomy-aa] lca-mode-4: "
                 "seconds per stage: prefilter", "[taxonomy-aa] lca-mode-4: "
                 "the align stage byte-identical with --device cpu",
+                "[db-tools] 34 runs of 30 commands on 47 family proteins "
+                "and 16 coding genomes of 2000 nt, each on the card and with "
+                "--device cpu, byte for byte equal", "cut: alignall on the "
+                "first", "kernel launches during the runs: 0",
+                "[db-tools] countkmer: ", "[db-tools] transitivealign: ",
+                "[db-tools] databases-entry: ", "[db-tools] extractframes: ",
+                "[db-tools] apply: ",
                 "[sw-side] waited", "[sw-side] B9 on the 36 candidate pairs "
                 "of taxonomy's align stage", "[sw-side] B9 on linsearch's ",
                 "[sw-side] B9 on rbh's ", "[sw-side] B9 on multihit's ",

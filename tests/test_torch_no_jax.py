@@ -34,8 +34,8 @@ def test_port_imports_no_jax():
     assert int(lines[0].split()[0]) >= 70, lines
     assert lines[1] == "BAD []", lines
     # the guided slice's modules, the aligner's, the search slice's, the
-    # profile slice's, the linsearch / multi-hit slice's and the taxonomy
-    # slice's are among those imported
+    # profile slice's, the linsearch / multi-hit slice's, the taxonomy
+    # slice's and the DB tools' are among those imported
     for name in ("workflow.guided", "workflow.linclust", "ops.kmermatch",
                  "ops.ksw2", "ops.nucl_align", "ops.proteinaln2nucl",
                  "assembler.guided_extend", "assembler.cluster",
@@ -48,5 +48,6 @@ def test_port_imports_no_jax():
                  "ops.msa", "ops.profilestates", "data.ca3m",
                  "ops.linsearch", "ops.alignbykmer", "data.offsetaln",
                  "data.multihit", "cli.tools_db", "cli.tools_misc",
-                 "cli.tools_linsearch", "data.taxonomy"):
+                 "cli.tools_linsearch", "data.taxonomy", "cli.tools_domain",
+                 "cli.tools_databases", "data.summarize", "utils.zstd"):
         assert f"'plass_tpu_torch.{name}'" in lines[2], name

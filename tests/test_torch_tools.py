@@ -85,11 +85,18 @@ def test_command_parses_as_the_jax_package(binary, name):
 
 
 def test_the_commands_left_out_are_unregistered(capsys):
-    ported = {c.name for c in port_plass.commands()}
-    for name in ("view", "alignall", "compress", "splitdb", "databases"):
-        assert name not in ported
-        assert port_plass.run([name, "a", "b"]) == 1
-    assert "Invalid command 'databases'" in capsys.readouterr().err
+    """No command of the JAX package is left out: for `plass` and
+    `penguin`, the port registers the same command names as plass_tpu, in
+    its order (which "Did you mean" breaks ties by), and refuses a name
+    neither registers as plass_tpu does."""
+    for binary, (ref, port) in CLIS.items():
+        want = [c.name for c in ref.commands()]
+        assert [c.name for c in port.commands()] == want
+        assert len(set(want)) == {"plass": 128, "penguin": 129}[binary]
+        assert ref_run(["nosuchtool", "a", "b"], binary) == 1
+        want_err = capsys.readouterr().err
+        assert port.run(["nosuchtool", "a", "b"]) == 1
+        assert capsys.readouterr().err == want_err
 
 
 # the shell's built-ins and a mistyped command, as plass_tpu's shell
