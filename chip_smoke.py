@@ -173,8 +173,23 @@ and times it there beside its bound, as sw-main does ([sw-side]):
      gff2db and maskbygff with seeded GFFs, apply with a short program) and
      diskspaceavail of the work dir; each command's seconds both ways and
      its outputs' sha256.
+ 27. sharded, in a process of its own started before phase 10 and joined
+     after it (guided-scale's linclust tail leaves the card idle), whose
+     ranks are processes of their own (PLASS_COORDINATOR on a local port):
+     `plass assemble --backend sharded` of phase 4's reads at world 1
+     (NCCL), byte-identical to phase 4; at world 2, two ranks sharing the
+     card (gloo), the iteration-0 sharded matcher on phase 4's DB on the
+     card equal to it on the CPU in each rank (hits and rescore columns),
+     the same assembly in both ranks, byte-identical to each other and to
+     --cpu-reference sharded's sha256, and `penguin nuclassemble` and
+     `guided_nuclassemble --backend sharded` on the fixture, card and
+     --device cpu byte for byte; each rank's stage seconds, exchange bytes
+     and seconds, peak device memory and K1/K2 launches (counted from 0 in
+     the rank around each run; every rank must launch both); then a
+     failing rank (its input missing) must make both ranks exit non-zero
+     within the group's timeout.
 The kernels' launch counters are set to 0 just before phases 4, 7, 10, 13,
-14, 15, 16, 17, 18, 20, 22, 23, 24 and 25's CLI runs and read just after;
+14, 15, 16, 17, 18, 20, 22, 23, 24, 25 and 27's CLI runs and read just after;
 every kernel of each path must have run there. Before phase 26's runs
 they are set to 0 too, and none may have run after them. The last lines
 are the script's seconds, a JSON summary of the kernels (times, launches
@@ -185,10 +200,12 @@ true, "device": {...}}.
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
 --cpu-reference runs phases 4, 7 and 10 (or, with a value, those of
-assemble, nuclassemble, guided_nuclassemble, profile and taxonomy it
-names; profile is phase 16's searches, taxonomy phase 25's runs) at full
-size on the CPU, for the sha256 of their outputs. Neither prints a result;
-both exit with code 2.
+assemble, nuclassemble, guided_nuclassemble, profile, taxonomy and sharded
+it names; profile is phase 16's searches, taxonomy phase 25's runs,
+sharded phase 27's world-2 assembly in two ranks) at full size on the CPU,
+for the sha256 of their outputs; --cards N runs phase 27's assembly
+across N cards, one rank a card (NCCL), and with --device cpu. None of
+them prints a result; each exits with code 2.
 """
 import argparse
 import contextlib
@@ -423,7 +440,7 @@ K1_REPEATS = 50
 GUIDED_GENOMES = (104, 5000)
 SCALE_RUNS = ("assemble", "nuclassemble", "guided_nuclassemble")
 # --cpu-reference also takes "profile": phase profile-aa's two searches
-REFERENCE_RUNS = SCALE_RUNS + ("profile", "taxonomy")
+REFERENCE_RUNS = SCALE_RUNS + ("profile", "taxonomy", "sharded")
 
 
 def phase_k1(device, sizes, reps, timed_sizes=()):
@@ -2068,13 +2085,15 @@ def recorded_align_launches():
 
 # profile-aa ("profile-aa"), and linsearch-aa, rbh-aa, multihit-nt and
 # taxonomy-aa ("slice"), run in processes of their own beside phases 17-20
-# (their stages are host code but for B9's launches); each process prints
-# its phases' lines, which start with its SIDE_TAGS, and its result (its
-# launches; the slice's also B9's measurements) on a line that starts with
+# (their stages are host code but for B9's launches), the sharded phase
+# ("sharded") beside phase 10; each process prints its phases' lines,
+# which start with its SIDE_TAGS, and its result (its launches; the
+# slice's also B9's measurements) on a line that starts with
 # side_result(name)
 SIDE_TAGS = {"profile-aa": ("[profile-aa]",),
              "slice": ("[linsearch-aa]", "[rbh-aa]", "[multihit-nt]",
-                       "[taxonomy-aa]", "[db-tools]", "[sw-side]")}
+                       "[taxonomy-aa]", "[db-tools]", "[sw-side]"),
+             "sharded": ("[sharded]",)}
 PROFILE_TIMEOUT = 1000
 SLICE_TIMEOUT = 900
 
@@ -3452,6 +3471,337 @@ def phase_hamming(device, work, protein_db, nucl_db, reps):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# sharded: the k-mer matcher across ranks (--backend sharded), in a process
+# of its own beside guided-scale (phase 10), whose linclust tail leaves the
+# card idle; it starts the ranks, each a `--side-phase sharded-rank` process
+
+# sha256 of protein x400's assembly at world 2, from `python3 chip_smoke.py
+# --cpu-reference sharded` (two ranks with --device cpu)
+SHARDED_SHA256 = \
+    "1146b97379c236a4d5db7d03e6dcfe0f579ca2c1f12071c5281cffabc07c9461"
+SHARDED_TIMEOUT = 900
+RANK_TIMEOUT = 600
+# a failing rank's group gives up after this many seconds at the latest
+FAIL_GROUP_TIMEOUT = 60
+SHARDED_FIXTURE_RUNS = (
+    ("nuclassemble", ("--num-iterations", "2", "--min-contig-len", "150")),
+    ("guided_nuclassemble", ("--min-contig-len", "150")))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world, work, name, jobs, rehearsal, timeout=RANK_TIMEOUT,
+              group_timeout=None):
+    """`chip_smoke.py --side-phase sharded-rank` in `world` processes, the
+    ranks of one process group (PLASS_COORDINATOR on a free local port),
+    each running `jobs` and writing its results to a JSON file in work.
+    Returns [(exit code, log path, results or None)] by rank; a rank still
+    running at `timeout` is killed."""
+    d = os.path.join(work, name)
+    os.makedirs(d, exist_ok=True)
+    jobs_path = os.path.join(d, "jobs.json")
+    with open(jobs_path, "w") as fh:
+        json.dump(jobs, fh)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PLASS_", "MASTER_", "WORLD_SIZE", "RANK",
+                                "LOCAL_RANK"))}
+    # the ranks share the host's cores: OpenMP and torch, each rank's
+    # share (more threads than cores make a rank's CPU sorts and scans
+    # crawl)
+    env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // world))
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        env.update(PLASS_COORDINATOR=f"127.0.0.1:{port}",
+                   PLASS_NUM_PROCESSES=str(world), PLASS_PROCESS_ID=str(rank))
+        if group_timeout:
+            env["PLASS_DIST_TIMEOUT"] = str(group_timeout)
+        log = os.path.join(d, f"rank{rank}.log")
+        with open(log, "w") as fh:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--side-phase",
+                 "sharded-rank", d, jobs_path, "-",
+                 *(["--cpu-rehearsal"] if rehearsal else [])],
+                stdout=fh, stderr=subprocess.STDOUT, cwd=ROOT,
+                env=dict(env)), log))
+    out = []
+    t_end = time.perf_counter() + timeout
+    try:
+        for rank, (proc, log) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(t_end - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                rc = None
+            res = os.path.join(d, f"rank{rank}.json")
+            out.append((rc, log, json.load(open(res))
+                        if rc == 0 and os.path.exists(res) else None))
+    finally:
+        for proc, _ in procs:
+            stop(proc)
+    return out
+
+
+def _need_ranks(name, results):
+    """The ranks' results, or an AssertionError with a failed rank's log."""
+    for rank, (rc, log, res) in enumerate(results):
+        if rc != 0 or res is None:
+            print("\n".join(open(log).read().splitlines()[-40:]),
+                  file=sys.stderr)
+            raise AssertionError(f"[sharded] {name}: rank {rank} exited with "
+                                 f"{rc}")
+    return [res for _, _, res in results]
+
+
+def _rank_line(name, rank, r):
+    """A rank's stage seconds, exchanges and peak memory."""
+    ex = ", ".join(f"{k} {r['exchange_bytes'][k]} B in "
+                   f"{r['exchange_seconds'][k]:.3f} s"
+                   for k in r["exchange_bytes"])
+    return (f"[sharded] {name} rank {rank}: {seconds_text(r['seconds'])}; "
+            f"exchanges {ex}; peak device memory "
+            f"{r['peak'] / 2**30:.2f} GiB; launches seg_scan "
+            f"{r['launches']['seg_scan']}, rescore_e2e "
+            f"{r['launches']['rescore_e2e']}, rescore_e2e_rev_uniform "
+            f"{r['launches']['rescore_e2e_rev_uniform']}")
+
+
+def rank_cli(job, device, d, rank):
+    """One CLI run of a rank on `device`: the launches counted from 0
+    around it, its stats, its output's sha256."""
+    from plass_tpu_torch.cli import penguin, plass
+    from plass_tpu_torch.parallel import distributed
+
+    run = plass.run if job["binary"] == "plass" else penguin.run
+    out = os.path.join(d, f"{job['id']}_r{rank}" + job["suffix"])
+    inputs = [x.format(rank=rank) for x in job["inputs"]]
+    stats = {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    rc = run([job["command"], *inputs, out, os.path.join(
+        d, f"{job['id']}_tmp{rank}"), "--device", str(device), "--backend",
+        "sharded", *job["flags"]], stats=stats)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{job['command']} exit code {rc}")
+    return {"sha256": hashlib.sha256(open(out, "rb").read()).hexdigest(),
+            "wall": wall, "launches": _launches(),
+            "seconds": stats["seconds"],
+            "peak": max(stats["peak_bytes"].values(), default=0),
+            "exchange_bytes": stats.get("exchange_bytes", {}),
+            "exchange_seconds": stats.get("exchange_seconds", {}),
+            "world": distributed.world(), "backend": distributed.backend(),
+            "contigs": sum(1 for line in open(out) if line.startswith(">"))}
+
+
+def rank_match(job, device):
+    """The iteration-0 sharded matcher on the card and on the CPU, in this
+    rank's group: equal hits and rescore columns, K1 and K2 launched."""
+    import torch
+    from plass_tpu_torch.data import seqdb
+    from plass_tpu_torch.ops.backend import kmermatcher_sharded_torch
+
+    db = seqdb.SeqDB.open(job["db"])
+    _reset_launches()
+    t0 = time.perf_counter()
+    dev = kmermatcher_sharded_torch(db, 14, device, **PROTEIN_MATCH)
+    t_dev = time.perf_counter() - t0
+    launches = _launches()
+    t0 = time.perf_counter()
+    cpu = kmermatcher_sharded_torch(db, 14, torch.device("cpu"),
+                                    **PROTEIN_MATCH)
+    t_cpu = time.perf_counter() - t0
+    for name, a, b in zip(("qk", "tk", "score", "diag", "pre score",
+                           "first", "last", "idents"),
+                          (*dev, *dev.pre), (*cpu, *cpu.pre)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"iteration-0 sharded matcher: {name} on "
+                                 f"the card differs from the CPU's")
+    if device.type == "cuda" and not (launches["seg_scan"]
+                                      and launches["rescore_e2e"]):
+        raise AssertionError(f"K1 or K2 never launched: {launches}")
+    return {"hits": len(dev.hit_slots), "table_entries": dev.table_entries,
+            "seconds": t_dev, "cpu_seconds": t_cpu, "launches": launches,
+            "exchange_bytes": dev.exchange.bytes,
+            "exchange_seconds": dev.exchange.seconds}
+
+
+def phase_sharded_rank(d, jobs_path, rehearsal):
+    """A rank of run_ranks: its jobs, each on the rank's card (the CPU in
+    the rehearsal) or, where it says so, on the CPU; its results to
+    rank<r>.json."""
+    from plass_tpu_torch.parallel import distributed
+
+    rank = distributed.coordinator()[3]
+    results = {}
+    for job in json.load(open(jobs_path)):
+        device = distributed.rank_device(
+            "cpu" if rehearsal or job.get("device") == "cpu" else "cuda")
+        if job["kind"] == "match":
+            distributed.maybe_initialize(device)
+            results[job["id"]] = rank_match(job, device)
+        else:
+            results[job["id"]] = rank_cli(job, device, d, rank)
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as fh:
+        json.dump(results, fh)
+
+
+def _cli_job(job_id, binary, command, inputs, suffix, flags=(),
+             device="default"):
+    return {"id": job_id, "kind": "cli", "binary": binary,
+            "command": command, "inputs": list(inputs), "suffix": suffix,
+            "flags": list(flags), "device": device}
+
+
+def sharded_assemble_job(reads, device="default"):
+    return _cli_job("assemble", "plass", "assemble", [reads], ".fas",
+                    device=device)
+
+
+def phase_sharded(device, work, db_path, assembly, rehearsal):
+    """World 1 (NCCL on a card), world 2 (two ranks on the one card, gloo)
+    and a failing rank; see the module docstring. Returns {"launches":
+    {kernel: launches}} of the protein x400 assemblies' ranks."""
+    # beside guided-scale: at a lower priority (the ranks inherit it), the
+    # ranks' host stages take no CPU from the main process's phases
+    os.nice(10)
+    t_phase = time.perf_counter()
+    reads = os.path.join(work, "reads.fasta")
+    want = hashlib.sha256(open(assembly, "rb").read()).hexdigest()
+    total = {}
+
+    def count(res):
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    # ---- world 1: one rank, its exchanges copies to itself
+    (r,) = _need_ranks("world 1", run_ranks(
+        1, work, "sharded1", [sharded_assemble_job(reads)], rehearsal))
+    w1 = r["assemble"]
+    say(f"[sharded] world 1 ({w1['backend']}): `plass assemble --backend "
+        f"sharded` of protein x400 in {w1['wall']:.1f} s, {w1['contigs']} "
+        f"contigs, sha256 {w1['sha256']}")
+    say(_rank_line("world 1", 0, w1))
+    if w1["sha256"] != want:
+        raise AssertionError(f"[sharded] world 1: sha256 {w1['sha256']}, "
+                             f"phase 4's is {want}")
+    say("[sharded] world 1: byte-identical to phase 4's assembly")
+    count(w1)
+
+    # ---- world 2: two ranks sharing the card
+    jobs = [{"id": "match", "kind": "match", "db": db_path},
+            sharded_assemble_job(reads)]
+    for command, flags in SHARDED_FIXTURE_RUNS:
+        for dev in ("default", "cpu"):
+            jobs.append(_cli_job(f"{command}_{dev}", "penguin", command,
+                                 READS, ".fasta", flags, dev))
+    res = _need_ranks("world 2", run_ranks(2, work, "sharded2", jobs,
+                                           rehearsal))
+    m = [r["match"] for r in res]
+    say(f"[sharded] world 2 ({res[0]['assemble']['backend']}): the "
+        f"iteration-0 sharded matcher on protein x400's DB "
+        f"({m[0]['table_entries']} table entries, {m[0]['hits']} hits) on "
+        f"the card equals it on the CPU in both ranks, hits and rescore "
+        f"columns; " + "; ".join(
+            f"rank {i} {x['seconds']:.2f} s (CPU {x['cpu_seconds']:.2f} s), "
+            f"seg_scan {x['launches']['seg_scan']}, rescore_e2e "
+            f"{x['launches']['rescore_e2e']}, exchanges " + ", ".join(
+                f"{k} {x['exchange_bytes'][k]} B in "
+                f"{x['exchange_seconds'][k]:.3f} s"
+                for k in x["exchange_bytes"]) for i, x in enumerate(m)))
+    runs = [r["assemble"] for r in res]
+    digest = runs[0]["sha256"]
+    say(f"[sharded] world 2: `plass assemble --backend sharded` of protein "
+        f"x400 in {runs[0]['wall']:.1f} | {runs[1]['wall']:.1f} s, "
+        f"{runs[0]['contigs']} contigs, sha256 {digest}")
+    for i, a in enumerate(runs):
+        say(_rank_line("world 2", i, a))
+        count(a)
+    if runs[1]["sha256"] != digest:
+        raise AssertionError("[sharded] world 2: the ranks' FASTAs differ")
+    if not rehearsal:
+        if digest != SHARDED_SHA256:
+            raise AssertionError(f"[sharded] world 2: sha256 {digest}, "
+                                 f"--cpu-reference sharded's is "
+                                 f"{SHARDED_SHA256}")
+        say("[sharded] world 2: both ranks byte-identical, sha256 equal to "
+            "--cpu-reference sharded's")
+    for command, _ in SHARDED_FIXTURE_RUNS:
+        shas = {(i, dev): r[f"{command}_{dev}"]["sha256"]
+                for i, r in enumerate(res) for dev in ("default", "cpu")}
+        if len(set(shas.values())) != 1:
+            raise AssertionError(f"[sharded] world 2: {command} on the "
+                                 f"fixture differs: {shas}")
+        r0 = res[0][f"{command}_default"]
+        if device.type == "cuda" and not (
+                r0["launches"]["seg_scan"]
+                and r0["launches"]["rescore_e2e_rev_uniform"]):
+            raise AssertionError(f"[sharded] {command}: K1 or K2-fast never "
+                                 f"launched: {r0['launches']}")
+        say(f"[sharded] world 2: `penguin {command} --backend sharded` on "
+            f"the fixture, card and --device cpu in both ranks: "
+            f"{r0['contigs']} contigs, sha256 {r0['sha256']}, byte-identical;"
+            f" rank 0 launches seg_scan {r0['launches']['seg_scan']}, "
+            f"rescore_e2e {r0['launches']['rescore_e2e']}, "
+            f"rescore_e2e_rev_uniform "
+            f"{r0['launches']['rescore_e2e_rev_uniform']}")
+    if device.type == "cuda" and not all(
+            r["launches"][k] for r in [w1] + runs
+            for k in ("seg_scan", "rescore_e2e")):
+        raise AssertionError("[sharded] K1 or K2 never launched in a rank")
+
+    # ---- a failing rank: rank 1's input is missing
+    t0 = time.perf_counter()
+    shutil.copy(READS[0], os.path.join(work, "sharded_fail_0.fastq.gz"))
+    job = _cli_job("fail", "plass", "assemble", [os.path.join(
+        work, "sharded_fail_{rank}.fastq.gz")], ".fas",
+        ["--num-iterations", "2"])
+    rcs = [rc for rc, _, _ in run_ranks(
+        2, work, "sharded_fail", [job], rehearsal, timeout=180,
+        group_timeout=FAIL_GROUP_TIMEOUT)]
+    if any(rc in (0, None) for rc in rcs):
+        raise AssertionError(f"[sharded] a failing rank: exit codes {rcs}")
+    say(f"[sharded] a failing rank (rank 1's input missing): exit codes "
+        f"{rcs}, both ranks done in {time.perf_counter() - t0:.1f} s")
+    say(f"[sharded] phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total}
+
+
+def phase_cards(n):
+    """--cards n: phase 27's protein x400 assembly across n cards, one rank
+    a card (NCCL), and the same n ranks with --device cpu: every rank's
+    FASTA equal; each rank's stage seconds, exchanges and launches."""
+    import torch
+    if torch.cuda.device_count() < n:
+        raise AssertionError(f"--cards {n}: {torch.cuda.device_count()} "
+                             f"card(s) visible")
+    phase_env(torch.device("cuda"), False)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as work:
+        reads = os.path.join(work, "reads.fasta")
+        make_reads(reads, 400)
+        digests = set()
+        for dev in ("default", "cpu"):
+            res = _need_ranks(f"{n} cards", run_ranks(
+                n, work, f"cards_{dev}", [sharded_assemble_job(reads, dev)],
+                False, timeout=3 * RANK_TIMEOUT))
+            for i, r in enumerate(res):
+                a = r["assemble"]
+                say(_rank_line(f"{n} cards, {'card' if dev == 'default' else 'CPU'}"
+                               f" ({a['backend']})", i, a)
+                    + f"; wall {a['wall']:.1f} s, sha256 {a['sha256']}")
+                digests.add(a["sha256"])
+        if len(digests) != 1:
+            raise AssertionError(f"[sharded] {n} cards: FASTAs differ: "
+                                 f"{digests}")
+        say(f"[sharded] {n} cards: every rank's FASTA equal on the cards and "
+            f"on the CPU, sha256 {digests.pop()}")
+
+
 def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
     """The entries of the `kernels` line. k1, k2, rev[name], sw and
     hamming[name] hold a kernel's measurements (max_abs_err, ms, plain_ms,
@@ -3516,6 +3866,10 @@ def main():
                          "those named, of " + ", ".join(REFERENCE_RUNS) + ")"
                          " at full size on the CPU and print their sha256; "
                          "prints no result, exits 2")
+    ap.add_argument("--cards", type=int, metavar="N",
+                    help="run phase 27's protein x400 assembly across N "
+                         "cards, one rank a card, and with --device cpu; "
+                         "prints no result, exits 2")
     ap.add_argument("--side-phase", nargs=4,
                     metavar=("NAME", "WORK", "FAMDB", "ARG"),
                     help=argparse.SUPPRESS)
@@ -3524,11 +3878,20 @@ def main():
     import torch
     if args.side_phase:
         # the phases of a process start_side starts: profile-aa (ARG: the
-        # query DB) or the slice's (ARG: family_fasta's FASTA)
+        # query DB), the slice's (ARG: family_fasta's FASTA) or sharded's,
+        # or a rank of the sharded phase
         from plass_tpu_torch.utils.device import pick_device
         name, work, famdb, arg = args.side_phase
         device = pick_device("cpu" if args.cpu_rehearsal else "cuda")
-        if name == "profile-aa":
+        if name == "sharded-rank":
+            # a rank of run_ranks (WORK: its directory, FAMDB: its jobs)
+            phase_sharded_rank(work, famdb, args.cpu_rehearsal)
+            return 0
+        if name == "sharded":
+            # FAMDB: phase 4's iteration-0 DB, ARG: its assembly
+            result = phase_sharded(device, work, famdb, arg,
+                                   args.cpu_rehearsal)
+        elif name == "profile-aa":
             result = {"launches": phase_profile_aa(
                 device, work, famdb, arg, check_sha=not args.cpu_rehearsal)}
         else:
@@ -3536,6 +3899,9 @@ def main():
                                  args.cpu_rehearsal)
         say(side_result(name) + json.dumps(result))
         return 0
+    if args.cards:
+        phase_cards(args.cards)
+        return 2
     if args.cpu_reference:
         runs = args.cpu_reference.split(",")
         if set(runs) - set(REFERENCE_RUNS):
@@ -3558,6 +3924,19 @@ def main():
                                                            device))
             if "taxonomy" in runs:
                 phase_taxonomy_aa(device, work, fasta)
+            if "sharded" in runs:
+                reads = os.path.join(work, "reads.fasta")
+                make_reads(reads, 400)
+                (r0, r1) = _need_ranks("cpu-reference", run_ranks(
+                    2, work, "sharded2", [sharded_assemble_job(reads, "cpu")],
+                    False, timeout=3 * RANK_TIMEOUT))
+                digests = {r["assemble"]["sha256"] for r in (r0, r1)}
+                say(f"[cpu-reference] sharded: `plass assemble --backend "
+                    f"sharded --device cpu` of protein x400 at world 2 in "
+                    f"{r0['assemble']['wall']:.1f} s: sha256 "
+                    f"{' '.join(sorted(digests))}")
+                if len(digests) != 1:
+                    raise AssertionError("the ranks' FASTAs differ")
         say(f"[cpu-reference] {', '.join(runs)} at full size on the CPU; no "
             f"result")
         return 2
@@ -3588,8 +3967,18 @@ def main():
         k1_nucl_err, rev = phase_nucl_main(device, *ndb_paths, reps)
         phase_guided_fixture(
             device, work, ("--num-iterations", "2") if rehearsal else ())
-        glaunches, gdb_paths = phase_guided_scale(
-            device, work, *((2, 3000) if rehearsal else GUIDED_GENOMES))
+        # the sharded phase's ranks run beside guided-scale, whose linclust
+        # tail leaves the card idle
+        sharded = start_side("sharded", work, db_path, assembly, rehearsal)
+        try:
+            glaunches, gdb_paths = phase_guided_scale(
+                device, work, *((2, 3000) if rehearsal else GUIDED_GENOMES))
+            t0 = time.perf_counter()
+            shlaunches = finish_side(*sharded, SHARDED_TIMEOUT)["launches"]
+            say(f"[sharded] waited {time.perf_counter() - t0:.1f} s after "
+                f"guided-scale")
+        finally:
+            stop(sharded[1])
         k1_guided_err, k2_guided_err = phase_guided_main(device, *gdb_paths,
                                                          reps)
         phase_split_main(device, [
@@ -3638,7 +4027,7 @@ def main():
          "linclust": llaunches, "search": salaunches, "profile": plaunches,
          "cluster": calaunches,
          "easy": ealaunches, "rescore_mode_0": hlaunches,
-         **slice_result["launches"]},
+         **slice_result["launches"], "sharded": shlaunches},
         dict(sw, **slice_result["sw"]), hamming)
     say(json.dumps({"kernels": kernels}))
     say(smi())

@@ -14,6 +14,9 @@ JAX package stays beside it as the reference the port is held against.
    pairs in a hand-written CUDA Smith-Waterman kernel (csrc/sw_score.cu)
  - the cycle check (assembler/cyclecheck.py) is a batched sort, carries
    and sparse histogram in torch and numpy
+ - `--backend sharded` runs the k-mer matcher across the ranks of a
+   torch.distributed group (parallel/): collectives exchange the table and
+   the pairs, and every rank runs both kernels on its share
  - host layers (data/, the greedy extenders, proteinaln2nucl, the linclust
    tail, the aligner's native striped Smith-Waterman, the sensitive
    prefilter, the profile and MSA code, the NCBI taxonomy, the CLI's flag

@@ -3,9 +3,11 @@
 Each command takes the flag list of its JAX counterpart (cli/params.py, a
 copy of the JAX package's registry, so a command line that `plass_tpu`
 accepts parses to the same values here) plus `--device`. A bare boolean
-flag toggles its value (Parameters.cpp:1670-1677). `--threads` and
-`--backend` are accepted and ignored: the port's device is `--device`, and
-its host stages take their threads from OpenMP and torch. `<command>
+flag toggles its value (Parameters.cpp:1670-1677). `--threads` is
+accepted and ignored: the host stages take their threads from OpenMP and
+torch. `--backend` is read by the three assembly workflows (`sharded` runs
+their matcher across the ranks of a process group) and, as in the JAX
+package, accepted and ignored by the other commands. `<command>
 --help` lists a command's flags with their defaults. As the JAX package's
 shell, it answers `version`/`--version`, `shellcompletion [command]` and,
 for a mistyped command, "Did you mean".
@@ -23,21 +25,31 @@ IGNORED = {
 }
 
 
-def port_flags(flags):
-    """The JAX command's flags, --threads and --backend marked ignored, and
-    --device."""
-    out = [dataclasses.replace(f, description=IGNORED[f.name])
-           if f.name in IGNORED else f for f in flags]
+# --backend of the commands that read it (assemble, nuclassemble,
+# guided_nuclassemble)
+BACKEND_HELP = ("Backend of the k-mer matcher: sharded runs it across the "
+                "ranks of a process group (PLASS_COORDINATOR, "
+                "PLASS_NUM_PROCESSES, PLASS_PROCESS_ID; a group of one "
+                "without them), auto does so in a group of more than one "
+                "rank, numpy and jax run it on --device alone")
+
+
+def port_flags(flags, backend=False):
+    """The JAX command's flags, --threads (and --backend, unless the
+    command reads it: `backend`) marked ignored, and --device."""
+    help_of = dict(IGNORED, **({"--backend": BACKEND_HELP} if backend else {}))
+    out = [dataclasses.replace(f, description=help_of[f.name])
+           if f.name in help_of else f for f in flags]
     return out + [P.Flag(
         "--device", "device", str, "cuda",
         "Device of the kernels: cuda, cuda:<i>, or cpu for their plain "
         "PyTorch versions (cuda without a card is an error)")]
 
 
-def port_space(flags):
+def port_space(flags, backend=False):
     """A command's ParamSpace: its JAX flag list (port_flags), plus
     --device."""
-    return P.ParamSpace(port_flags(flags))
+    return P.ParamSpace(port_flags(flags, backend))
 
 
 @dataclasses.dataclass

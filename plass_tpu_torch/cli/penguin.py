@@ -30,9 +30,10 @@ from .tools import (BASE_COMMANDS, load_alignments,
                     load_alignments_with_backtrace)
 
 
-def _nucl_defaults():
-    """Nuclassembler.cpp:10-32 defaults."""
-    space = port_space(P.nuclassemble_flags())
+def _nucl_defaults(backend=False):
+    """Nuclassembler.cpp:10-32 defaults; `backend`: the command reads
+    --backend (port_flags)."""
+    space = port_space(P.nuclassemble_flags(), backend)
     v = space.values
     v["kmer_size"] = P.MultiParam(22, 22)
     v["alphabet_size"] = P.MultiParam(5, 5)
@@ -44,9 +45,10 @@ def _nucl_defaults():
     return space
 
 
-def _guided_defaults():
-    """GuidedNuclassembler.cpp:10-41 defaults."""
-    space = port_space(P.guided_flags())
+def _guided_defaults(backend=False):
+    """GuidedNuclassembler.cpp:10-41 defaults; `backend` as
+    _nucl_defaults'."""
+    space = port_space(P.guided_flags(), backend)
     v = space.values
     v["kmer_size"] = P.MultiParam(14, 22)
     v["alphabet_size"] = P.MultiParam(13, 5)
@@ -81,7 +83,7 @@ def nuclassemble_params(space):
         remove_tmp_files=v["remove_tmp_files"],
         delete_tmp_inc=bool(v["delete_tmp_inc"]),
         split_memory_limit=parse_memory_limit(v["split_memory_limit"]),
-        device=v["device"])
+        device=v["device"], backend=v["backend"])
 
 
 def guided_params(space):
@@ -107,7 +109,7 @@ def guided_params(space):
         remove_tmp_files=v["remove_tmp_files"],
         delete_tmp_inc=bool(v["delete_tmp_inc"]),
         split_memory_limit=parse_memory_limit(v["split_memory_limit"]),
-        device=v["device"])
+        device=v["device"], backend=v["backend"])
 
 
 def _assembly(run_fn, params_fn):
@@ -202,10 +204,12 @@ def _cyclecheck(positional, space, stats):
 
 def commands():
     return [
-        Command("guided_nuclassemble", _guided, _guided_defaults,
-                ASSEMBLE_USAGE, "Protein-guided nucleotide assembly"),
-        Command("nuclassemble", _nuclassemble, _nucl_defaults,
-                ASSEMBLE_USAGE, "Iterative greedy nucleotide assembly"),
+        Command("guided_nuclassemble", _guided,
+                lambda: _guided_defaults(backend=True), ASSEMBLE_USAGE,
+                "Protein-guided nucleotide assembly"),
+        Command("nuclassemble", _nuclassemble,
+                lambda: _nucl_defaults(backend=True), ASSEMBLE_USAGE,
+                "Iterative greedy nucleotide assembly"),
         Command("nuclassembleresults", _nuclassembleresults,
                 _nucl_defaults, "<i:seqDB> <i:alnDB> <o:seqDB>",
                 "Extend nucleotide sequences", hidden=True),

@@ -28,10 +28,11 @@ ASSEMBLE_USAGE = ("<i:fast[a|q]File[.gz]> | <i:fastqFile1_1[.gz]> "
                   "<i:fastqFile1_2[.gz]> ... <o:fastaFile> <tmpDir>")
 
 
-def plass_defaults(flags_fn):
-    """A ParamSpace factory with the plass defaults (Assembler.cpp:10-27)."""
+def plass_defaults(flags_fn, backend=False):
+    """A ParamSpace factory with the plass defaults (Assembler.cpp:10-27);
+    `backend`: the command reads --backend (port_flags)."""
     def make():
-        space = port_space(flags_fn())
+        space = port_space(flags_fn(), backend)
         space.values["min_seq_id"] = P.MultiParam(0.9, 0.9)
         space.values["rescore_mode"] = 3
         return space
@@ -66,7 +67,7 @@ def assemble_params(space):
         remove_tmp_files=v["remove_tmp_files"],
         delete_tmp_inc=bool(v["delete_tmp_inc"]),
         split_memory_limit=parse_memory_limit(v["split_memory_limit"]),
-        device=v["device"])
+        device=v["device"], backend=v["backend"])
 
 
 def _assemble(positional, space, stats):
@@ -212,7 +213,8 @@ def createhdb(positional, space, stats):
 def commands():
     mk = plass_defaults(P.assemble_flags)
     return [
-        Command("assemble", _assemble, mk, ASSEMBLE_USAGE,
+        Command("assemble", _assemble,
+                plass_defaults(P.assemble_flags, backend=True), ASSEMBLE_USAGE,
                 "Assemble protein sequences by iterative greedy overlap "
                 "assembly"),
         Command("assembleresults", _assembleresults, mk,

@@ -7,6 +7,10 @@ The hits stay on the device between the two steps: the matcher keeps
 (rep, tgt, diag, reverse) as tensors, and the rescore addresses them by
 index (the JAX package's _rescore_from_dev_pallas). Only (qk, tk, score,
 diag) go to the host, for the self rows and the native finish.
+
+Across ranks (kmermatcher_sharded_torch, parallel/mesh.py) each rank
+rescores its own hits as part of the matcher, and the hits carry those
+columns to rescore_diagonal_torch (KmerHits.pre).
 """
 import ctypes
 import warnings
@@ -101,6 +105,111 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
     return out
 
 
+def match_kmers(db, k, device, backend="single", split_memory_limit=0,
+                stats=None, **kw):
+    """The workflows' k-mer matcher: kmermatcher_torch, or with backend
+    "sharded" (utils/device.resolve_backend) kmermatcher_sharded_torch,
+    which, as the JAX package's sharded path, takes no
+    split_memory_limit. With stats, the sharded matcher's exchange bytes
+    and seconds are added to stats["exchange_bytes"] and
+    stats["exchange_seconds"], by exchange."""
+    if backend != "sharded":
+        return kmermatcher_torch(db, k, device,
+                                 split_memory_limit=split_memory_limit, **kw)
+    hits = kmermatcher_sharded_torch(db, k, device, **kw)
+    if stats is not None:
+        for key, part in (("exchange_bytes", hits.exchange.bytes),
+                          ("exchange_seconds", hits.exchange.seconds)):
+            total = stats.setdefault(key, {})
+            for name, v in part.items():
+                total[name] = total.get(name, 0) + v
+    return hits
+
+
+# the JAX package's row padding of a DB (its backend._bucket with
+# db_to_padded's 2,048-row step): the sharded path pads no rows, but its
+# segment edges, and so its output, follow the padded row count
+PAD_ROWS = 2048
+
+
+def padded_rows(n):
+    """The JAX package's padded row count of a DB of n rows: steps of
+    PAD_ROWS below 8 steps, then steps of an eighth of the power of two."""
+    n, step = max(n, 1), PAD_ROWS
+    if n > 8 * step:
+        step = max(step, 1 << (int(n - 1).bit_length() - 3))
+    return ((n + step - 1) // step) * step
+
+
+def kmermatcher_sharded_torch(db, k, device, kmers_per_sequence=21,
+                              kmers_per_sequence_scale=None, hash_shift=67,
+                              ignore_multi_kmer=False,
+                              include_only_extendable=False, cov_thr=0.0,
+                              cov_mode=0):
+    """The k-mer matcher across the ranks of the process group
+    (parallel/mesh.sharded_iteration), each rank on `device`: the JAX
+    package's kmermatcher_sharded(return_arrays=True) with one rank per
+    mesh device. Every rank calls it on the same DB and gets the same
+    KmerHits: the ranks' hits gathered in rank order, stable-sorted by
+    representative key, with K2's columns in `.pre` (rescore mode 3) and
+    the raw hits on the device in `.dev` for the other modes.
+
+    Rank r owns the representatives of rows [r * s, (r + 1) * s), s the
+    JAX package's padded row count over the world (padded_rows), so the
+    segment edges, where runs are cut, fall where the JAX package's fall.
+    With one rank there is no edge and the hits equal kmermatcher_torch's
+    monolithic ones. `.exchange` holds the bytes this rank sent and the
+    seconds of the table and pair exchanges and of the gather."""
+    from ..parallel import distributed, mesh
+
+    params = matcher_params(
+        db, k, kmers_per_sequence=kmers_per_sequence,
+        kmers_per_sequence_scale=kmers_per_sequence_scale,
+        ignore_multi_kmer=ignore_multi_kmer,
+        include_only_extendable=include_only_extendable, cov_thr=cov_thr,
+        cov_mode=cov_mode)
+    kmer_rows = flat_rows(db, device, "kmer")
+    mat = _matrix(db, "score")
+    score_rows = (*kmer_rows[:3], torch.from_numpy(np.ascontiguousarray(
+        mat.aa2num.astype(np.uint8))).to(device))
+    sub = torch.from_numpy(mat.sub.astype(np.int32)).to(device)
+    rescore_kw = {}
+    if params.is_nucl:
+        rescore_kw = dict(
+            comp=torch.from_numpy(mat.reverse.astype(np.int32)).to(device),
+            code2char=torch.from_numpy(mat.num2aa.astype(np.uint8)).to(device),
+            uniform=uniform_pattern(mat.sub))
+    stats = mesh.ExchangeStats()
+    world = distributed.world()
+    *cols, selected = mesh.sharded_iteration(
+        kmer_rows, score_rows, sub, params, hash_shift,
+        padded_rows(db.size) // world, rescore_kw, stats)
+    local = torch.stack(cols, 1)
+    counts = torch.tensor([[selected]], dtype=torch.int32, device=device)
+    gathered, counts = mesh.timed(
+        stats, "gather", device,
+        lambda: (distributed.gather(local), distributed.gather(counts)),
+        local.numel() * local.element_size() + 4)
+    rep, tgt, score, diag, r_score, first, last, idents = gathered.unbind(1)
+    keys = torch.from_numpy(db.keys.astype(np.int64)).to(device)
+    rep_k = keys[rep.long()]
+    order = torch.sort(rep_k, stable=True).indices
+    rep_k, tgt_k = rep_k[order], keys[tgt.long()[order]]
+    score, diag = score[order], diag[order].contiguous()
+    host = [x.cpu().numpy() for x in (rep_k, tgt_k, score, diag)]
+    out = _insert_self_hits(db, host[0].astype(np.uint32),
+                            host[1].astype(np.uint32), *host[2:])
+    out.dev = (rep_k.to(torch.int32), tgt_k.to(torch.int32), diag, score < 0)
+    out.pre = tuple(c[order].cpu().numpy().astype(t) for c, t in (
+        (r_score, np.int64), (first, np.int32), (last, np.int32),
+        (idents, np.float64)))
+    out.pre_mode = 3
+    out.table_entries = int(counts.sum())
+    out.ranges = ((0, device_kmer.RANGE_BINS - 1),)
+    out.exchange = stats
+    return out
+
+
 def matcher_params(db, k, kmers_per_sequence=21,
                    kmers_per_sequence_scale=None, ignore_multi_kmer=False,
                    include_only_extendable=False, cov_thr=0.0, cov_mode=0):
@@ -163,11 +272,17 @@ class KmerHits(tuple):
     carries the device-resident raw hits (rep, tgt, diag, reverse flag) and
     the slots the raw hits occupy, so the rescore addresses hits by
     index; table_entries and the hash ranges the matcher ran (inclusive
-    range-key pairs, one pair for the monolithic path)."""
+    range-key pairs, one pair for the monolithic path). The sharded
+    matcher's hits also carry their rescore columns (score, first, last,
+    idents) in `pre`, computed at rescore mode `pre_mode`, and the
+    exchanges' bytes and seconds in `exchange`."""
     dev = None
     hit_slots = None
     table_entries = 0
     ranges = ()
+    pre = None
+    pre_mode = None
+    exchange = None
 
 
 def _insert_self_hits(db, rep, tgt, score, diag):
@@ -240,11 +355,14 @@ def _self_rescore_host(db, hamming=False):
 def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
                            return_flat=False):
     """END_TO_END (--rescore-mode 3) or HAMMING (0) rescorediagonal of
-    kmermatcher_torch's KmerHits.
+    kmermatcher_torch's or kmermatcher_sharded_torch's KmerHits.
 
     The self rows are analytic on the host; every other hit is rescored on
     the device that holds the hits (kernel K2, or its HAMMING variant),
-    addressed by index into the matcher's device-resident arrays. On a
+    addressed by index into the matcher's device-resident arrays, or,
+    where the hits carry the columns of this rescore mode (`pre`, the
+    sharded matcher's), taken from them, as the JAX package's
+    rescore_diagonal_jax takes its sharded hits' columns. On a
     nucleotide DB a reverse-strand hit reads the query reverse-complemented,
     and the nucleotide matrix's uniform match/mismatch form selects K2's
     uniform variant. Modes 1 and 2 raise, as on the JAX package's device
@@ -298,7 +416,13 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
         idents[self_mask] = s_id[rows]
 
     idxs = np.nonzero(~self_mask)[0]
-    if len(idxs):
+    if len(idxs) and hits.pre is not None \
+            and params.rescore_mode == hits.pre_mode:
+        # the sharded matcher's hits carry their rescore columns
+        didx = np.searchsorted(hits.hit_slots, idxs)
+        score[idxs], first[idxs], last[idxs], idents[idxs] = (
+            c[didx] for c in hits.pre)
+    elif len(idxs):
         dev_rep, dev_tgt, dev_diag, dev_rev = hits.dev
         device = dev_rep.device
         rows = flat_rows(db, device)
@@ -328,6 +452,7 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
         first[idxs] = f.cpu().numpy()
         last[idxs] = la.cpu().numpy()
         idents[idxs] = idn.cpu().numpy()
+    if len(idxs):
         # the overlap is host-derivable from the lengths and the diagonal
         qlen = lengths[qrow[idxs]].astype(np.int64)
         tlen = lengths[trow[idxs]].astype(np.int64)

@@ -3,6 +3,10 @@ the coding filter; everything else stays on the host.
 
 The choice is explicit. `cuda` without a visible card is an error, never a
 quiet run on the CPU; `cpu` runs every kernel's plain PyTorch version.
+
+`--backend` (resolve_backend) chooses between the single-device matcher on
+that device and the matcher across the ranks of a process group
+(parallel/).
 """
 import contextlib
 import time
@@ -24,6 +28,30 @@ def pick_device(name="cuda"):
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
     return dev
+
+
+BACKENDS = ("auto", "numpy", "jax", "sharded")
+
+
+def resolve_backend(requested, device):
+    """"sharded" (the matcher across the process group's ranks) or
+    "single" (the single-device matcher) for --backend `requested`, this
+    rank's device being `device`. sharded and auto first join the group the
+    environment names (parallel/distributed.maybe_initialize); sharded
+    without one runs in a group of this process alone, as on a one-device
+    mesh. sharded is sharded; auto is sharded when the group has more than
+    one rank; numpy and jax, the JAX package's host and single-device
+    paths, are the single-device path."""
+    from ..parallel import distributed
+    if requested not in BACKENDS:
+        raise ValueError(f"--backend must be one of {', '.join(BACKENDS)}; "
+                         f"got {requested!r}")
+    if requested in ("auto", "sharded"):
+        multi = distributed.maybe_initialize(
+            device, one_rank=requested == "sharded")
+        if requested == "sharded" or multi:
+            return "sharded"
+    return "single"
 
 
 def synchronize(device):

@@ -7,7 +7,11 @@ findassemblystart -> re-match/rescore] -> assembleresults} ->
 filternoncoding -> select-assembled -> fasta output.
 
 The k-mer matcher, the rescore and the coding filter's MLP run on
-`AssembleParams.device`; the rest runs on the host.
+`AssembleParams.device`; the rest runs on the host. With `backend`
+"sharded" (or "auto" in a process group of more than one rank) the
+matcher and its rescore run across the ranks (ops/backend.
+kmermatcher_sharded_torch): every rank runs the whole workflow and writes
+the paths it was given.
 
 Defaults from setAssembleDBWorkflowDefaults (Assembler.cpp:10-27).
 """
@@ -23,10 +27,11 @@ from ..data import seqdb
 from ..data.createdb import create_db, merge_reads
 from ..ops import orf as orf_mod
 from ..ops import translate as translate_mod
-from ..ops.backend import kmermatcher_torch, rescore_diagonal_torch
+from ..ops.backend import match_kmers, rescore_diagonal_torch
 from ..ops.evalue import EvalueComputer
 from ..ops.rescore import RESCORE_END_TO_END, RescoreParams
-from ..utils.device import pick_device, stage_timer
+from ..parallel.distributed import rank_device
+from ..utils.device import resolve_backend, stage_timer
 from ..utils.log import logger
 from .engine import Workflow, create_tmp_dir, fingerprint
 
@@ -62,6 +67,7 @@ class AssembleParams:
     # bytes of k-mer table per hash-range split; 0: automatic on a card
     split_memory_limit: int = 0
     device: str = "cuda"  # cuda | cuda:<i> | cpu
+    backend: str = "auto"  # auto | numpy | jax | sharded (resolve_backend)
 
 
 def _iteration_hash_shift(base, iteration):
@@ -80,10 +86,14 @@ def run_assemble(input_files, out_fasta, tmp_base, params=None, stats=None):
     "orfs", and at iteration 0 "table_entries" and "hits"), under "ranges"
     the matcher's hash ranges per call, under "seconds" the wall seconds
     per stage (ingest, kmermatch, rescore, extend, filter, output), each
-    read after the device has finished its queued work, and on a card
-    under "peak_bytes" each stage's peak device memory."""
+    read after the device has finished its queued work, on a card under
+    "peak_bytes" each stage's peak device memory, and on the sharded path
+    under "exchange_bytes" and "exchange_seconds" the bytes this rank sent
+    and the seconds of the matcher's exchanges ("table", "pairs") and of
+    its gather ("gather")."""
     p = params or AssembleParams()
-    device = pick_device(p.device)
+    device = rank_device(p.device)
+    backend = resolve_backend(p.backend, device)
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
 
@@ -164,14 +174,14 @@ def run_assemble(input_files, out_fasta, tmp_base, params=None, stats=None):
                            cov_thr=p.cov_thr, cov_mode=p.cov_mode,
                            eval_thr=p.eval_thr, aln_len_thr=p.min_aln_len)
         with timed("kmermatch"):
-            hits = kmermatcher_torch(
-                db, p.kmer_size, device,
+            hits = match_kmers(
+                db, p.kmer_size, device, backend,
+                split_memory_limit=p.split_memory_limit, stats=stats,
                 kmers_per_sequence=p.kmers_per_sequence,
                 kmers_per_sequence_scale=p.kmers_per_sequence_scale,
                 hash_shift=shift, ignore_multi_kmer=p.ignore_multi_kmer,
                 include_only_extendable=only_ext, cov_thr=p.cov_thr,
-                cov_mode=p.cov_mode,
-                split_memory_limit=p.split_memory_limit)
+                cov_mode=p.cov_mode)
         stats.setdefault("ranges", []).append(len(hits.ranges))
         if iteration == 0 and "hits" not in stats:
             stats["table_entries"] = hits.table_entries

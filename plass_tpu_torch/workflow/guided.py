@@ -12,7 +12,8 @@ linclust redundancy reduction -> result2repseq -> cycle-annotated fasta.
 The k-mer matchers and the rescores of both loops run on
 `GuidedNuclAssembleParams.device`, as does the sort of the cycle check; the
 ORF extraction, proteinaln2nucl, both extenders and the linclust tail run on
-the host.
+the host. With `backend` "sharded" both loops' matchers and their rescores
+run across the ranks of a process group, as in the assemble workflow.
 """
 import os
 from dataclasses import dataclass, asdict
@@ -25,10 +26,11 @@ from ..data import seqdb
 from ..data.createdb import create_db, merge_reads
 from ..ops import orf as orf_mod
 from ..ops import translate as translate_mod
-from ..ops.backend import kmermatcher_torch, rescore_diagonal_torch
+from ..ops.backend import match_kmers, rescore_diagonal_torch
 from ..ops.proteinaln2nucl import protein_aln_to_nucl
 from ..ops.rescore import RESCORE_END_TO_END, RescoreParams
-from ..utils.device import pick_device, stage_timer
+from ..parallel.distributed import rank_device
+from ..utils.device import resolve_backend, stage_timer
 from ..utils.log import logger
 from .engine import Workflow, create_tmp_dir, fingerprint
 from .linclust import LinclustParams, run_linclust_nucl
@@ -68,6 +70,7 @@ class GuidedNuclAssembleParams:
     # loops; 0: automatic on a card
     split_memory_limit: int = 0
     device: str = "cuda"  # cuda | cuda:<i> | cpu
+    backend: str = "auto"  # auto | numpy | jax | sharded (resolve_backend)
 
 
 def select_only_assembled(result_db, orig_db):
@@ -95,10 +98,13 @@ def run_guided_nuclassemble(input_files, out_fasta, tmp_base, params=None,
     kmermatch, rescore, aln2nucl, extend, select, nuclassemble, linclust,
     output), each read after the device has finished its queued work, on a
     card under "peak_bytes" each stage's peak device memory, under
-    "nuclassemble" the nested run's own stats (run_nuclassemble) and under
-    "linclust_seconds" the seconds of the linclust stages (run_linclust)."""
+    "nuclassemble" the nested run's own stats (run_nuclassemble), under
+    "linclust_seconds" the seconds of the linclust stages (run_linclust)
+    and on the sharded path "exchange_bytes" and "exchange_seconds"
+    (run_assemble)."""
     p = params or GuidedNuclAssembleParams()
-    device = pick_device(p.device)
+    device = rank_device(p.device)
+    backend = resolve_backend(p.backend, device)
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
     peaks = stats.setdefault("peak_bytes", {})
@@ -170,13 +176,13 @@ def run_guided_nuclassemble(input_files, out_fasta, tmp_base, params=None,
         with timed("kmermatch"):
             # the nucleotide k-mer scale goes to the amino-acid matcher too
             # (GuidedNuclassembler.cpp passes one parameter set)
-            hits = kmermatcher_torch(
-                current_aa, p.aa_kmer_size, device,
+            hits = match_kmers(
+                current_aa, p.aa_kmer_size, device, backend,
+                split_memory_limit=p.split_memory_limit, stats=stats,
                 kmers_per_sequence=p.kmers_per_sequence,
                 kmers_per_sequence_scale=p.kmers_per_sequence_scale,
                 hash_shift=p.hash_shift, ignore_multi_kmer=True,
-                include_only_extendable=True,
-                split_memory_limit=p.split_memory_limit)
+                include_only_extendable=True)
         stats.setdefault("ranges", []).append(len(hits.ranges))
         if it == 0 and "hits" not in stats:
             stats["table_entries"] = hits.table_entries
@@ -222,7 +228,8 @@ def run_guided_nuclassemble(input_files, out_fasta, tmp_base, params=None,
         hash_shift=p.hash_shift, max_seq_len=p.max_seq_len,
         cycle_check=p.cycle_check, chop_cycle=p.chop_cycle,
         min_contig_len=p.min_contig_len, cov_mode=1, db_mode=True,
-        split_memory_limit=p.split_memory_limit, device=p.device)
+        split_memory_limit=p.split_memory_limit, device=p.device,
+        backend=p.backend)
     nucl_out = wf.path("nuclassembly")
     nested = stats.setdefault("nuclassemble", {})
     with timed("nuclassemble"):

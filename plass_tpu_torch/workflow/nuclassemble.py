@@ -9,6 +9,8 @@ selection -> fasta (headers annotated with cycle:0/1).
 
 The k-mer matcher, the rescore and the sort of the cycle check run on
 `NuclAssembleParams.device`; the extender and the rest run on the host.
+With `backend` "sharded" the matcher and its rescore run across the ranks
+of a process group, as in the assemble workflow.
 """
 import os
 from dataclasses import asdict, dataclass
@@ -17,10 +19,11 @@ from ..assembler.cyclecheck import cycle_check_db
 from ..assembler.nucl_extend import nucl_assemble
 from ..data import seqdb
 from ..data.createdb import create_db, merge_reads
-from ..ops.backend import kmermatcher_torch, rescore_diagonal_torch
+from ..ops.backend import match_kmers, rescore_diagonal_torch
 from ..ops.evalue import EvalueComputer
 from ..ops.rescore import RESCORE_END_TO_END, RescoreParams
-from ..utils.device import pick_device, stage_timer
+from ..parallel.distributed import rank_device
+from ..utils.device import resolve_backend, stage_timer
 from ..utils.log import logger
 from .engine import Workflow, create_tmp_dir, fingerprint
 
@@ -54,6 +57,7 @@ class NuclAssembleParams:
     # bytes of k-mer table per hash-range split; 0: automatic on a card
     split_memory_limit: int = 0
     device: str = "cuda"  # cuda | cuda:<i> | cpu
+    backend: str = "auto"  # auto | numpy | jax | sharded (resolve_backend)
 
 
 def run_nuclassemble(input_files, out_file, tmp_base, params=None,
@@ -65,10 +69,12 @@ def run_nuclassemble(input_files, out_file, tmp_base, params=None,
     iteration 0 "table_entries", "hits" and "reverse_hits"), under "ranges"
     the matcher's hash ranges per iteration, under "seconds" the wall
     seconds per stage (ingest, kmermatch, rescore, extend, cyclecheck,
-    output), each read after the device has finished its queued work, and
-    on a card under "peak_bytes" each stage's peak device memory."""
+    output), each read after the device has finished its queued work, on
+    a card under "peak_bytes" each stage's peak device memory, and on the
+    sharded path "exchange_bytes" and "exchange_seconds" (run_assemble)."""
     p = params or NuclAssembleParams()
-    device = pick_device(p.device)
+    device = rank_device(p.device)
+    backend = resolve_backend(p.backend, device)
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
 
@@ -115,14 +121,14 @@ def run_nuclassemble(input_files, out_file, tmp_base, params=None,
             continue
 
         with timed("kmermatch"):
-            hits = kmermatcher_torch(
-                current, p.kmer_size, device,
+            hits = match_kmers(
+                current, p.kmer_size, device, backend,
+                split_memory_limit=p.split_memory_limit, stats=stats,
                 kmers_per_sequence=p.kmers_per_sequence,
                 kmers_per_sequence_scale=p.kmers_per_sequence_scale,
                 hash_shift=p.hash_shift, ignore_multi_kmer=p.ignore_multi_kmer,
                 include_only_extendable=p.include_only_extendable,
-                cov_thr=p.cov_thr, cov_mode=p.cov_mode,
-                split_memory_limit=p.split_memory_limit)
+                cov_thr=p.cov_thr, cov_mode=p.cov_mode)
         stats.setdefault("ranges", []).append(len(hits.ranges))
         if it == 0 and "hits" not in stats:
             stats["table_entries"] = hits.table_entries

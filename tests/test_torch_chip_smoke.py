@@ -1,6 +1,7 @@
 """chip_smoke.py, the port's GPU smoke run, on a machine without a card:
 its CPU rehearsal drives every phase at a tiny size (the split matcher's
-phases and the DB tools' included) and prints no result;
+phases, the DB tools' and the sharded matcher's ranks included) and prints
+no result;
 run alone, outside the repo, it fails without printing a result; its
 `kernels` line holds every key for every kernel."""
 import importlib.util
@@ -108,6 +109,19 @@ def test_cpu_rehearsal_runs_every_phase():
                 "[hamming] rescore_hamming on", "[hamming] "
                 "rescore_hamming_rev on",
                 "[nucl-large] 3000 reads", "equal hits, sha256",
+                "[sharded] world 1 (gloo): `plass assemble --backend "
+                "sharded` of protein x400", "[sharded] world 1 rank 0: "
+                "ingest", "exchanges table ", "[sharded] world 1: "
+                "byte-identical to phase 4's assembly", "[sharded] world 2 "
+                "(gloo): the iteration-0 sharded matcher on protein x400's "
+                "DB", "on the card equals it on the CPU in both ranks",
+                "[sharded] world 2: `plass assemble --backend sharded`",
+                "[sharded] world 2 rank 1: ingest", "[sharded] world 2: "
+                "`penguin nuclassemble --backend sharded` on the fixture, "
+                "card and --device cpu in both ranks", "[sharded] world 2: "
+                "`penguin guided_nuclassemble --backend sharded`",
+                "[sharded] a failing rank (rank 1's input missing): exit "
+                "codes [1, 1]", "[sharded] waited",
                 "[done] all phases in", "[rehearsal]"):
         assert tag in out, out
     assert '"ok"' not in out
@@ -119,6 +133,16 @@ def test_alone_it_fails_without_a_result(tmp_path):
                           env=_env(), capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_cards_mode_needs_the_cards():
+    """--cards N fails without N cards and prints no result."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--cards", "2"],
+                          cwd=ROOT, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode not in (0, 2)
+    assert "card(s) visible" in proc.stderr
     assert '"ok"' not in proc.stdout
 
 
@@ -299,7 +323,7 @@ def test_kernels_line_counts_the_linsearch_rbh_and_multihit_paths():
     assert b9["launches"] == 6
     seg = next(k for k in kernels if k["name"] == "seg_scan")
     assert seg["launches_by_path"]["rbh"] == 0
-    assert set(chip_smoke.SIDE_TAGS) == {"profile-aa", "slice"}
+    assert set(chip_smoke.SIDE_TAGS) == {"profile-aa", "slice", "sharded"}
     assert chip_smoke.RBH_RECORDS == 1200
     assert (chip_smoke.MULTIHIT_SETS, chip_smoke.MULTIHIT_EVERY,
             chip_smoke.MULTIHIT_QUERY_FILES) == (8, 13, 2)
@@ -362,3 +386,34 @@ def test_family_fasta_names_each_records_family(tmp_path):
         (tmp_path / "b.fasta").read_bytes()
     assert len(families) == n and families == sorted(families)
     assert set(families) == set(range(40)) and n > 80
+
+
+def test_kernels_line_counts_the_sharded_path():
+    """K1's and K2's launches in the ranks of the sharded phase's protein
+    x400 assemblies are a path of their own ("sharded") in the kernels
+    line; --cpu-reference takes "sharded" and its sha256 is recorded."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    m = {"max_abs_err": 0, "ms": 0.05, "plain_ms": 3.0, "bound_ms": 0.01,
+         "bound_by": "bytes", "bytes": 1000}
+    launches = {"assemble": {"seg_scan": 78, "rescore_e2e": 13},
+                "sharded": {"seg_scan": 234, "rescore_e2e": 39}}
+    kernels = chip_smoke.kernels_summary(
+        dict(m, copy_ms=0.06, elements=100), m,
+        {n: m for n in ("rescore_e2e_rev", "rescore_e2e_rev_uniform")},
+        launches)
+    line = json.loads(json.dumps({"kernels": kernels}))["kernels"]
+    by_name = {k["name"]: k for k in line}
+    assert by_name["seg_scan"]["launches_by_path"] == {"assemble": 78,
+                                                       "sharded": 234}
+    assert by_name["rescore_e2e"]["launches"] == 52
+    assert by_name["rescore_e2e_rev_uniform"]["launches_by_path"][
+        "sharded"] == 0
+    for k in line:
+        assert KERNEL_KEYS <= set(k)
+    assert "sharded" in chip_smoke.REFERENCE_RUNS
+    assert "sharded" not in chip_smoke.SCALE_RUNS
+    assert len(chip_smoke.SHARDED_SHA256) == 64
+    assert chip_smoke.SIDE_TAGS["sharded"] == ("[sharded]",)

@@ -1,6 +1,7 @@
 """PyTorch port: the `plass` and `penguin` CLIs parse every command line
 as the JAX package's CLIs do (the same flag registry, cli/params.py), plus
---device; --threads and --backend are accepted and ignored."""
+--device; --threads is accepted and ignored, and so is --backend but by
+the three assembly workflows, which read it."""
 import os
 
 import pytest
@@ -105,12 +106,29 @@ def test_bare_booleans_toggle():
 
 
 def test_threads_and_backend_are_ignored_and_help_says_so(capsys):
+    """--threads is ignored everywhere; --backend by every command but the
+    three assembly workflows, whose help says what it selects."""
+    def line_of(flag, text):
+        return next(x for x in text.splitlines() if x.split()[:1] == [flag])
+
+    for run, cmd in ((port_plass.run, "assemble"),
+                     (port_penguin.run, "nuclassemble"),
+                     (port_penguin.run, "guided_nuclassemble")):
+        assert run([cmd, "--help"]) == 0
+        text = capsys.readouterr().out
+        assert "ignored" in line_of("--threads", text)
+        backend = line_of("--backend", text)
+        assert "ignored" not in backend and "sharded" in backend, cmd
+    assert "--device" in text and "--num-iterations" in text
     assert port_plass.run(["assemble", "--help"]) == 0
-    text = capsys.readouterr().out
-    for flag in ("--threads", "--backend"):
-        line = next(x for x in text.splitlines() if x.split()[:1] == [flag])
-        assert "ignored" in line
-    assert "--device" in text and "--use-all-table-starts" in text
+    assert "--use-all-table-starts" in capsys.readouterr().out
+    for run, cmd in ((port_penguin.run, "linclust"),
+                     (port_plass.run, "assembleresults"),
+                     (port_plass.run, "search")):
+        assert run([cmd, "-h"]) == 0
+        text = capsys.readouterr().out
+        for flag in ("--threads", "--backend"):
+            assert "ignored" in line_of(flag, text), (cmd, flag)
     assert port_penguin.run(["linclust", "-h"]) == 0
     assert "--clust-min-seq-id" in capsys.readouterr().out
 

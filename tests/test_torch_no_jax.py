@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
     assert lines[1] == "BAD []", lines
     # the guided slice's modules, the aligner's, the search slice's, the
     # profile slice's, the linsearch / multi-hit slice's, the taxonomy
-    # slice's and the DB tools' are among those imported
+    # slice's, the DB tools' and the sharded matcher's are among those
+    # imported
     for name in ("workflow.guided", "workflow.linclust", "ops.kmermatch",
                  "ops.ksw2", "ops.nucl_align", "ops.proteinaln2nucl",
                  "assembler.guided_extend", "assembler.cluster",
@@ -49,5 +50,6 @@ def test_port_imports_no_jax():
                  "ops.linsearch", "ops.alignbykmer", "data.offsetaln",
                  "data.multihit", "cli.tools_db", "cli.tools_misc",
                  "cli.tools_linsearch", "data.taxonomy", "cli.tools_domain",
-                 "cli.tools_databases", "data.summarize", "utils.zstd"):
+                 "cli.tools_databases", "data.summarize", "utils.zstd",
+                 "parallel", "parallel.distributed", "parallel.mesh"):
         assert f"'plass_tpu_torch.{name}'" in lines[2], name
