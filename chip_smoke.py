@@ -13,6 +13,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      launched 50 times and every result compared;
   3. the protein fixture assembly through the CLI, byte for byte against
      the committed golden, then with default parameters;
+  3a. standalone: a copy of plass_tpu_torch/ alone (its built kernels and
+     host library included) as a child process's working directory and
+     only PYTHONPATH entry, where plass_tpu cannot be imported: both
+     fixture assemblies through the CLIs, byte for byte against their
+     goldens, with K1 and K2 launched in the child;
   4. a default protein assembly of 204,800 reads (the 512 fixture reads
      x400 with 1.5% seeded substitutions), with per-stage seconds;
   5. K1 and K2 at the shapes of phase 4's iteration 0: the matcher with K1
@@ -585,6 +590,96 @@ def phase_fixture(device, work):
                              f"{before} -> {after}")
     say(f"[fixture] launches: seg_scan {after[0] - before[0]}, "
         f"rescore_e2e {after[1] - before[1]}")
+
+
+# the child of phase_standalone: argv is the device, the two read files and
+# the output directory; prints one line, "[standalone] child {json}"
+STANDALONE_CHILD = r"""
+import importlib.util, json, os, sys
+spec = importlib.util.find_spec("plass_tpu")
+import plass_tpu_torch
+from plass_tpu_torch import native
+from plass_tpu_torch.cli import penguin, plass
+from plass_tpu_torch.ops import rescore_kernel, seg_scan
+device, reads, out = sys.argv[1], sys.argv[2:4], sys.argv[4]
+rcs = [plass.run(["assemble", *reads, os.path.join(out, "assembly.fas"),
+                  os.path.join(out, "ptmp"), "--num-iterations", "2",
+                  "--filter-proteins", "0", "--device", device]),
+       penguin.run(["nuclassemble", *reads,
+                    os.path.join(out, "contigs.fasta"),
+                    os.path.join(out, "ntmp"), "--num-iterations", "2",
+                    "--min-contig-len", "150", "--device", device])]
+print("[standalone] child " + json.dumps({
+    "find_spec": None if spec is None else spec.origin,
+    "files": [plass_tpu_torch.__file__, native.lib()._name], "rcs": rcs,
+    "jax_modules": sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "plass_tpu")),
+    "seg_scan": seg_scan.LAUNCHES, "rescore_e2e": rescore_kernel.LAUNCHES,
+    "rescore_e2e_rev_uniform": rescore_kernel.LAUNCHES_REV_UNIFORM}))
+"""
+STANDALONE_TIMEOUT = 300
+
+
+def _port_only_ignore(d, names):
+    """copytree's filter: no bytecode, and no build in progress."""
+    skip = {"__pycache__"} & set(names)
+    if os.path.basename(d) == "_build":
+        skip |= {n for n in names if n.startswith("tmp")}
+    return skip
+
+
+def phase_standalone(device, work, epilogue=""):
+    """plass_tpu_torch/ alone (with its _build/, so nothing is built again)
+    in a directory that is the child's working directory and its only
+    PYTHONPATH entry: both fixture assemblies byte for byte against their
+    goldens, the package and its host library loaded from there, with
+    plass_tpu not importable and, on a card, K1 and K2 launched. The child
+    runs `epilogue` (Python) last; returns its standard output."""
+    port = os.path.join(work, "port_only")
+    shutil.copytree(os.path.join(ROOT, "plass_tpu_torch"),
+                    os.path.join(port, "plass_tpu_torch"),
+                    ignore=_port_only_ignore)
+    out = os.path.join(work, "standalone_out")
+    os.makedirs(out)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = port
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", STANDALONE_CHILD + epilogue, str(device),
+         *READS, out], cwd=port, env=env, capture_output=True, text=True,
+        timeout=STANDALONE_TIMEOUT)
+    secs = time.perf_counter() - t0
+    tag = "[standalone] child "
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
+    if proc.returncode != 0 or len(lines) != 1:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"[standalone] the port-only process exited "
+                             f"with {proc.returncode}")
+    r = json.loads(lines[0][len(tag):])
+    if r["find_spec"] is not None or r["jax_modules"]:
+        raise AssertionError(f"[standalone] the JAX package was visible: "
+                             f"{r['find_spec']} {r['jax_modules']}")
+    if (not all(f.startswith(port + os.sep) for f in r["files"])
+            or r["rcs"] != [0, 0]):
+        raise AssertionError(f"[standalone] loaded {r['files']}, exit codes "
+                             f"{r['rcs']}")
+    for name, golden in (("assembly.fas", GOLDEN),
+                         ("contigs.fasta", GOLDEN_NUCL)):
+        if (open(os.path.join(out, name), "rb").read()
+                != open(golden, "rb").read()):
+            raise AssertionError(f"[standalone] {name} differs from "
+                                 f"{os.path.relpath(golden, ROOT)}")
+    launched = {k: r[k] for k in ("seg_scan", "rescore_e2e",
+                                  "rescore_e2e_rev_uniform")}
+    if device.type == "cuda" and not all(launched.values()):
+        raise AssertionError(f"[standalone] a kernel was not launched: "
+                             f"{launched}")
+    say(f"[standalone] plass_tpu_torch/ alone as working directory and "
+        f"PYTHONPATH, find_spec('plass_tpu') None: `plass assemble` and "
+        f"`penguin nuclassemble` on the fixture at --device {device} "
+        f"byte-identical to both goldens in {secs:.1f} s; launches "
+        f"{json.dumps(launched)}")
+    return proc.stdout
 
 
 def make_reads(path, copies, seed=42):
@@ -3958,6 +4053,7 @@ def main():
         timed_sizes=(5000,) if rehearsal else (14725883,))
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as work:
         phase_fixture(device, work)
+        phase_standalone(device, work)
         launches, db_path, assembly = phase_scale(
             device, work, 4 if rehearsal else 400)
         (k1_main_err, k1), k2 = phase_main_shapes(device, db_path, reps)

@@ -23,16 +23,14 @@ JAX package stays beside it as the reference the port is held against.
    registry, the workflow engine) are copies of the JAX package's
    numpy/ctypes code
 
-Nothing here imports jax or plass_tpu: `import plass_tpu` turns on jax at
-import time, and the GPU machine has no jax. The port reads two kinds of
-file from the JAX package by path only: the constant tables under
-`constants/data/` and the C++ sources of the host kernels under `native/`.
+Nothing here imports jax or plass_tpu, nor reads a file of it: `import
+plass_tpu` turns on jax at import time, and the GPU machine has no jax. The
+port carries its own copies of what it reads at run time, the constant
+tables under `constants/data/` and the C++ sources of the host kernels
+under `native/`, so a directory that holds only this package runs every
+command.
 """
 import os
-
-# The reference package's directory, read by path only (never imported).
-REFERENCE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "plass_tpu")
 
 # Build outputs of the CUDA kernels and the host C++ library.
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")

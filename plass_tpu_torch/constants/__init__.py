@@ -1,21 +1,23 @@
 """Frozen numeric constants derived from the reference data files.
 
-Generated by scripts/gen_constants.py; see that script for the derivations
-and reference citations. Loaded lazily and cached.
+The tables under `data/` (substitution matrices, alphabets, genetic codes,
+the coding filter's weights, E-value parameters, the context-state and
+calibration libraries) are this package's own copies of the JAX package's,
+byte for byte; scripts/gen_constants.py made them, and holds the
+derivations and reference citations. Loaded lazily and cached.
 """
 import functools
 import os
 
 import numpy as np
 
-from .. import REFERENCE_DIR
-
-_DATA = os.path.join(REFERENCE_DIR, "constants", "data")
+# the tables, read here, by ops/profilestates.py and by ops/rescore.py
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
 @functools.lru_cache(maxsize=None)
 def _load(name):
-    return dict(np.load(os.path.join(_DATA, name + ".npz"), allow_pickle=False))
+    return dict(np.load(os.path.join(DATA_DIR, name + ".npz"), allow_pickle=False))
 
 
 class Matrix:
@@ -105,7 +107,7 @@ def evalue_params(name):
     nucleotide_ungapped, nucleotide_gapped_5_2.
     (reference: EvalueComputation.h:56-76 + ALP-extracted values)
     """
-    txt = os.path.join(_DATA, name + ".txt")
+    txt = os.path.join(DATA_DIR, name + ".txt")
     if os.path.exists(txt):
         return np.array([float(x) for x in open(txt).read().split()])
     return _load("evalue_params")[name]

@@ -1,22 +1,23 @@
 """Host C++ kernels of the assemble, nuclassemble and guided_nuclassemble
 slices, built on demand with g++ and loaded via ctypes.
 
-The sources are the reference package's own (`plass_tpu/native/`), read by
-path: `extend.cpp` (protein greedy extender), `nucl_extend.cpp` (nucleotide
-greedy extender and its protein-guided variant), `finish.cpp` (rescore
-post-processing), `gather.cpp` (record padding and gathers),
-`aln2nucl.cpp` (proteinaln2nucl window scoring), `ssw.cpp` (the striped
-Smith-Waterman of the amino-acid aligner), `banded.cpp` (its banded
-backtrace), `tantan.cpp` (the prefilter's low-complexity masking) and
-`ungapped.cpp` (the ungapped-diagonal scores of `ungapped_prefilter`),
-`pssm.cpp` (the PSSM, sequence weights and profile byte codes of the
-profile tools) and `profilestates.cpp` (context-state discretisation and
-the profile query's k-mer and alignment matrices). The last three are
-built with AVX2, as in the JAX package's build: `pssm.cpp` mirrors the
-reference's AVX2 reciprocal sequence-weight kernel, and another build
-gives other float bits, so other profile bytes. The library is built into
-the port's build directory; the reference package's tracked `_native.so` is
-never written.
+The sources in this directory are this package's own copies of the JAX
+package's, byte for byte: `extend.cpp` (protein greedy extender),
+`nucl_extend.cpp` (nucleotide greedy extender and its protein-guided
+variant), `finish.cpp` (rescore post-processing), `gather.cpp` (record
+padding and gathers), `aln2nucl.cpp` (proteinaln2nucl window scoring),
+`ssw.cpp` (the striped Smith-Waterman of the amino-acid aligner),
+`banded.cpp` (its banded backtrace), `tantan.cpp` (the prefilter's
+low-complexity masking) and `ungapped.cpp` (the ungapped-diagonal scores of
+`ungapped_prefilter`), `pssm.cpp` (the PSSM, sequence weights and profile
+byte codes of the profile tools) and `profilestates.cpp` (context-state
+discretisation and the profile query's k-mer and alignment matrices). The
+last three are built with AVX2, as in the JAX package's build: `pssm.cpp`
+mirrors the reference's AVX2 reciprocal sequence-weight kernel, and
+another build gives other float bits, so other profile bytes. The library
+is built into the port's build directory under a name that hashes the
+sources' bytes and the compile flags, so a library built from other bytes
+or with other flags is never loaded.
 """
 import ctypes
 import hashlib
@@ -25,35 +26,52 @@ import subprocess
 import tempfile
 import threading
 
-from .. import BUILD_DIR, REFERENCE_DIR
+from .. import BUILD_DIR
 
-SOURCE_DIR = os.path.join(REFERENCE_DIR, "native")
+SOURCE_DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ["extend.cpp", "nucl_extend.cpp", "finish.cpp", "gather.cpp",
             "aln2nucl.cpp", "ssw.cpp", "banded.cpp", "tantan.cpp",
             "ungapped.cpp", "pssm.cpp", "profilestates.cpp"]
 # sources whose results follow the AVX2 build; only they are compiled with
 # -mavx2
 _AVX2_SOURCES = {"ungapped.cpp", "pssm.cpp", "profilestates.cpp"}
+_FLAGS = ["-O3", "-std=c++14", "-fopenmp", "-fPIC"]
+_LINK_FLAGS = ["-shared", "-fopenmp"]
 _LOCK = threading.Lock()
 _LIB = None
+
+
+def _compile_flags(src):
+    return _FLAGS + (["-mavx2"] if src in _AVX2_SOURCES else [])
+
+
+def library_tag(source_dir=SOURCE_DIR):
+    """Hash of every source's name and bytes, its compile flags and the
+    link flags: the library's name carries it."""
+    h = hashlib.sha256(" ".join(_LINK_FLAGS).encode())
+    for src in _SOURCES:
+        with open(os.path.join(source_dir, src), "rb") as fh:
+            data = fh.read()
+        h.update(f"\0{src}\0{' '.join(_compile_flags(src))}\0"
+                 f"{len(data)}\0".encode())
+        h.update(data)
+    return h.hexdigest()[:16]
 
 
 def _build(so_path):
     """Compile into a temporary file and rename it into place, so that
     processes building at the same time never load a half-written file."""
     os.makedirs(os.path.dirname(so_path), exist_ok=True)
-    flags = ["-O3", "-std=c++14", "-fopenmp", "-fPIC"]
     with tempfile.TemporaryDirectory(dir=os.path.dirname(so_path)) as tmp:
         objs = []
         for src in _SOURCES:
             obj = os.path.join(tmp, src + ".o")
-            extra = ["-mavx2"] if src in _AVX2_SOURCES else []
-            subprocess.run(["g++", *flags, *extra, "-c",
+            subprocess.run(["g++", *_compile_flags(src), "-c",
                             os.path.join(SOURCE_DIR, src), "-o", obj],
                            check=True, capture_output=True)
             objs.append(obj)
         out = os.path.join(tmp, "lib.so")
-        subprocess.run(["g++", "-shared", "-fopenmp", *objs, "-o", out],
+        subprocess.run(["g++", *_LINK_FLAGS, *objs, "-o", out],
                        check=True, capture_output=True)
         os.replace(out, so_path)
 
@@ -64,14 +82,11 @@ def lib():
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        # the name follows the source list, so a library built from fewer
-        # sources is never taken for this one
-        tag = hashlib.sha1(" ".join(_SOURCES).encode()).hexdigest()[:8]
-        so_path = os.path.join(BUILD_DIR, f"libplass_host-{tag}.so")
-        srcs = [os.path.join(SOURCE_DIR, s) for s in _SOURCES]
-        if (not os.path.exists(so_path)
-                or any(os.path.getmtime(so_path) < os.path.getmtime(s)
-                       for s in srcs)):
+        # the name follows the sources' bytes and the flags, so a library
+        # built from anything else is never taken for this one
+        so_path = os.path.join(BUILD_DIR,
+                               f"libplass_host-{library_tag()}.so")
+        if not os.path.exists(so_path):
             _build(so_path)
         _LIB = ctypes.CDLL(so_path)
         u8p = ctypes.POINTER(ctypes.c_uint8)

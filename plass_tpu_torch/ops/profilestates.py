@@ -15,10 +15,8 @@ import os
 
 import numpy as np
 
-from .. import REFERENCE_DIR, constants
+from .. import constants
 from ..native import lib
-
-_DATA = os.path.join(REFERENCE_DIR, "constants", "data")
 
 # ProfileStates.h:108-111 — HH-suite AA order -> mmseqs AA order
 HH2MMSEQS = [0, 14, 11, 2, 1, 13, 3, 5, 6, 7, 9, 8, 10, 4, 12, 15, 16, 18, 19, 17]
@@ -101,7 +99,7 @@ class ProfileStates:
         if pback is None:
             pback = constants.blosum62().pback
         self.background = np.asarray(pback[:20], dtype=np.float32)
-        path = os.path.join(_DATA, _LIB_FILES[alph_size])
+        path = os.path.join(constants.DATA_DIR, _LIB_FILES[alph_size])
         with open(path) as fh:
             self.profiles, prior = _parse_library(fh.read(), nat)
         self.K = self.profiles.shape[0]

@@ -9,6 +9,7 @@ This module holds the array-parallel scoring core used by both the NumPy
 host path and the device path (ops/device_rescore.py). Alignment results
 use the Matcher::result_t field set (Matcher.h:27-91).
 """
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -117,11 +118,9 @@ class RescoreParams:
 def parse_precision_lib(cov_mode, seq_id_thr, cov_thr, precision=0.99):
     """rescorediagonal.cpp:95-105 + parsePrecisionLib: first calibration row
     at the snapped (cov, seqId) grid point with precision >= target."""
-    import os
-    from .. import REFERENCE_DIR
     name = ("CovSeqidQscPercMinDiag.lib" if cov_mode == COV_MODE_BIDIRECTIONAL
             else "CovSeqidQscPercMinDiagTargetCov.lib")
-    path = os.path.join(REFERENCE_DIR, "constants", "data", name)
+    path = os.path.join(constants.DATA_DIR, name)
     int_seq_id = int((seq_id_thr + 0.0001) * 100)
     target_seq_id = np.float32((int_seq_id - int_seq_id % 5) / 100.0)
     target_cov = np.float32(int((cov_thr + 0.0001) * 10) / 10.0)

@@ -1,6 +1,7 @@
 """chip_smoke.py, the port's GPU smoke run, on a machine without a card:
 its CPU rehearsal drives every phase at a tiny size (the split matcher's
-phases, the DB tools' and the sharded matcher's ranks included) and prints
+phases, the DB tools', the port-only run and the sharded matcher's ranks
+included) and prints
 no result;
 run alone, outside the repo, it fails without printing a result; its
 `kernels` line holds every key for every kernel."""
@@ -28,6 +29,9 @@ def test_cpu_rehearsal_runs_every_phase():
     out = proc.stdout
     for tag in ("[env]", "[k1]",
                 "[fixture] 2 iterations, filter 0: byte-identical",
+                "[standalone] plass_tpu_torch/ alone as working directory "
+                "and PYTHONPATH, find_spec('plass_tpu') None",
+                "byte-identical to both goldens",
                 "[scale] reads", "[main] matcher", "[main] K2 on",
                 "[nucl-fixture] 2 iterations, min-contig-len 150: "
                 "byte-identical", "[nucl-scale] reads", "[nucl-main] matcher",
