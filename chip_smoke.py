@@ -192,9 +192,24 @@ and times it there beside its bound, as sw-main does ([sw-side]):
      and seconds, peak device memory and K1/K2 launches (counted from 0 in
      the rank around each run; every rank must launch both); then a
      failing rank (its input missing) must make both ranks exit non-zero
-     within the group's timeout.
+     within the group's timeout;
+ 28. align: `plass assemble` and `penguin nuclassemble` with
+     --rescore-mode 2 (ALIGNMENT) on the fixture, on the card and with
+     --device cpu, byte for byte, and both byte-identical to the committed
+     goldens (which plass_tpu's host path also gives at mode 2); B12, the
+     ALIGNMENT form of the rescore kernel, against its plain version on
+     the iteration-0 hits of phases 4 and 7 (the reverse variant with the
+     uniform and the generic matrix) and on edge rows (exact), timed
+     beside its bound;
+ 29. align-scale, in a process of its own at a lower priority beside
+     phases 17-20 and 28:
+     phase 4's reads through `plass assemble --rescore-mode 2` on the
+     card, its sha256 equal to --cpu-reference align's, B12 launched at
+     every rescore call and K2 at none; stage seconds, wall and launches,
+     and whether the bytes differ from phase 4's (mode 3).
 The kernels' launch counters are set to 0 just before phases 4, 7, 10, 13,
-14, 15, 16, 17, 18, 20, 22, 23, 24, 25 and 27's CLI runs and read just after;
+14, 15, 16, 17, 18, 20, 22, 23, 24, 25, 27, 28 and 29's CLI runs and read
+just after;
 every kernel of each path must have run there. Before phase 26's runs
 they are set to 0 too, and none may have run after them. The last lines
 are the script's seconds, a JSON summary of the kernels (times, launches
@@ -205,9 +220,10 @@ true, "device": {...}}.
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
 plain versions against themselves) to check the script itself;
 --cpu-reference runs phases 4, 7 and 10 (or, with a value, those of
-assemble, nuclassemble, guided_nuclassemble, profile, taxonomy and sharded
-it names; profile is phase 16's searches, taxonomy phase 25's runs,
-sharded phase 27's world-2 assembly in two ranks) at full size on the CPU,
+assemble, nuclassemble, guided_nuclassemble, profile, taxonomy, sharded
+and align it names; profile is phase 16's searches, taxonomy phase 25's
+runs, sharded phase 27's world-2 assembly in two ranks, align phase 29's
+assembly) at full size on the CPU,
 for the sha256 of their outputs; --cards N runs phase 27's assembly
 across N cards, one rank a card (NCCL), and with --device cpu. None of
 them prints a result; each exits with code 2.
@@ -445,7 +461,7 @@ K1_REPEATS = 50
 GUIDED_GENOMES = (104, 5000)
 SCALE_RUNS = ("assemble", "nuclassemble", "guided_nuclassemble")
 # --cpu-reference also takes "profile": phase profile-aa's two searches
-REFERENCE_RUNS = SCALE_RUNS + ("profile", "taxonomy", "sharded")
+REFERENCE_RUNS = SCALE_RUNS + ("profile", "taxonomy", "sharded", "align")
 
 
 def phase_k1(device, sizes, reps, timed_sizes=()):
@@ -945,7 +961,9 @@ def _rescore_launches():
     return {"rescore_e2e": rk.LAUNCHES, "rescore_e2e_rev": rk.LAUNCHES_REV,
             "rescore_e2e_rev_uniform": rk.LAUNCHES_REV_UNIFORM,
             "rescore_hamming": rk.LAUNCHES_HAMMING,
-            "rescore_hamming_rev": rk.LAUNCHES_HAMMING_REV}
+            "rescore_hamming_rev": rk.LAUNCHES_HAMMING_REV,
+            "rescore_align": rk.LAUNCHES_ALIGN,
+            "rescore_align_rev": rk.LAUNCHES_ALIGN_REV}
 
 
 def _launches():
@@ -960,6 +978,7 @@ def _reset_launches():
     seg_scan.LAUNCHES = 0
     rk.LAUNCHES = rk.LAUNCHES_REV = rk.LAUNCHES_REV_UNIFORM = 0
     rk.LAUNCHES_HAMMING = rk.LAUNCHES_HAMMING_REV = 0
+    rk.LAUNCHES_ALIGN = rk.LAUNCHES_ALIGN_REV = 0
     device_align.LAUNCHES = device_align.PAIRS = device_align.BLOCK_PAIRS = 0
 
 
@@ -1827,7 +1846,8 @@ def family_fasta(path, n_fam, seed=17, families=None):
     records."""
     from plass_tpu_torch import constants
     mat = constants.blosum62()
-    freq = np.asarray(mat.pback[:20], dtype=np.float64)
+    # a copy: the matrix is cached for the whole process
+    freq = np.array(mat.pback[:20], dtype=np.float64)
     freq /= freq.sum()
     letters = mat.num2aa[:20]
     rng = np.random.default_rng(seed)
@@ -2180,15 +2200,16 @@ def recorded_align_launches():
 
 # profile-aa ("profile-aa"), and linsearch-aa, rbh-aa, multihit-nt and
 # taxonomy-aa ("slice"), run in processes of their own beside phases 17-20
-# (their stages are host code but for B9's launches), the sharded phase
-# ("sharded") beside phase 10; each process prints its phases' lines,
+# (their stages are host code but for B9's launches), as does protein x400
+# at --rescore-mode 2 ("align-scale", whose extender is host Python), the
+# sharded phase ("sharded") beside phase 10; each process prints its phases' lines,
 # which start with its SIDE_TAGS, and its result (its launches; the
 # slice's also B9's measurements) on a line that starts with
 # side_result(name)
 SIDE_TAGS = {"profile-aa": ("[profile-aa]",),
              "slice": ("[linsearch-aa]", "[rbh-aa]", "[multihit-nt]",
                        "[taxonomy-aa]", "[db-tools]", "[sw-side]"),
-             "sharded": ("[sharded]",)}
+             "sharded": ("[sharded]",), "align-scale": ("[align-scale]",)}
 PROFILE_TIMEOUT = 1000
 SLICE_TIMEOUT = 900
 
@@ -3567,6 +3588,182 @@ def phase_hamming(device, work, protein_db, nucl_db, reps):
 
 
 # ---------------------------------------------------------------------------
+# align: --rescore-mode 2, the ALIGNMENT rescore (B12)
+
+ALIGN_PROTEIN = ("--rescore-mode", "2")
+ALIGN_NUCL = ("--rescore-mode", "2", "--min-contig-len", "150")
+# sha256 of protein x400's assembly at --rescore-mode 2, from `python3
+# chip_smoke.py --cpu-reference align` (the port with --device cpu)
+ALIGN_SHA256 = \
+    "0bb05de6a07aa800a54a0b1cf87be1b876b7fa4313f335c22d47fcab9060f596"
+ALIGN_TIMEOUT = 900
+# B12's operations a window residue, for its bound: the score, the running
+# sum, the running minimum and the running maximum, all int32
+ALIGN_OPS_PER_RESIDUE = 4
+
+
+def phase_align_scale(device, work, reads, mode3_fasta=None):
+    """protein x400 (phase 4's reads) through `plass assemble
+    --rescore-mode 2`: sha256, wall, stage seconds and launches; on a card
+    the sha256 must equal ALIGN_SHA256, B12 must run and K2 must not.
+    With mode3_fasta (phase 4's assembly), says whether the bytes differ
+    from mode 3's. Returns {"launches", "sha256", "wall"}."""
+    from plass_tpu_torch.cli.plass import run
+
+    out_dir = os.path.join(work, "align_scale")
+    out = os.path.join(out_dir, "assembly.fas")
+    stats = {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    rc = run(["assemble", reads, out, os.path.join(out_dir, "tmp"),
+              *ALIGN_PROTEIN, "--device", str(device)], stats=stats)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    if rc != 0:
+        raise AssertionError(f"[align-scale] CLI exit code {rc}")
+    data = open(out, "rb").read()
+    n = data.count(b">")
+    if not n:
+        raise AssertionError("[align-scale] the assembly produced no contigs")
+    digest = hashlib.sha256(data).hexdigest()
+    say(f"[align-scale] `plass assemble --rescore-mode 2` of {stats['reads']} "
+        f"reads ({stats['orfs']} ORFs, iteration-0 hits {stats['hits']}) at "
+        f"--device {device}: wall {wall:.1f} s, {n} contigs, sha256 {digest}")
+    say("[align-scale] seconds per stage: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stats["seconds"].items()))
+    say("[align-scale] launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    if mode3_fasta is not None:
+        mode3 = hashlib.sha256(open(mode3_fasta, "rb").read()).hexdigest()
+        say(f"[align-scale] {'differs from' if mode3 != digest else 'equals'}"
+            f" phase 4's assembly at --rescore-mode 3 (sha256 {mode3})")
+    if device.type == "cuda":
+        if not (launches["seg_scan"] and launches["rescore_align"]) or \
+                launches["rescore_e2e"]:
+            raise AssertionError(f"[align-scale] B12 must run at every "
+                                 f"rescore and K2 at none: {launches}")
+        if digest != ALIGN_SHA256:
+            raise AssertionError(f"[align-scale] sha256 {digest} differs "
+                                 f"from --cpu-reference align's "
+                                 f"{ALIGN_SHA256}")
+    return {"launches": launches, "sha256": digest, "wall": wall}
+
+
+def _check_align(name, args, kw, edge, edge_kw, what, reps, device):
+    """A B12 form against its plain version on real hits and edge rows
+    (exact); timed beside its bound, ALIGN_OPS_PER_RESIDUE int32
+    operations a window residue at the card's integer rate. The edge rows
+    must give segments in windows over LONG_WINDOW (the kernel's
+    long-window pass), windows with no positive score and segments that
+    stop short of either window end."""
+    from plass_tpu_torch.ops.rescore_kernel import (_overlap, rescore_align,
+                                                    rescore_align_plain)
+    want = rescore_align_plain(*edge, **edge_kw)
+    err = max_abs_err(rescore_align(*args, **kw),
+                      rescore_align_plain(*args, **kw))
+    e2 = max_abs_err(rescore_align(*edge, **edge_kw), want)
+    if err or e2:
+        raise AssertionError(f"{name}: max |err| {err} on real hits, {e2} "
+                             f"on edge cases")
+    ov = _overlap(edge[2], edge[4].long(), edge[5].long(), edge[6])[0]
+    score, first, last = want[:3]
+    cases = {"long": int(((ov > LONG_WINDOW) & (score > 0)).sum()),
+             "none": int(((ov > 0) & (score == 0)).sum()),
+             "inner": int(((first > 0) & (last < ov - 1)).sum())}
+    if not all(cases.values()):
+        raise AssertionError(f"{name}: the edge cases miss a case: {cases}")
+    ms = cuda_ms(lambda: rescore_align(*args, **kw), KERNEL_REPS * reps,
+                 device, queued=True)
+    pms = cuda_ms(lambda: rescore_align_plain(*args, **kw), reps, device)
+    n_bytes, n_ops, residues = rescore_traffic(args, kw.get("qrev"),
+                                               ALIGN_OPS_PER_RESIDUE)
+    bms, bby = bound(n_bytes, n_ops, int32_ops_per_s(device)[0])
+    say(f"[align] {name} on {args[4].numel()} {what} ({residues} window "
+        f"residues) and {edge[4].numel()} edge-case hits ({cases['long']} "
+        f"segments in windows over {LONG_WINDOW}, {cases['none']} windows "
+        f"with no positive score, {cases['inner']} segments inside their "
+        f"window): equal to the plain version; kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {bms:.4f} ms by {bby} ({n_bytes} bytes, "
+        f"{n_ops} operations)")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": pms, "bytes": n_bytes,
+            "operations": n_ops, "bound_ms": bms, "bound_by": bby}
+
+
+def phase_align(device, work, protein_db, nucl_db, reps):
+    """--rescore-mode 2 through both CLIs on the fixture: the device's
+    output byte for byte the CPU's and the golden; B12 at the iteration-0
+    hits of phases 4 and 7 and on edge rows. Returns (launches of the
+    device runs, measurements by kernel)."""
+    import torch
+    from plass_tpu_torch import constants
+    from plass_tpu_torch.data import seqdb
+    from plass_tpu_torch.ops.backend import flat_rows as db_rows
+    from plass_tpu_torch.ops.backend import kmermatcher_torch
+    from plass_tpu_torch.ops.rescore_kernel import rescore_e2e_plain
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    outs = [fixture_cli(os.path.join(work, "aln_p"), ALIGN_PROTEIN, device),
+            nucl_cli(READS, os.path.join(work, "aln_n"), ALIGN_NUCL, device)]
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    cpu_outs = [fixture_cli(os.path.join(work, "aln_pcpu"), ALIGN_PROTEIN,
+                            "cpu"),
+                nucl_cli(READS, os.path.join(work, "aln_ncpu"), ALIGN_NUCL,
+                         "cpu")]
+    for name, flags, out, cpu_out, golden in zip(
+            ("plass assemble", "penguin nuclassemble"),
+            (ALIGN_PROTEIN, ALIGN_NUCL), outs, cpu_outs,
+            (GOLDEN, GOLDEN_NUCL)):
+        data = open(out, "rb").read()
+        if data != open(cpu_out, "rb").read() or \
+                data != open(golden, "rb").read():
+            raise AssertionError(f"align: {name} {' '.join(flags)} on the "
+                                 f"device differs from the run with --device "
+                                 f"cpu or from "
+                                 f"{os.path.relpath(golden, ROOT)}")
+        say(f"[align] {name} {' '.join(flags)}: {data.count(b'>')} contigs, "
+            f"byte-identical to the run with --device cpu and to "
+            f"{os.path.relpath(golden, ROOT)}")
+    say(f"[align] both device runs in {secs:.1f} s; launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    launched = (launches["seg_scan"] and launches["rescore_align"]
+                and launches["rescore_align_rev"])
+    if (device.type == "cuda" and not launched) or any(
+            v for k, v in launches.items() if k.startswith("rescore_e2e")):
+        raise AssertionError(f"the --rescore-mode 2 path must launch K1 and "
+                             f"both B12 forms and no K2: {launches}")
+    out = {}
+    db = seqdb.SeqDB.open(protein_db)
+    rep, tgt, diag, _ = kmermatcher_torch(db, 14, device, **PROTEIN_MATCH).dev
+    lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
+    sub = torch.from_numpy(constants.blosum62().sub.astype(np.int32)) \
+        .to(device)
+    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
+            lut[tgt.long()].to(torch.int32), diag.contiguous(), sub)
+    edge = _edge_case_rows(device) + (sub,)
+    say(f"[align] the protein edge rows hold "
+        f"{_check_star_windows(edge, rescore_e2e_plain(*edge))} windows that "
+        f"begin and end with '*'")
+    out["rescore_align"] = _check_align(
+        "rescore_align", args, {}, edge, {}, "iteration-0 hits of phase 4",
+        reps, device)
+    db = seqdb.SeqDB.open(nucl_db)
+    _, args, rkw, uniform, _ = _nucl_rescore_inputs(db, device)
+    edge = _nucl_edge_case_rows(device)
+    edge_args, edge_kw = edge[:7] + (args[7],), dict(rkw, qrev=edge[7])
+    what = f"iteration-0 hits of phase 7 ({int(rkw['qrev'].sum())} reverse)"
+    generic = _check_align("rescore_align_rev (generic matrix)", args, rkw,
+                           edge_args, edge_kw, what, reps, device)
+    out["rescore_align_rev"] = _check_align(
+        "rescore_align_rev (uniform matrix)", args,
+        dict(rkw, uniform=uniform), edge_args, dict(edge_kw, uniform=uniform),
+        what, reps, device)
+    out["rescore_align_rev"]["generic_ms"] = generic["ms"]
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 # sharded: the k-mer matcher across ranks (--backend sharded), in a process
 # of its own beside guided-scale (phase 10), whose linclust tail leaves the
 # card idle; it starts the ranks, each a `--side-phase sharded-rank` process
@@ -3897,11 +4094,13 @@ def phase_cards(n):
             f"on the CPU, sha256 {digests.pop()}")
 
 
-def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
-    """The entries of the `kernels` line. k1, k2, rev[name], sw and
-    hamming[name] hold a kernel's measurements (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, bytes); launches maps each main path to its
-    {kernel: launches}. Without sw or hamming their entries are left out;
+def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None,
+                    align=None):
+    """The entries of the `kernels` line. k1, k2, rev[name], sw,
+    hamming[name] and align[name] hold a kernel's measurements
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, bytes); launches maps
+    each main path to its {kernel: launches}. Without sw, hamming or align
+    their entries are left out;
     sw's measurements on the contigs', search-aa's and the edge rows'
     pairs and on the side process's (linsearch, rbh, multihit, taxonomy),
     where given under those names, go into B9's entry."""
@@ -3910,8 +4109,8 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
                  for path, counts in launches.items()}
         # library_ms: no single PyTorch call computes a segmented scan with
         # these combine functions (torch.cummax is unsegmented), a gathered
-        # diagonal rescore or identity count, or a batch of local
-        # alignment scores
+        # diagonal rescore or identity count, a segmented maximum subarray
+        # with its positions, or a batch of local alignment scores
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(paths.values()),
                 "launches_by_path": paths, "max_abs_err": m["max_abs_err"],
@@ -3947,6 +4146,12 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None):
         kernels.append(entry(name, k2_src[0],
                              "plass_tpu/ops/device_rescore.py:107",
                              hamming[name]))
+    for name in ("rescore_align", "rescore_align_rev") \
+            if align is not None else ():
+        # the JAX package computes mode 2 on the host only
+        kernels.append(entry(name, k2_src[0], "plass_tpu/ops/rescore.py:71",
+                             align[name],
+                             operations=align[name]["operations"]))
     return kernels
 
 
@@ -3986,6 +4191,12 @@ def main():
             # FAMDB: phase 4's iteration-0 DB, ARG: its assembly
             result = phase_sharded(device, work, famdb, arg,
                                    args.cpu_rehearsal)
+        elif name == "align-scale":
+            # FAMDB: phase 4's assembly, ARG: its reads. It fills the main
+            # process's later phases: at a lower priority, it takes no CPU
+            # from them or from profile-aa, the script's longest path
+            os.nice(10)
+            result = phase_align_scale(device, work, arg, famdb)
         elif name == "profile-aa":
             result = {"launches": phase_profile_aa(
                 device, work, famdb, arg, check_sha=not args.cpu_rehearsal)}
@@ -4032,6 +4243,10 @@ def main():
                     f"{' '.join(sorted(digests))}")
                 if len(digests) != 1:
                     raise AssertionError("the ranks' FASTAs differ")
+            if "align" in runs:
+                reads = os.path.join(work, "reads.fasta")
+                make_reads(reads, 400)
+                phase_align_scale(device, work, reads)
         say(f"[cpu-reference] {', '.join(runs)} at full size on the CPU; no "
             f"result")
         return 2
@@ -4092,6 +4307,8 @@ def main():
         profile = start_side("profile-aa", work, famdb, search_qdb,
                              rehearsal)
         side = start_side("slice", work, famdb, fam_fasta, rehearsal)
+        align_side = start_side("align-scale", work, assembly,
+                                os.path.join(work, "reads.fasta"), rehearsal)
         try:
             calaunches = phase_cluster_aa(device, work, famdb)
             ealaunches = phase_easy_aa(device, work, fam_fasta)
@@ -4099,14 +4316,18 @@ def main():
             del lcalls
             hlaunches, hamming = phase_hamming(device, work, db_path,
                                                ndb_paths[0], reps)
+            alaunches, align = phase_align(device, work, db_path,
+                                           ndb_paths[0], reps)
+            ascale = finish_side(*align_side, ALIGN_TIMEOUT)
             # the slice's process times B9 once the card is free of this
-            # process's work
+            # process's work and of align-scale's
             open(os.path.join(work, MAIN_IDLE), "w").close()
             slice_result = finish_side(*side, SLICE_TIMEOUT)
             plaunches = finish_side(*profile, PROFILE_TIMEOUT)["launches"]
         finally:
             stop(profile[1])
             stop(side[1])
+            stop(align_side[1])
     phase_nucl_large(device, rehearsal)
     k1_err = max(k1_err, k1_main_err, k1_nucl_err, k1_guided_err)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_guided_err)
@@ -4123,8 +4344,9 @@ def main():
          "linclust": llaunches, "search": salaunches, "profile": plaunches,
          "cluster": calaunches,
          "easy": ealaunches, "rescore_mode_0": hlaunches,
-         **slice_result["launches"], "sharded": shlaunches},
-        dict(sw, **slice_result["sw"]), hamming)
+         **slice_result["launches"], "sharded": shlaunches,
+         "rescore_mode_2": alaunches, "rescore_mode_2_x400": ascale["launches"]},
+        dict(sw, **slice_result["sw"]), hamming, align)
     say(json.dumps({"kernels": kernels}))
     say(smi())
     say(json.dumps({"ok": True, "device": {

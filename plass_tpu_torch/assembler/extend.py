@@ -85,19 +85,17 @@ def assemble(db, alignments, seq_id_thr=0.9, max_seq_len=65535,
 
     alignments: {query_key: np.ndarray[RESULT_DTYPE]} from ops.rescore.
     Returns a SeqDB with contigs (extended queries) and pass-through
-    sequences. The protein path runs in the native kernel
-    (native/extend.cpp, same semantics) unless use_native=False.
+    sequences. After the END_TO_END rescore the protein path runs in the
+    native kernel (native/extend.cpp, same semantics; a failure of it
+    raises) unless use_native=False; every other case runs the Python
+    pass.
     """
     is_nucl = db.dbtype == seqdb.NUCLEOTIDES
     is_flat = isinstance(alignments, dict) and "qk" in alignments \
         and "rec" in alignments
     if use_native and not is_nucl and rescore_mode == RESCORE_END_TO_END:
-        try:
-            return _assemble_native(db, alignments, seq_id_thr, max_seq_len,
-                                    keep_target, evaluer)
-        except Exception as e:  # pragma: no cover - fallback safety
-            import warnings
-            warnings.warn(f"native assemble failed ({e}); python fallback")
+        return _assemble_native(db, alignments, seq_id_thr, max_seq_len,
+                                keep_target, evaluer)
     if is_flat:
         # expand the flat format for the python paths
         alignments = _flat_to_dict(db, alignments)

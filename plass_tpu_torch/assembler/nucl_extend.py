@@ -22,8 +22,8 @@ import numpy as np
 from .. import constants
 from ..data import seqdb
 from ..ops.evalue import EvalueComputer
-from ..ops.rescore import (RESCORE_END_TO_END, RESCORE_HAMMING,
-                           ungapped_by_diagonal)
+from ..ops.rescore import (RESCORE_ALIGNMENT, RESCORE_END_TO_END,
+                           RESCORE_HAMMING, ungapped_by_diagonal)
 from .extend import (_Cand, _rev_fragment, WAS_IN_ALIGNMENT, WAS_CANDIDATE,
                      WAS_CONSUMED, IS_CONTIG)
 
@@ -148,16 +148,18 @@ def nucl_assemble(db, alignments, seq_id_thr=0.99, max_seq_len=200000,
                   evaluer=None):
     """nuclassembleresults: db + per-query alignments -> (extended DB,
     per-sequence flags). After the END_TO_END rescore the native kernel
-    runs the pass (a failure of it raises); after the HAMMING rescore the
-    Python pass does; any other mode raises."""
+    runs the pass (a failure of it raises); after the HAMMING and the
+    ALIGNMENT rescores the Python pass does, as in the JAX package; any
+    other mode raises."""
     if rescore_mode == RESCORE_END_TO_END:
         return _nucl_assemble_native(db, alignments, seq_id_thr,
                                      max_seq_len, keep_target, evaluer)
-    if rescore_mode != RESCORE_HAMMING:
+    if rescore_mode not in (RESCORE_HAMMING, RESCORE_ALIGNMENT):
         raise NotImplementedError(
             f"nucl_assemble supports the END_TO_END (mode "
-            f"{RESCORE_END_TO_END}) and HAMMING (mode {RESCORE_HAMMING}) "
-            f"rescores, not mode {rescore_mode}")
+            f"{RESCORE_END_TO_END}), ALIGNMENT (mode {RESCORE_ALIGNMENT}) "
+            f"and HAMMING (mode {RESCORE_HAMMING}) rescores, not mode "
+            f"{rescore_mode}")
     return _nucl_assemble_python(db, alignments, seq_id_thr, max_seq_len,
                                  keep_target, rescore_mode, evaluer)
 

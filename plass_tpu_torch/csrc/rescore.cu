@@ -19,6 +19,14 @@
 // case folding, no '*' skip; a reverse hit's query chars are the canonical
 // chars of its complemented codes, as above) and returns it as both score
 // and idents, with first = last = -1.
+// The template's third form is the ALIGNMENT rescore of --rescore-mode 2
+// (B12), which the JAX package computes on the host only
+// (plass_tpu/ops/rescore.py:71-85, computeSubstitutionStartEndDistance):
+//   rescore_align, qrev null     forward hits (protein)
+//   rescore_align, qrev given    with reverse hits; uniform selects the
+//                                uniform-matrix scoring (nucleotide)
+// It returns the best local ungapped segment of each window; see "ALIGNMENT"
+// below.
 //
 // Operands: rows uint8[total] holds every sequence back to back (record
 // terminators included, never scored); row r is the lengths[r] bytes from
@@ -77,6 +85,32 @@
 // four outputs coalesced. A persisting L2 window on `rows` was not tried:
 // the rows are re-read from L2 already. PERF.md has the times and the
 // share of the bound reached.
+//
+// ALIGNMENT (kAlign), per hit: with c[p] the running sum of s[0..p] and
+// c[-1] = 0, the host's loop (score += s; score <= 0 resets it and sets
+// min_pos = p; a strictly greater score sets the maximum, its end p and its
+// start min_pos + 1) is
+//   score_p = c[p] - min c[-1..p], the minimum taken at its LATEST index,
+//   end     = the FIRST p with the largest score_p (strict >),
+//   start   = that p's minimum index + 1,
+// and a window whose scores never exceed 0 gives (0, 0, 0). '*' is scored
+// like any residue (the host scores mode 2 through the matrix on the raw
+// chars and skips nothing). idents counts case-folded equal chars over
+// [start, end]; ov <= 0 gives (0, -1, -1, 0), no positive score (0, 0, 0, 0).
+// The maximum is a serial recurrence. A window of at most kLongWindow
+// residues is scanned by one lane, 16 bytes per load as above, and then
+// counted over [start, end] by the same lane. A longer window is cut into 32
+// contiguous pieces, one a lane of the second pass's warp; each lane scans
+// its piece into a summary (sum; minimum prefix with its latest index,
+// the piece's own left edge included; maximum prefix with its first index;
+// the best segment that starts inside the piece) and the warp folds the
+// summaries left to right (combine_align), keeping both tie rules. Rows
+// longer than 32,768 are scored on the hit's own diagonal alone, as the
+// END_TO_END form scores them, where the host's ungapped_best also tries
+// the diagonals 65,536 apart that share the 16 bits its hits store (the
+// port's matcher keeps the whole diagonal). What bounds it: as for K2, the
+// chain hit -> row -> window bytes and the work per residue, here a
+// dependent chain (sum, minimum, maximum) that a lane cannot split.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -237,6 +271,26 @@ __device__ __forceinline__ uint32_t byte_at(const uint32_t (&w)[4], int k) {
   return (word >> (8 * (k & 3))) & 0xffu;
 }
 
+// The window bytes j0 .. j0+15 of both sides as four words each, byte k
+// the residue j0 + k; a reverse hit's query bytes are loaded ascending and
+// mirrored in registers.
+template <bool kRev>
+__device__ __forceinline__ void load_chunk(const Args& a, const Window& w, bool rv, int j0,
+                                           uint32_t (&qw)[4], uint32_t (&tw)[4]) {
+  load16(a.rows, a.total, rv ? w.qaddr - j0 - (kChunk - 1) : w.qaddr + j0, qw);
+  load16(a.rows, a.total, w.taddr + j0, tw);
+  if (kRev && rv) {  // mirror the 16 bytes: byte k becomes the query's j0 + k
+    const uint32_t m0 = __byte_perm(qw[3], 0, 0x0123);
+    const uint32_t m1 = __byte_perm(qw[2], 0, 0x0123);
+    const uint32_t m2 = __byte_perm(qw[1], 0, 0x0123);
+    const uint32_t m3 = __byte_perm(qw[0], 0, 0x0123);
+    qw[0] = m0;
+    qw[1] = m1;
+    qw[2] = m2;
+    qw[3] = m3;
+  }
+}
+
 // A team of team_size lanes scores one window, 16 bytes per lane and step.
 // s gets the lane's share of the score sum; pk its share of the identity
 // count plus kStarFirst / kStarLast where it met a '*' at j = 0 / j = ov-1.
@@ -251,18 +305,7 @@ __device__ __forceinline__ void score_window(const Args& a, const Tables& tb, co
   const int last_j = w.ov - 1;
   for (int j0 = team_lane * kChunk; j0 < w.ov; j0 += team_size * kChunk) {
     uint32_t qw[4], tw[4];
-    load16(a.rows, a.total, rv ? w.qaddr - j0 - (kChunk - 1) : w.qaddr + j0, qw);
-    load16(a.rows, a.total, w.taddr + j0, tw);
-    if (rv) {  // mirror the 16 bytes: byte k becomes the query's j0 + k
-      const uint32_t m0 = __byte_perm(qw[3], 0, 0x0123);
-      const uint32_t m1 = __byte_perm(qw[2], 0, 0x0123);
-      const uint32_t m2 = __byte_perm(qw[1], 0, 0x0123);
-      const uint32_t m3 = __byte_perm(qw[0], 0, 0x0123);
-      qw[0] = m0;
-      qw[1] = m1;
-      qw[2] = m2;
-      qw[3] = m3;
-    }
+    load_chunk<kRev>(a, w, rv, j0, qw, tw);
     const int n_in = min(kChunk, w.ov - j0);  // window residues in this chunk
     int hits = 0;  // uniform variant: matching pairs
 #pragma unroll
@@ -319,9 +362,125 @@ __device__ __forceinline__ void store_hit(const Args& a, int64_t hit, int ov, in
   a.idents[hit] = pk & kIdentMask;
 }
 
+// ALIGNMENT: the summary of the window residues [lo, hi), positions
+// window-relative.
+struct AlignSum {
+  int sum;               // s[lo] + ... + s[hi-1]
+  int mn, mn_at;         // least prefix sum, the left edge (0 at lo-1) included; latest index
+  int mx, mx_at;         // greatest prefix sum over [lo, hi), first index; kNegInf if empty
+  int best, start, end;  // best segment that starts at lo or later, its first end; 0, 0, 0 if none
+};
+constexpr int kNegInf = -(1 << 30);
+
+// The host's loop over [lo, hi), one lane, 16 bytes per load.
+template <bool kRev, bool kUniform>
+__device__ AlignSum align_scan(const Args& a, const Tables& tb, const Window& w, int lo, int hi) {
+  const bool rv = kRev && w.rv;
+  const uint32_t* qtab = tb.query + (rv ? 256 : 0);
+  AlignSum r{0, 0, lo - 1, kNegInf, lo, 0, 0, 0};
+  for (int j0 = lo; j0 < hi; j0 += kChunk) {
+    uint32_t qw[4], tw[4];
+    load_chunk<kRev>(a, w, rv, j0, qw, tw);
+    const int n_in = min(kChunk, hi - j0);
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k < n_in) {
+        bool idm, star;
+        r.sum += score_pair<kUniform>(a, tb, qtab, byte_at(qw, k), byte_at(tw, k), idm, star);
+        const int run = r.sum - r.mn;
+        if (r.sum > r.mx) {
+          r.mx = r.sum;
+          r.mx_at = j0 + k;
+        }
+        if (run <= 0) {  // the running score resets: a new minimum, latest on ties
+          r.mn = r.sum;
+          r.mn_at = j0 + k;
+        } else if (run > r.best) {  // strict: the first end keeps a tie
+          r.best = run;
+          r.start = r.mn_at + 1;
+          r.end = j0 + k;
+        }
+      }
+    }
+  }
+  return r;
+}
+
+// The summary of [lo, mid) followed by [mid, hi). A segment ending in the
+// right piece starts in the left piece (at the left piece's minimum + 1,
+// score L.sum + R.mx - L.mn at R.mx_at) or in the right piece (R.best at
+// R.end): the larger wins, and on equal scores the earlier end, the right
+// piece's own start at an equal end (its minimum is the later one). The
+// left piece's best wins every tie, as it ends first.
+__device__ __forceinline__ AlignSum combine_align(const AlignSum& l, const AlignSum& r) {
+  AlignSum c;
+  c.sum = l.sum + r.sum;
+  const bool right_min = l.sum + r.mn <= l.mn;
+  c.mn = right_min ? l.sum + r.mn : l.mn;
+  c.mn_at = right_min ? r.mn_at : l.mn_at;
+  const bool right_max = r.mx != kNegInf && l.sum + r.mx > l.mx;
+  c.mx = right_max ? l.sum + r.mx : l.mx;
+  c.mx_at = right_max ? r.mx_at : l.mx_at;
+  const int across = r.mx == kNegInf ? kNegInf : l.sum + r.mx - l.mn;
+  const bool take_across = across > r.best || (across == r.best && r.mx_at < r.end);
+  int best = take_across ? across : r.best;
+  int start = take_across ? l.mn_at + 1 : r.start;
+  int end = take_across ? r.mx_at : r.end;
+  if (l.best >= best) {
+    best = l.best;
+    start = l.start;
+    end = l.end;
+  }
+  c.best = best;
+  c.start = start;
+  c.end = end;
+  return c;
+}
+
+__device__ __forceinline__ AlignSum shfl_down_align(const AlignSum& x, int o) {
+  AlignSum y;
+  y.sum = __shfl_down_sync(kFull, x.sum, o);
+  y.mn = __shfl_down_sync(kFull, x.mn, o);
+  y.mn_at = __shfl_down_sync(kFull, x.mn_at, o);
+  y.mx = __shfl_down_sync(kFull, x.mx, o);
+  y.mx_at = __shfl_down_sync(kFull, x.mx_at, o);
+  y.best = __shfl_down_sync(kFull, x.best, o);
+  y.start = __shfl_down_sync(kFull, x.start, o);
+  y.end = __shfl_down_sync(kFull, x.end, o);
+  return y;
+}
+
+// Case-folded equal chars over the window residues [lo, hi): team_lane's
+// share of a team of team_size lanes.
+template <bool kRev>
+__device__ int count_idents(const Args& a, const Tables& tb, const Window& w, int lo, int hi,
+                            int team_lane, int team_size) {
+  const bool rv = kRev && w.rv;
+  const uint32_t* qtab = tb.query + (rv ? 256 : 0);
+  int n = 0;
+  for (int j0 = lo + team_lane * kChunk; j0 < hi; j0 += team_size * kChunk) {
+    uint32_t qw[4], tw[4];
+    load_chunk<kRev>(a, w, rv, j0, qw, tw);
+    const int n_in = min(kChunk, hi - j0);
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      n += (k < n_in && (((qtab[byte_at(qw, k)] >> 16) ^ byte_at(tw, k)) & kFold) == 0) ? 1 : 0;
+  }
+  return n;
+}
+
+__device__ __forceinline__ void store_align(const Args& a, int64_t hit, int ov, const AlignSum& r,
+                                            int idents) {
+  a.score[hit] = r.best;
+  a.first[hit] = ov <= 0 ? -1 : r.start;
+  a.last[hit] = ov <= 0 ? -1 : r.end;
+  a.idents[hit] = idents;
+}
+
 // kLongPass = false: 32 hits per warp, windows up to kLongWindow scored by
-// kGroup-lane groups, longer ones queued. kLongPass = true: a warp per queued hit.
-template <bool kRev, bool kUniform, bool kHamming, bool kLongPass>
+// kGroup-lane groups (kAlign: by the hit's own lane), longer ones queued.
+// kLongPass = true: a warp per queued hit.
+template <bool kRev, bool kUniform, bool kHamming, bool kAlign, bool kLongPass>
 __global__ void __launch_bounds__(kThreads) rescore_e2e_kernel(const Args a) {
   __shared__ Tables tb;
   load_tables<kRev, kUniform, kHamming>(a, tb);
@@ -334,6 +493,27 @@ __global__ void __launch_bounds__(kThreads) rescore_e2e_kernel(const Args a) {
     for (int64_t i = warp; i < count; i += n_warps) {
       const int64_t hit = a.queue[1 + i];
       const Window w = window_of<kRev>(a, hit);
+      if constexpr (kAlign) {
+        // 32 contiguous pieces, folded left to right in a tree
+        const int piece = (w.ov + 31) / 32;
+        const int lo = min(lane * piece, w.ov);
+        AlignSum r = align_scan<kRev, kUniform>(a, tb, w, lo, min(lo + piece, w.ov));
+        __syncwarp();
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const AlignSum right = shfl_down_align(r, o);
+          if (lane + o < 32) r = combine_align(r, right);
+        }
+        r.best = __shfl_sync(kFull, r.best, 0);
+        r.start = __shfl_sync(kFull, r.start, 0);
+        r.end = __shfl_sync(kFull, r.end, 0);
+        int n = r.best > 0 ? count_idents<kRev>(a, tb, w, r.start, r.end + 1, lane, 32) : 0;
+        __syncwarp();
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(kFull, n, o);
+        if (lane == 0) store_align(a, hit, w.ov, r, n);
+        continue;
+      }
       int s = 0, pk = 0;
       score_window<kRev, kUniform, kHamming>(a, tb, w, lane, 32, s, pk);
       __syncwarp();
@@ -353,8 +533,16 @@ __global__ void __launch_bounds__(kThreads) rescore_e2e_kernel(const Args a) {
     const int short_ov = is_long ? 0 : mine.ov;
     const int group = lane / kGroup;
     int my_s = 0, my_pk = 0;
+    if constexpr (kAlign) {
+      if (valid && !is_long) {
+        const AlignSum r = align_scan<kRev, kUniform>(a, tb, mine, 0, mine.ov);
+        const int n =
+            r.best > 0 ? count_idents<kRev>(a, tb, mine, r.start, r.end + 1, 0, 1) : 0;
+        store_align(a, hit, mine.ov, r, n);
+      }
+    }
 #pragma unroll 1
-    for (int r = 0; r < 32 / kGroupsPerWarp; ++r) {
+    for (int r = 0; r < (kAlign ? 0 : 32 / kGroupsPerWarp); ++r) {
       // group g scores the hit of lane r * kGroupsPerWarp + g
       const int src = r * kGroupsPerWarp + group;
       Window w;
@@ -387,11 +575,11 @@ __global__ void __launch_bounds__(kThreads) rescore_e2e_kernel(const Args a) {
       if (is_long)
         a.queue[1 + slot + __popc(long_mask & ((1u << lane) - 1u))] = static_cast<int32_t>(hit);
     }
-    if (valid && !is_long) store_hit<kHamming>(a, hit, mine.ov, my_s, my_pk);
+    if (!kAlign && valid && !is_long) store_hit<kHamming>(a, hit, mine.ov, my_s, my_pk);
   }
 }
 
-template <bool kRev, bool kUniform, bool kHamming = false>
+template <bool kRev, bool kUniform, bool kHamming = false, bool kAlign = false>
 int launch(const Args& a, void* stream) {
   if (a.alpha < 1 || a.alpha > kMaxAlpha || a.h > INT32_MAX) return -1;
   if (reinterpret_cast<uintptr_t>(a.rows) % 4 != 0) return -2;
@@ -400,10 +588,10 @@ int launch(const Args& a, void* stream) {
   cudaError_t err = cudaMemsetAsync(a.queue, 0, sizeof(int32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t blocks = (a.h + kThreads - 1) / kThreads;
-  rescore_e2e_kernel<kRev, kUniform, kHamming, false><<<blocks, kThreads, 0, s>>>(a);
+  rescore_e2e_kernel<kRev, kUniform, kHamming, kAlign, false><<<blocks, kThreads, 0, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rescore_e2e_kernel<kRev, kUniform, kHamming, true><<<kLongBlocks, kThreads, 0, s>>>(a);
+  rescore_e2e_kernel<kRev, kUniform, kHamming, kAlign, true><<<kLongBlocks, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -456,4 +644,24 @@ extern "C" int rescore_hamming(const uint8_t* rows, int64_t total, const int64_t
   const Args a{rows, total, offsets, lengths, code_lut, qrow, trow, diag, qrev, nullptr,
                comp, code2char, alpha, 0, 0, h, score, first, last, idents, queue};
   return qrev ? launch<true, false, true>(a, stream) : launch<false, false, true>(a, stream);
+}
+
+// ALIGNMENT (--rescore-mode 2, B12) on rescore_e2e_rev's operands: qrev,
+// comp and code2char null for forward hits only (the protein path), given
+// for reverse hits; uniform != 0 (with reverse hits) scores match/mismatch
+// and never reads sub. score, first, last, idents = the best local segment's
+// score, start, end and case-folded identities; (0, -1, -1, 0) without
+// overlap, (0, 0, 0, 0) without a positive score. Returns as rescore_e2e.
+extern "C" int rescore_align(const uint8_t* rows, int64_t total, const int64_t* offsets,
+                             const int32_t* lengths, const uint8_t* code_lut,
+                             const int32_t* qrow, const int32_t* trow, const int32_t* diag,
+                             const uint8_t* qrev, const int32_t* sub, const int32_t* comp,
+                             const uint8_t* code2char, int alpha, int uniform, int match,
+                             int mismatch, int64_t h, int32_t* score, int32_t* first,
+                             int32_t* last, int32_t* idents, int32_t* queue, void* stream) {
+  const Args a{rows, total, offsets, lengths, code_lut, qrow, trow, diag, qrev, sub,
+               comp, code2char, alpha, match, mismatch, h, score, first, last, idents, queue};
+  if (!qrev) return launch<false, false, false, true>(a, stream);
+  return uniform ? launch<true, true, false, true>(a, stream)
+                 : launch<true, false, false, true>(a, stream);
 }

@@ -23,7 +23,8 @@ from ..data import seqdb
 from . import device_kmer
 from .device_kmer import KmerParams, ksel_capacity
 from .kmermatch import ENTRY_BYTES, estimate_kmer_count, parse_memory_limit
-from .rescore_kernel import rescore_e2e, rescore_hamming, uniform_pattern
+from .rescore_kernel import (rescore_align, rescore_e2e, rescore_hamming,
+                             uniform_pattern)
 
 # The automatic split budget on the card (split_memory_limit 0). The
 # monolithic matcher's peak device memory per table entry in its pair and
@@ -315,16 +316,17 @@ def _insert_self_hits(db, rep, tgt, score, diag):
 
 
 def _self_rescore_host(db, hamming=False):
-    """Rescoring of the (k, k, diag 0) self rows, analytic on the host.
-    END_TO_END: first/last from the '*'-skip on the raw chars, score =
-    clipped sum of diagonal substitution scores over the window (the DB's
-    own matrix), idents = window size. HAMMING: score = idents = the
-    sequence's length, first = last = -1."""
+    """Rescoring of the (k, k, diag 0) self rows, analytic on the host:
+    (score, first, last, idents) per row. END_TO_END: first/last from the
+    '*'-skip on the raw chars, score = clipped sum of diagonal
+    substitution scores over the window (the DB's own matrix), idents =
+    window size. HAMMING: score = idents = the sequence's length, first =
+    last = -1."""
     lens = db.seq_lens().astype(np.int64)
     ov = lens.astype(np.int32)
     if hamming:
         ends = np.full(db.size, -1, dtype=np.int32)
-        return lens, ends, ends, ov, lens
+        return lens, ends, ends, lens
     mat = _matrix(db, "score")
     sub = mat.sub.astype(np.int64)
     offsets = db.offsets.astype(np.int64)
@@ -349,36 +351,41 @@ def _self_rescore_host(db, hamming=False):
     idents = np.maximum(0, np.minimum(last, ov - 1) - first + 1)
     score[~nonempty] = 0
     idents[~nonempty] = 0
-    return score, first, last, ov, idents.astype(np.int64)
+    return score, first, last, idents.astype(np.int64)
 
 
 def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
                            return_flat=False):
-    """END_TO_END (--rescore-mode 3) or HAMMING (0) rescorediagonal of
-    kmermatcher_torch's or kmermatcher_sharded_torch's KmerHits.
+    """END_TO_END (--rescore-mode 3), ALIGNMENT (2) or HAMMING (0)
+    rescorediagonal of kmermatcher_torch's or kmermatcher_sharded_torch's
+    KmerHits.
 
-    The self rows are analytic on the host; every other hit is rescored on
-    the device that holds the hits (kernel K2, or its HAMMING variant),
-    addressed by index into the matcher's device-resident arrays, or,
-    where the hits carry the columns of this rescore mode (`pre`, the
-    sharded matcher's), taken from them, as the JAX package's
-    rescore_diagonal_jax takes its sharded hits' columns. On a
-    nucleotide DB a reverse-strand hit reads the query reverse-complemented,
-    and the nucleotide matrix's uniform match/mismatch form selects K2's
-    uniform variant. Modes 1 and 2 raise, as on the JAX package's device
-    path. Returns
-    {key: RESULT_DTYPE records}, or with return_flat {"qk": int64[M],
-    "rec": RESULT_DTYPE[M]} of the surviving records grouped by query — the
-    native extenders' input."""
+    Every hit is rescored on the device that holds the hits (kernel K2, or
+    its HAMMING or ALIGNMENT form, B12), addressed by index into the
+    matcher's device-resident arrays, or, where the hits carry the columns
+    of this rescore mode (`pre`, the sharded matcher's), taken from them,
+    as the JAX package's rescore_diagonal_jax takes its sharded hits'
+    columns. The self rows are analytic on the host for END_TO_END and
+    HAMMING; for ALIGNMENT, whose self row is a maximum segment of the
+    diagonal scores, they join B12's launch. On a nucleotide DB a
+    reverse-strand hit reads the query reverse-complemented, and the
+    nucleotide matrix's uniform match/mismatch form selects the kernel's
+    uniform variant. Modes 1 and 4 raise: the JAX package fails on both.
+    Returns {key: RESULT_DTYPE records}, or with return_flat {"qk":
+    int64[M], "rec": RESULT_DTYPE[M]} of the surviving records grouped by
+    query — the native extenders' input."""
     from .evalue import EvalueComputer
-    from .rescore import (RESCORE_END_TO_END, RESCORE_HAMMING, RESULT_DTYPE,
-                          RescoreParams)
+    from .rescore import (RESCORE_ALIGNMENT, RESCORE_END_TO_END,
+                          RESCORE_HAMMING, RESULT_DTYPE, RescoreParams)
 
     params = params or RescoreParams()
-    if params.rescore_mode not in (RESCORE_END_TO_END, RESCORE_HAMMING):
-        raise NotImplementedError("only the END_TO_END and HAMMING rescores "
-                                  "are ported")
+    if params.rescore_mode not in (RESCORE_END_TO_END, RESCORE_HAMMING,
+                                   RESCORE_ALIGNMENT):
+        raise NotImplementedError(
+            f"--rescore-mode {params.rescore_mode} is not ported: only the "
+            f"HAMMING (0), ALIGNMENT (2) and END_TO_END (3) rescores are")
     hamming = params.rescore_mode == RESCORE_HAMMING
+    align = params.rescore_mode == RESCORE_ALIGNMENT
     if not isinstance(hits, KmerHits) or hits.dev is None:
         raise TypeError("rescore_diagonal_torch takes the KmerHits of "
                         "kmermatcher_torch")
@@ -402,17 +409,18 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
     score = np.zeros(m, dtype=np.int64)
     first = np.zeros(m, dtype=np.int32)
     last = np.zeros(m, dtype=np.int32)
-    ov = np.zeros(m, dtype=np.int32)
     idents = np.zeros(m, dtype=np.float64)
 
     self_mask = (qk == tk) & (dg == 0) & (pref == 0)
-    if self_mask.any():
-        s_sc, s_f, s_l, s_ov, s_id = _self_rescore_host(db, hamming)
+    # the self rows B12 scores with the hits: ALIGNMENT's self row is the
+    # maximum segment of the row's diagonal scores
+    self_idx = np.nonzero(self_mask)[0] if align else np.zeros(0, np.int64)
+    if self_mask.any() and not align:
+        s_sc, s_f, s_l, s_id = _self_rescore_host(db, hamming)
         rows = qrow[self_mask]
         score[self_mask] = s_sc[rows]
         first[self_mask] = s_f[rows]
         last[self_mask] = s_l[rows]
-        ov[self_mask] = s_ov[rows]
         idents[self_mask] = s_id[rows]
 
     idxs = np.nonzero(~self_mask)[0]
@@ -422,7 +430,7 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
         didx = np.searchsorted(hits.hit_slots, idxs)
         score[idxs], first[idxs], last[idxs], idents[idxs] = (
             c[didx] for c in hits.pre)
-    elif len(idxs):
+    elif len(idxs) or len(self_idx):
         dev_rep, dev_tgt, dev_diag, dev_rev = hits.dev
         device = dev_rep.device
         rows = flat_rows(db, device)
@@ -430,15 +438,18 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
         sub = torch.from_numpy(mat.sub.astype(np.int32)).to(device)
         didx = torch.from_numpy(
             np.searchsorted(hits.hit_slots, idxs)).to(device)
-        q = dlut[dev_rep[didx].long()].to(torch.int32)
-        t = dlut[dev_tgt[didx].long()].to(torch.int32)
-        d = dev_diag[didx].contiguous()
+        # the matcher's hits, then the self rows
+        srow = torch.from_numpy(qrow[self_idx]).to(device)
+        q = torch.cat([dlut[dev_rep[didx].long()].to(torch.int32), srow])
+        t = torch.cat([dlut[dev_tgt[didx].long()].to(torch.int32), srow])
+        d = torch.cat([dev_diag[didx], torch.zeros_like(srow)])
         rev_kw = {}
         if is_nucl:
             # reverse hits: the query is read back to front through the
             # complement (mat.reverse), its chars from the codes (num2aa)
             rev_kw = dict(
-                qrev=dev_rev[didx].contiguous(),
+                qrev=torch.cat([dev_rev[didx],
+                                torch.zeros_like(srow, dtype=torch.bool)]),
                 comp=torch.from_numpy(mat.reverse.astype(np.int32)).to(device),
                 code2char=torch.from_numpy(
                     mat.num2aa.astype(np.uint8)).to(device))
@@ -447,19 +458,22 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
         else:
             if is_nucl:
                 rev_kw["uniform"] = uniform_pattern(mat.sub)
-            sc, f, la, idn = rescore_e2e(*rows, q, t, d, sub, **rev_kw)
-        score[idxs] = sc.cpu().numpy()
-        first[idxs] = f.cpu().numpy()
-        last[idxs] = la.cpu().numpy()
-        idents[idxs] = idn.cpu().numpy()
-    if len(idxs):
-        # the overlap is host-derivable from the lengths and the diagonal
-        qlen = lengths[qrow[idxs]].astype(np.int64)
-        tlen = lengths[trow[idxs]].astype(np.int64)
-        di = dist[idxs]
-        ov_h = np.where(dg[idxs] >= 0, np.minimum(tlen, qlen - di),
-                        np.minimum(tlen - di, qlen))
-        ov[idxs] = np.maximum(ov_h, 0)
+            rescore = rescore_align if align else rescore_e2e
+            sc, f, la, idn = rescore(*rows, q, t, d, sub, **rev_kw)
+        at = np.concatenate([idxs, self_idx])
+        score[at] = sc.cpu().numpy()
+        first[at] = f.cpu().numpy()
+        last[at] = la.cpu().numpy()
+        idents[at] = idn.cpu().numpy()
+    # the overlap is host-derivable from the lengths and the diagonal
+    qlen = lengths[qrow].astype(np.int64)
+    tlen = lengths[trow].astype(np.int64)
+    ov = np.maximum(np.where(dg >= 0, np.minimum(tlen, qlen - dist),
+                             np.minimum(tlen - dist, qlen)), 0).astype(np.int32)
+    if align:
+        # the host's ungapped_best keeps a diagonal only for a score above
+        # 0 and skips the hit otherwise (its diagonal length stays 0)
+        ov[score == 0] = 0
     rec, keep = _rescore_finish(params, evaluer, tk, dg, m, lengths, qrow,
                                 trow, qrev, score, first, last, ov, dist,
                                 idents)

@@ -40,9 +40,21 @@ the count of identical raw chars over the overlap window (no case
 folding; a reverse hit's query chars from code2char as above) as score
 and idents, first = last = -1. It takes no matrix.
 
+`rescore_align(...)`, on rescore_e2e's operands, is the ALIGNMENT
+rescore of --rescore-mode 2 (kernel B12; the JAX package computes it on
+the host only, ops/rescore.py:ungapped_by_diagonal, mode 2): the best
+local ungapped segment of each window, scored through the matrix on every
+residue ('*' included). With c[p] the running sum of the window's scores
+and c[-1] = 0, score = max over p of c[p] - min c[-1..p], the minimum at
+its latest index on ties; last = the first p that reaches the maximum,
+first = that p's minimum index + 1, and idents counts the case-folded
+equal chars over [first, last]. A window with no positive score gives (0,
+0, 0, 0), one with no overlap (0, -1, -1, 0).
+
 On a CUDA tensor each call launches the CUDA kernel (csrc/rescore.cu) or
-raises; on a CPU tensor it runs `rescore_e2e_plain` or
-`rescore_hamming_plain`, the oracles of the kernel's variants.
+raises; on a CPU tensor it runs `rescore_e2e_plain`,
+`rescore_hamming_plain` or `rescore_align_plain`, the oracles of the
+kernel's variants.
 """
 import numpy as np
 import torch
@@ -55,12 +67,15 @@ FOLD = ~0x20 & 0xFF
 # launches of the CUDA kernel in this process, one per call on a CUDA
 # tensor, by variant: END_TO_END forward-only with the matrix (protein),
 # with reverse hits, and with reverse hits and the uniform matrix
-# (nucleotide); HAMMING forward-only and with reverse hits
+# (nucleotide); HAMMING forward-only and with reverse hits; ALIGNMENT
+# forward-only and with reverse hits (either matrix form)
 LAUNCHES = 0
 LAUNCHES_REV = 0
 LAUNCHES_REV_UNIFORM = 0
 LAUNCHES_HAMMING = 0
 LAUNCHES_HAMMING_REV = 0
+LAUNCHES_ALIGN = 0
+LAUNCHES_ALIGN_REV = 0
 
 
 def uniform_pattern(sub):
@@ -184,6 +199,51 @@ def rescore_hamming_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
     return idents, ends, ends.clone(), idents.clone()
 
 
+def rescore_align_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
+                        sub, qrev=None, comp=None, code2char=None,
+                        uniform=None, budget=1 << 24):
+    """Plain PyTorch version of the ALIGNMENT rescore (the JAX package's
+    ops/rescore.py:ungapped_by_diagonal, mode 2, per hit) as [hits, window]
+    gathers from the flat rows, in chunks of at most `budget` window cells:
+    a cumulative sum and a running minimum at its latest index. It scores
+    through `sub` for both matrix variants (`uniform` only picks the
+    kernel's variant)."""
+    _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub, qrev,
+           comp, code2char, uniform)
+    h = qrow.numel()
+    outs = [torch.empty(h, dtype=torch.int32, device=rows.device)
+            for _ in range(4)]
+    if h == 0:
+        return tuple(outs)
+    alpha = sub.shape[0]
+    sub_flat = sub.reshape(-1).to(torch.int64)
+    for lo, hi, ov, j, qch, tch, qc, tc in _windows(
+            rows, offsets, lengths, code_lut, qrow, trow, diag, qrev, comp,
+            code2char, budget):
+        width = j.numel()
+        inside = j < ov[:, None]
+        c = torch.where(inside, sub_flat[qc * alpha + tc], 0).cumsum(1)
+        # the running minimum of c[0..p] at its latest index: the minimum
+        # of c * width + (width - 1 - j) orders by c, then by later j
+        key = torch.cummin(c * width + (width - 1 - j), dim=1).values
+        run_min = torch.div(key, width, rounding_mode="floor")
+        run_at = width - 1 - (key - run_min * width)
+        # c[-1] = 0 at index -1 takes part; a tie at 0 goes to the later j
+        min_at = torch.where(run_min <= 0, run_at, -1)
+        run = torch.where(inside, c - run_min.clamp(max=0), -1)
+        best = run.max(dim=1).values.clamp(min=0)
+        end = torch.where(run == best[:, None], j, width).min(dim=1).values
+        start = min_at.gather(1, end.clamp(max=width - 1)[:, None])[:, 0] + 1
+        found = best > 0
+        start = torch.where(found, start, torch.where(ov > 0, 0, -1))
+        end = torch.where(found, end, torch.where(ov > 0, 0, -1))
+        in_seg = found[:, None] & (j >= start[:, None]) & (j <= end[:, None])
+        idents = (((qch & FOLD) == (tch & FOLD)) & in_seg).sum(dim=1)
+        for out, val in zip(outs, (best, start, end, idents)):
+            out[lo:hi] = val
+    return tuple(outs)
+
+
 def _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
            qrev=None, comp=None, code2char=None, uniform=None):
     if rows.dtype != torch.uint8 or rows.dim() != 1:
@@ -225,6 +285,41 @@ def _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
     return tensors
 
 
+def _launch(name, rows, offsets, lengths, code_lut, qrow, trow, diag,
+            tensors, middle):
+    """Launch the entry `name` of the rescore library on the flat rows and
+    hits, with `middle` (the variant's operands between diag and h, as
+    ctypes takes them): returns the four outputs."""
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if rows.data_ptr() % 4:
+        raise ValueError(f"{name}: rows must be 4-byte aligned")
+    h = qrow.numel()
+    dev = rows.device
+    outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
+    # the kernel's queue of long-window hits: a count, then up to h indices
+    queue = torch.empty(h + 1, dtype=torch.int32, device=dev)
+    lib = build.load("rescore")
+    with torch.cuda.device(dev):
+        rc = getattr(lib, name)(
+            build.ptr(rows), rows.numel(), build.ptr(offsets),
+            build.ptr(lengths), build.ptr(code_lut), build.ptr(qrow),
+            build.ptr(trow), build.ptr(diag), *middle, h,
+            *[build.ptr(o) for o in outs], build.ptr(queue),
+            build.stream_of(dev))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed (CUDA error {rc})")
+    return tuple(outs)
+
+
+def _rev_middle(qrev, sub, comp, code2char, uniform):
+    """rescore_e2e_rev's and rescore_align's operands between diag and h."""
+    match, mismatch = uniform if uniform is not None else (0, 0)
+    return (build.ptr(qrev), build.ptr(sub), build.ptr(comp),
+            build.ptr(code2char), sub.shape[0], int(uniform is not None),
+            match, mismatch)
+
+
 def rescore_e2e(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
                 qrev=None, comp=None, code2char=None, uniform=None):
     """END_TO_END rescore; see the module docstring."""
@@ -235,43 +330,24 @@ def rescore_e2e(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
         raise ValueError(f"rescore_e2e: unsupported device {rows.device}")
     tensors = _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
                      qrev, comp, code2char, uniform)
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("rescore_e2e: tensors must be contiguous")
-    if rows.data_ptr() % 4:
-        raise ValueError("rescore_e2e: rows must be 4-byte aligned")
     global LAUNCHES, LAUNCHES_REV, LAUNCHES_REV_UNIFORM
-    h = qrow.numel()
-    dev = rows.device
-    outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
-    # the kernel's queue of long-window hits: a count, then up to h indices
-    queue = torch.empty(h + 1, dtype=torch.int32, device=dev)
-    lib = build.load("rescore")
-    with torch.cuda.device(dev):
-        head = (build.ptr(rows), rows.numel(), build.ptr(offsets),
-                build.ptr(lengths), build.ptr(code_lut), build.ptr(qrow),
-                build.ptr(trow), build.ptr(diag))
-        tail = (h, *[build.ptr(o) for o in outs], build.ptr(queue),
-                build.stream_of(dev))
-        if qrev is None:
-            rc = lib.rescore_e2e(*head, build.ptr(sub), sub.shape[0], *tail)
-        else:
-            match, mismatch = uniform if uniform is not None else (0, 0)
-            rc = lib.rescore_e2e_rev(
-                *head, build.ptr(qrev), build.ptr(sub), build.ptr(comp),
-                build.ptr(code2char), sub.shape[0], int(uniform is not None),
-                match, mismatch, *tail)
-    if rc != 0:
-        raise RuntimeError(f"rescore_e2e kernel launch failed "
-                           f"(CUDA error {rc})")
-    if h == 0:
-        return tuple(outs)
+    if qrev is None:
+        outs = _launch("rescore_e2e", rows, offsets, lengths, code_lut, qrow,
+                       trow, diag, tensors,
+                       (build.ptr(sub), sub.shape[0]))
+    else:
+        outs = _launch("rescore_e2e_rev", rows, offsets, lengths, code_lut,
+                       qrow, trow, diag, tensors, _rev_middle(
+                           qrev, sub, comp, code2char, uniform))
+    if qrow.numel() == 0:
+        return outs
     if qrev is None:
         LAUNCHES += 1
     elif uniform is None:
         LAUNCHES_REV += 1
     else:
         LAUNCHES_REV_UNIFORM += 1
-    return tuple(outs)
+    return outs
 
 
 def rescore_hamming(rows, offsets, lengths, code_lut, qrow, trow, diag,
@@ -284,34 +360,41 @@ def rescore_hamming(rows, offsets, lengths, code_lut, qrow, trow, diag,
         raise ValueError(f"rescore_hamming: unsupported device {rows.device}")
     tensors = _check(rows, offsets, lengths, code_lut, qrow, trow, diag,
                      None, qrev, comp, code2char)
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("rescore_hamming: tensors must be contiguous")
-    if rows.data_ptr() % 4:
-        raise ValueError("rescore_hamming: rows must be 4-byte aligned")
     global LAUNCHES_HAMMING, LAUNCHES_HAMMING_REV
-    h = qrow.numel()
-    dev = rows.device
-    outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
-    queue = torch.empty(h + 1, dtype=torch.int32, device=dev)
     # the alphabet bounds the codes the kernel's tables take (comp's size
     # on reverse hits; forward hits read no code)
     alpha = comp.numel() if comp is not None else 32
-    lib = build.load("rescore")
-    with torch.cuda.device(dev):
-        rc = lib.rescore_hamming(
-            build.ptr(rows), rows.numel(), build.ptr(offsets),
-            build.ptr(lengths), build.ptr(code_lut), build.ptr(qrow),
-            build.ptr(trow), build.ptr(diag), build.ptr(qrev),
-            build.ptr(comp), build.ptr(code2char), alpha, h,
-            *[build.ptr(o) for o in outs], build.ptr(queue),
-            build.stream_of(dev))
-    if rc != 0:
-        raise RuntimeError(f"rescore_hamming kernel launch failed "
-                           f"(CUDA error {rc})")
-    if h == 0:
-        return tuple(outs)
+    outs = _launch("rescore_hamming", rows, offsets, lengths, code_lut, qrow,
+                   trow, diag, tensors, (build.ptr(qrev), build.ptr(comp),
+                                         build.ptr(code2char), alpha))
+    if qrow.numel() == 0:
+        return outs
     if qrev is None:
         LAUNCHES_HAMMING += 1
     else:
         LAUNCHES_HAMMING_REV += 1
-    return tuple(outs)
+    return outs
+
+
+def rescore_align(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
+                  qrev=None, comp=None, code2char=None, uniform=None):
+    """ALIGNMENT rescore (B12); see the module docstring."""
+    if rows.device.type == "cpu":
+        return rescore_align_plain(rows, offsets, lengths, code_lut, qrow,
+                                   trow, diag, sub, qrev, comp, code2char,
+                                   uniform)
+    if rows.device.type != "cuda":
+        raise ValueError(f"rescore_align: unsupported device {rows.device}")
+    tensors = _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
+                     qrev, comp, code2char, uniform)
+    global LAUNCHES_ALIGN, LAUNCHES_ALIGN_REV
+    outs = _launch("rescore_align", rows, offsets, lengths, code_lut, qrow,
+                   trow, diag, tensors, _rev_middle(
+                       qrev, sub, comp, code2char, uniform))
+    if qrow.numel() == 0:
+        return outs
+    if qrev is None:
+        LAUNCHES_ALIGN += 1
+    else:
+        LAUNCHES_ALIGN_REV += 1
+    return outs

@@ -33,7 +33,7 @@ def pick_device(name="cuda"):
 BACKENDS = ("auto", "numpy", "jax", "sharded")
 
 
-def resolve_backend(requested, device):
+def resolve_backend(requested, device, rescore_mode=None):
     """"sharded" (the matcher across the process group's ranks) or
     "single" (the single-device matcher) for --backend `requested`, this
     rank's device being `device`. sharded and auto first join the group the
@@ -41,15 +41,31 @@ def resolve_backend(requested, device):
     without one runs in a group of this process alone, as on a one-device
     mesh. sharded is sharded; auto is sharded when the group has more than
     one rank; numpy and jax, the JAX package's host and single-device
-    paths, are the single-device path."""
+    paths, are the single-device path.
+
+    The sharded path takes no --rescore-mode 2 (ALIGNMENT): its ranks
+    rescore their hits at END_TO_END, and the JAX package's sharded path,
+    which rescores only modes 0 and 3 on the device, fails on it. With
+    `rescore_mode` 2, sharded raises before the group is joined, and auto
+    as soon as it resolves to sharded."""
+    from ..ops.rescore import RESCORE_ALIGNMENT
     from ..parallel import distributed
     if requested not in BACKENDS:
         raise ValueError(f"--backend must be one of {', '.join(BACKENDS)}; "
                          f"got {requested!r}")
+    refuse = rescore_mode == RESCORE_ALIGNMENT
+    message = ("--backend sharded does not take --rescore-mode 2 "
+               "(ALIGNMENT); use --backend numpy or jax, the single-device "
+               "path")
+    if requested == "sharded" and refuse:
+        raise ValueError(message)
     if requested in ("auto", "sharded"):
         multi = distributed.maybe_initialize(
             device, one_rank=requested == "sharded")
         if requested == "sharded" or multi:
+            if refuse:
+                raise ValueError(message + " (auto chose sharded: the "
+                                 "process group has several ranks)")
             return "sharded"
     return "single"
 

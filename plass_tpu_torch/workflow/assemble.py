@@ -93,7 +93,7 @@ def run_assemble(input_files, out_fasta, tmp_base, params=None, stats=None):
     its gather ("gather")."""
     p = params or AssembleParams()
     device = rank_device(p.device)
-    backend = resolve_backend(p.backend, device)
+    backend = resolve_backend(p.backend, device, p.rescore_mode)
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
 

@@ -74,7 +74,7 @@ def run_nuclassemble(input_files, out_file, tmp_base, params=None,
     sharded path "exchange_bytes" and "exchange_seconds" (run_assemble)."""
     p = params or NuclAssembleParams()
     device = rank_device(p.device)
-    backend = resolve_backend(p.backend, device)
+    backend = resolve_backend(p.backend, device, p.rescore_mode)
     stats = {} if stats is None else stats
     seconds = stats.setdefault("seconds", {})
 

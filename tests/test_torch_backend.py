@@ -178,9 +178,9 @@ def test_rescore_takes_only_device_hits():
     pdb = PortSeqDB(db.data, db.keys, db.offsets, db.lengths, db.dbtype)
     with pytest.raises(TypeError):
         rescore_diagonal_torch(pdb, {int(k): [] for k in db.keys})
-    # HAMMING (0) and END_TO_END (3) are ported; modes 1 and 2 raise, as on
-    # the JAX package's device path
-    for mode in (1, 2):
+    # HAMMING (0), ALIGNMENT (2) and END_TO_END (3) are ported; modes 1
+    # and 4 raise, as the JAX package fails on both
+    for mode in (1, 4):
         with pytest.raises(NotImplementedError):
             rescore_diagonal_torch(pdb, None,
                                    PortRescoreParams(rescore_mode=mode))

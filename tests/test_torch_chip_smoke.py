@@ -126,6 +126,19 @@ def test_cpu_rehearsal_runs_every_phase():
                 "`penguin guided_nuclassemble --backend sharded`",
                 "[sharded] a failing rank (rank 1's input missing): exit "
                 "codes [1, 1]", "[sharded] waited",
+                "[align] plass assemble --rescore-mode 2: ",
+                "[align] penguin nuclassemble --rescore-mode 2 "
+                "--min-contig-len 150: ", "byte-identical to the run with "
+                "--device cpu and to tests/fixtures/mini_golden_nucl.fasta",
+                "[align] the protein edge rows hold ",
+                "windows that begin and end with '*'",
+                "[align] rescore_align on ", "[align] rescore_align_rev "
+                "(generic matrix) on ", "[align] rescore_align_rev (uniform "
+                "matrix) on ", "windows with no positive score",
+                "[align-scale] `plass assemble --rescore-mode 2` of 2048 "
+                "reads", "[align-scale] seconds per stage: ingest",
+                "[align-scale] launches: seg_scan 0", "phase 4's assembly at "
+                "--rescore-mode 3",
                 "[done] all phases in", "[rehearsal]"):
         assert tag in out, out
     assert '"ok"' not in out
@@ -327,7 +340,8 @@ def test_kernels_line_counts_the_linsearch_rbh_and_multihit_paths():
     assert b9["launches"] == 6
     seg = next(k for k in kernels if k["name"] == "seg_scan")
     assert seg["launches_by_path"]["rbh"] == 0
-    assert set(chip_smoke.SIDE_TAGS) == {"profile-aa", "slice", "sharded"}
+    assert set(chip_smoke.SIDE_TAGS) == {"profile-aa", "slice", "sharded",
+                                         "align-scale"}
     assert chip_smoke.RBH_RECORDS == 1200
     assert (chip_smoke.MULTIHIT_SETS, chip_smoke.MULTIHIT_EVERY,
             chip_smoke.MULTIHIT_QUERY_FILES) == (8, 13, 2)
@@ -377,11 +391,14 @@ def test_kernels_line_counts_the_taxonomy_path_and_the_side_pairs():
 def test_family_fasta_names_each_records_family(tmp_path):
     """family_fasta's optional out-list leaves the FASTA's bytes as they
     are and gives each record's family: a family's records follow its root
-    in f<i> order, the roots numbered 0, 1, ..."""
+    in f<i> order, the roots numbered 0, 1, ...; the process's cached
+    matrix keeps its background frequencies."""
+    from plass_tpu_torch import constants
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
+    pback = constants.blosum62().pback.copy()
     families = []
     n = chip_smoke.family_fasta(str(tmp_path / "a.fasta"), 40,
                                 families=families)
@@ -390,6 +407,7 @@ def test_family_fasta_names_each_records_family(tmp_path):
         (tmp_path / "b.fasta").read_bytes()
     assert len(families) == n and families == sorted(families)
     assert set(families) == set(range(40)) and n > 80
+    assert (constants.blosum62().pback == pback).all()
 
 
 def test_kernels_line_counts_the_sharded_path():
@@ -421,3 +439,43 @@ def test_kernels_line_counts_the_sharded_path():
     assert "sharded" not in chip_smoke.SCALE_RUNS
     assert len(chip_smoke.SHARDED_SHA256) == 64
     assert chip_smoke.SIDE_TAGS["sharded"] == ("[sharded]",)
+
+
+def test_kernels_line_counts_the_alignment_rescore():
+    """B12's two forms (rescore_align, rescore_align_rev) are entries of
+    their own, replacing the JAX package's host loop of mode 2, with their
+    launches on the fixture runs at --rescore-mode 2 and on protein x400
+    at mode 2 as paths of their own; --cpu-reference takes "align"."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    m = {"max_abs_err": 0, "ms": 0.05, "plain_ms": 3.0, "bound_ms": 0.01,
+         "bound_by": "bytes", "bytes": 1000}
+    launches = {"assemble": {"seg_scan": 78, "rescore_e2e": 13},
+                "rescore_mode_2": {"seg_scan": 126, "rescore_align": 13,
+                                   "rescore_align_rev": 8},
+                "rescore_mode_2_x400": {"seg_scan": 78, "rescore_align": 13}}
+    kernels = chip_smoke.kernels_summary(
+        dict(m, copy_ms=0.06, elements=100), m,
+        {n: m for n in ("rescore_e2e_rev", "rescore_e2e_rev_uniform")},
+        launches, align={n: dict(m, operations=4000)
+                         for n in ("rescore_align", "rescore_align_rev")})
+    line = json.loads(json.dumps({"kernels": kernels}))["kernels"]
+    by_name = {k["name"]: k for k in line}
+    assert list(by_name)[-2:] == ["rescore_align", "rescore_align_rev"]
+    for name in ("rescore_align", "rescore_align_rev"):
+        k = by_name[name]
+        assert KERNEL_KEYS <= set(k) and k["library_ms"] is None
+        assert k["operations"] == 4000
+        assert k["source"] == "plass_tpu_torch/csrc/rescore.cu"
+        ref_file, ref_line = k["replaces"].split(":")
+        text = open(os.path.join(ROOT, ref_file)).read().splitlines()
+        assert "RESCORE_ALIGNMENT" in text[int(ref_line) - 1]
+    assert by_name["rescore_align"]["launches_by_path"] == {
+        "assemble": 0, "rescore_mode_2": 13, "rescore_mode_2_x400": 13}
+    assert by_name["rescore_align_rev"]["launches"] == 8
+    assert by_name["rescore_e2e"]["launches"] == 13
+    assert "align" in chip_smoke.REFERENCE_RUNS
+    assert "align" not in chip_smoke.SCALE_RUNS
+    assert chip_smoke.SIDE_TAGS["align-scale"] == ("[align-scale]",)

@@ -114,7 +114,7 @@ def test_no_path_into_the_jax_package():
                 else:
                     found.append(f"{rel}:{node.lineno}: {node.value!r}")
     assert not found, found
-    assert sites == 4   # chip_smoke.py's kernel table: K1, K2, B9, B10
+    assert sites == 5   # chip_smoke.py's kernel table: K1, K2, B9, B10, B12
 
 
 def test_package_data_ships_the_copies_and_kernels():
