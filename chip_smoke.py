@@ -352,17 +352,18 @@ def copy_ms(n_bytes, reps, device):
     return cuda_ms(lambda: dst.copy_(src), KERNEL_REPS * reps, device, queued=True)
 
 
-def rescore_traffic(args, qrev=None, ops_per_residue=2):
+def rescore_traffic(args, qrev=None, ops_per_residue=2, n_out=4):
     """(bytes, operations, residues) of one rescore call: every operand
-    read once (the matrix where args hold one), the four outputs written
-    once; ops_per_residue operations per window residue of these hits (two
-    for END_TO_END, a score and an identity; one for HAMMING)."""
+    read once (the matrix where args hold one), the n_out int32 outputs
+    written once; ops_per_residue operations per window residue of these
+    hits (two for END_TO_END, a score and an identity; one for
+    HAMMING)."""
     from plass_tpu_torch.ops.rescore_kernel import _overlap
     lengths, qrow, trow, diag = args[2], args[4], args[5], args[6]
     n_bytes = sum(x.numel() * x.element_size() for x in args)
     if qrev is not None:
         n_bytes += qrev.numel()
-    n_bytes += 4 * 4 * qrow.numel()
+    n_bytes += n_out * 4 * qrow.numel()
     residues = int(_overlap(lengths, qrow.long(), trow.long(), diag)[0]
                    .clamp(min=0).sum())
     return n_bytes, ops_per_residue * residues, residues
@@ -2076,16 +2077,14 @@ def search_dbs(work, fasta, device):
     return tpath, qpath
 
 
-def phase_search_aa(device, work, fasta):
-    """`plass search` through the CLI: search_dbs's queries against its
-    target DB, default parameters (-s 5.7, --max-seqs 300), on the device;
-    then the same align stage with --device cpu on the same prefilter DB
-    (the tmp dir's prefilter step is reused, the align step's sentinel
-    removed): the alignment DBs byte for byte equal. Returns (the device
-    run's launches, its recorded align call, the target DB's path, the
-    query DB's path)."""
+def phase_search_aa(device, tpath, qpath):
+    """`plass search` through the CLI: search_dbs's queries (qpath)
+    against its target DB (tpath), default parameters (-s 5.7, --max-seqs
+    300), on the device; then the same align stage with --device cpu on
+    the same prefilter DB (the tmp dir's prefilter step is reused, the
+    align step's sentinel removed): the alignment DBs byte for byte equal.
+    Returns (the device run's launches, its recorded align call)."""
     from plass_tpu_torch.data import seqdb
-    tpath, qpath = search_dbs(work, fasta, device)
     d = os.path.dirname(tpath)
     tdb, qdb = seqdb.SeqDB.open(tpath), seqdb.SeqDB.open(qpath)
     aln, cpu_aln = os.path.join(d, "aln"), os.path.join(d, "aln_cpu")
@@ -2118,7 +2117,7 @@ def phase_search_aa(device, work, fasta):
         f"{peak / 2**30:.2f} GiB")
     if device.type == "cuda" and not launches["sw_score"]:
         raise AssertionError("search-aa: B9 never launched through the CLI")
-    return launches, spied[-1], tpath, qpath
+    return launches, spied[-1]
 
 
 def phase_cluster_aa(device, work, famdb):
@@ -3649,44 +3648,113 @@ def phase_align_scale(device, work, reads, mode3_fasta=None):
     return {"launches": launches, "sha256": digest, "wall": wall}
 
 
-def _check_align(name, args, kw, edge, edge_kw, what, reps, device):
-    """A B12 form against its plain version on real hits and edge rows
-    (exact); timed beside its bound, ALIGN_OPS_PER_RESIDUE int32
-    operations a window residue at the card's integer rate. The edge rows
-    must give segments in windows over LONG_WINDOW (the kernel's
-    long-window pass), windows with no positive score and segments that
-    stop short of either window end."""
+# B12's rows over 32,768 residues (C12): (query length, target length, the
+# hit's diagonal, planted segments as (diagonal, length, offset in the
+# window, segment id)); a segment id's copies are equal, so equal
+# lengths tie
+WIDE_CASES = (
+    # the wrapped diagonal r - 65,536 outscores the hit's own
+    (40000, 40000, 30000, ((30000, 300, 4000, 0), (-35536, 900, 1000, 1))),
+    # a tie, kept by the negative candidate, which is scored first
+    (40000, 40000, 30000, ((30000, 500, 7000, 2), (-35536, 500, 2000, 2))),
+    # a query over 65,536: the positive candidate 65,536 + u16 wins
+    (70000, 5000, 1000, ((1000, 100, 50, 3), (66536, 700, 2000, 4))),
+)
+WIDE_HITS = 6   # hits a pair of WIDE_CASES's rows: its case's, 66,536, random
+
+
+def _wide_edge_rows(device, nucl):
+    """B12's C12 edge rows: WIDE_CASES's pairs of rows, every residue a
+    mismatching pair but the planted segments (random letters), each pair
+    hit on its case's diagonal, on 66,536 and on WIDE_HITS - 2 random ones;
+    nucleotide hits on both strands, the case's own forward. Returns
+    (rows, offsets, lengths, code table, qrow, trow, diag[, qrev])."""
+    import torch
+    from plass_tpu_torch import constants
+
+    rng = np.random.default_rng(13)
+    mat = constants.nucleotide() if nucl else constants.blosum62()
+    letters = np.frombuffer(b"ACGT" if nucl else b"ACDEFGHIKLMNPQRSTVWY",
+                            np.uint8)
+    bq, bt = (b"A", b"C") if nucl else (b"W", b"A")   # -3 in both matrices
+    segs = [letters[rng.integers(0, len(letters), 900)] for _ in range(5)]
+    seqs, q, t, d = [], [], [], []
+    for qlen, tlen, dg, runs in WIDE_CASES:
+        qs = np.full(qlen, ord(bq), np.uint8)
+        ts = np.full(tlen, ord(bt), np.uint8)
+        for rd, n, off, sid in runs:
+            qo, to = (rd, 0) if rd >= 0 else (0, -rd)
+            qs[qo + off:qo + off + n] = segs[sid][:n]
+            ts[to + off:to + off + n] = segs[sid][:n]
+        i = len(seqs)
+        seqs += [qs.tobytes(), ts.tobytes()]
+        diags = [dg, 66536] + list(rng.integers(-tlen + 1, qlen,
+                                                WIDE_HITS - 2))
+        q += [i] * len(diags)
+        t += [i + 1] * len(diags)
+        d += diags
+    rows, offsets, lengths = flat_rows(seqs, device)
+    i32 = lambda x: torch.tensor(np.asarray(x, dtype=np.int32), device=device)
+    out = (rows, offsets, lengths,
+           torch.from_numpy(mat.aa2num.astype(np.uint8)).to(device),
+           i32(q), i32(t), i32(d))
+    if nucl:
+        rv = rng.random(len(q)) < 0.5
+        rv[::WIDE_HITS] = False
+        out += (torch.from_numpy(rv).to(device),)
+    return out
+
+
+def _check_align(name, args, kw, edge, edge_kw, wide, wide_kw, what, reps,
+                 device):
+    """A B12 form against its plain version on real hits, edge rows and
+    C12's rows over 32,768 (exact, all five outputs); timed beside its
+    bound, ALIGN_OPS_PER_RESIDUE int32 operations a window residue at the
+    card's integer rate. The edge rows must give segments in windows over
+    LONG_WINDOW (the kernel's long-window pass), windows with no positive
+    score and segments that stop short of either window end; the wide
+    rows hits won by another diagonal than their own: the wrapped one, a
+    tie kept by it and 65,536 + u16."""
     from plass_tpu_torch.ops.rescore_kernel import (_overlap, rescore_align,
                                                     rescore_align_plain)
     want = rescore_align_plain(*edge, **edge_kw)
+    wide_want = rescore_align_plain(*wide, **wide_kw)
     err = max_abs_err(rescore_align(*args, **kw),
                       rescore_align_plain(*args, **kw))
     e2 = max_abs_err(rescore_align(*edge, **edge_kw), want)
-    if err or e2:
+    e3 = max_abs_err(rescore_align(*wide, **wide_kw), wide_want)
+    if err or e2 or e3:
         raise AssertionError(f"{name}: max |err| {err} on real hits, {e2} "
-                             f"on edge cases")
+                             f"on edge cases, {e3} on rows over 32,768")
     ov = _overlap(edge[2], edge[4].long(), edge[5].long(), edge[6])[0]
     score, first, last = want[:3]
     cases = {"long": int(((ov > LONG_WINDOW) & (score > 0)).sum()),
              "none": int(((ov > 0) & (score == 0)).sum()),
              "inner": int(((first > 0) & (last < ov - 1)).sum())}
-    if not all(cases.values()):
-        raise AssertionError(f"{name}: the edge cases miss a case: {cases}")
+    won = wide_want[4][::WIDE_HITS].tolist()
+    planted = [-35536, -35536, 66536]   # WIDE_CASES's winners
+    cases["wide_won"] = int((wide_want[4] != wide[6]).sum())
+    if not all(cases.values()) or won != planted:
+        raise AssertionError(f"{name}: the edge cases miss a case: {cases}, "
+                             f"wide rows won by {won}, not {planted}")
     ms = cuda_ms(lambda: rescore_align(*args, **kw), KERNEL_REPS * reps,
                  device, queued=True)
     pms = cuda_ms(lambda: rescore_align_plain(*args, **kw), reps, device)
     n_bytes, n_ops, residues = rescore_traffic(args, kw.get("qrev"),
-                                               ALIGN_OPS_PER_RESIDUE)
+                                               ALIGN_OPS_PER_RESIDUE, 5)
     bms, bby = bound(n_bytes, n_ops, int32_ops_per_s(device)[0])
     say(f"[align] {name} on {args[4].numel()} {what} ({residues} window "
-        f"residues) and {edge[4].numel()} edge-case hits ({cases['long']} "
+        f"residues), {edge[4].numel()} edge-case hits ({cases['long']} "
         f"segments in windows over {LONG_WINDOW}, {cases['none']} windows "
         f"with no positive score, {cases['inner']} segments inside their "
-        f"window): equal to the plain version; kernel {ms:.4f} ms, plain "
+        f"window) and {wide[4].numel()} hits on rows over 32,768 "
+        f"({cases['wide_won']} won by another diagonal than their own): "
+        f"equal to the plain version; kernel {ms:.4f} ms, plain "
         f"{pms:.4f} ms, bound {bms:.4f} ms by {bby} ({n_bytes} bytes, "
         f"{n_ops} operations)")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": pms, "bytes": n_bytes,
-            "operations": n_ops, "bound_ms": bms, "bound_by": bby}
+            "operations": n_ops, "bound_ms": bms, "bound_by": bby,
+            "wide_hits": wide[4].numel(), "wide_won": cases["wide_won"]}
 
 
 def phase_align(device, work, protein_db, nucl_db, reps):
@@ -3746,19 +3814,23 @@ def phase_align(device, work, protein_db, nucl_db, reps):
         f"{_check_star_windows(edge, rescore_e2e_plain(*edge))} windows that "
         f"begin and end with '*'")
     out["rescore_align"] = _check_align(
-        "rescore_align", args, {}, edge, {}, "iteration-0 hits of phase 4",
-        reps, device)
+        "rescore_align", args, {}, edge, {},
+        _wide_edge_rows(device, False) + (sub,), {},
+        "iteration-0 hits of phase 4", reps, device)
     db = seqdb.SeqDB.open(nucl_db)
     _, args, rkw, uniform, _ = _nucl_rescore_inputs(db, device)
     edge = _nucl_edge_case_rows(device)
     edge_args, edge_kw = edge[:7] + (args[7],), dict(rkw, qrev=edge[7])
+    wide = _wide_edge_rows(device, True)
+    wide_args, wide_kw = wide[:7] + (args[7],), dict(rkw, qrev=wide[7])
     what = f"iteration-0 hits of phase 7 ({int(rkw['qrev'].sum())} reverse)"
     generic = _check_align("rescore_align_rev (generic matrix)", args, rkw,
-                           edge_args, edge_kw, what, reps, device)
+                           edge_args, edge_kw, wide_args, wide_kw, what, reps,
+                           device)
     out["rescore_align_rev"] = _check_align(
         "rescore_align_rev (uniform matrix)", args,
         dict(rkw, uniform=uniform), edge_args, dict(edge_kw, uniform=uniform),
-        what, reps, device)
+        wide_args, dict(wide_kw, uniform=uniform), what, reps, device)
     out["rescore_align_rev"]["generic_ms"] = generic["ms"]
     return launches, out
 
@@ -4151,7 +4223,9 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None,
         # the JAX package computes mode 2 on the host only
         kernels.append(entry(name, k2_src[0], "plass_tpu/ops/rescore.py:71",
                              align[name],
-                             operations=align[name]["operations"]))
+                             operations=align[name]["operations"],
+                             **{k: align[name][k] for k in (
+                                 "wide_hits", "wide_won") if k in align[name]}))
     return kernels
 
 
@@ -4302,14 +4376,18 @@ def main():
         slaunches = phase_nucl_split(device, work, nrun)
         llaunches, lcalls, fam_fasta = phase_linclust_aa(device, work,
                                                          assembly, rehearsal)
-        salaunches, lcalls["search"], famdb, search_qdb = phase_search_aa(
-            device, work, fam_fasta)
+        famdb, search_qdb = search_dbs(work, fam_fasta, device)
+        # profile-aa, the script's longest path, needs only search-aa's DBs
         profile = start_side("profile-aa", work, famdb, search_qdb,
                              rehearsal)
-        side = start_side("slice", work, famdb, fam_fasta, rehearsal)
-        align_side = start_side("align-scale", work, assembly,
-                                os.path.join(work, "reads.fasta"), rehearsal)
+        side = align_side = None
         try:
+            salaunches, lcalls["search"] = phase_search_aa(device, famdb,
+                                                           search_qdb)
+            side = start_side("slice", work, famdb, fam_fasta, rehearsal)
+            align_side = start_side("align-scale", work, assembly,
+                                    os.path.join(work, "reads.fasta"),
+                                    rehearsal)
             calaunches = phase_cluster_aa(device, work, famdb)
             ealaunches = phase_easy_aa(device, work, fam_fasta)
             sw = phase_sw_main(device, lcalls, rehearsal)
@@ -4325,9 +4403,9 @@ def main():
             slice_result = finish_side(*side, SLICE_TIMEOUT)
             plaunches = finish_side(*profile, PROFILE_TIMEOUT)["launches"]
         finally:
-            stop(profile[1])
-            stop(side[1])
-            stop(align_side[1])
+            for started in (profile, side, align_side):
+                if started is not None:
+                    stop(started[1])
     phase_nucl_large(device, rehearsal)
     k1_err = max(k1_err, k1_main_err, k1_nucl_err, k1_guided_err)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_guided_err)

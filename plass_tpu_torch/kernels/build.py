@@ -40,7 +40,8 @@ SIGNATURES = {
         "rescore_hamming": ([_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _L, _P, _P, _P, _P, _P, _P], _I),
         "rescore_align": ([_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P], _I),
+                           _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P],
+                          _I),
     },
     "sw_score": {
         "sw_score": ([_P] * 12 + [_L, _P, _I, _I, _I, _P, _P, _P, _L, _P],

@@ -1,23 +1,30 @@
 """Times variants of the port's CUDA kernels on one GPU.
 
-    python -m plass_tpu_torch.kernels.tune [k1] [k2] [b9] [rates]
+    python -m plass_tpu_torch.kernels.tune [k1] [k2] [b12] [b10] [b9] [rates]
+    python -m plass_tpu_torch.kernels.tune [floor] [compare PARENT_TREE]
 
 Each variant is the kernel's source with its tuning constants replaced
 (K1: threads per block, 16-byte vectors per thread, resident blocks the
 compiler plans for; K2: lanes per hit, long-window threshold; B9: warps
 per block, the most rows a lane holds, lanes per pair of the shortest
-queries, and the schedule's block-path threshold), built with the flags of
-kernels/build.py into the build directory, held against the plain PyTorch
-version (exact) and timed with CUDA events on seeded data of the main
-paths' sizes: 25,165,824-element scans; 317,648 hits on 100,000 reads of
-150 nt, 426,248 hits on 217,020 ORFs of 20-89 aa, and 681,312 hits on
-100,000 contigs of up to 19,997 nt; B9 on seeded pairs with the length
-profiles of linclust's contigs and families, search's candidates and long
-edge pairs (B9_PROFILES). The sources' own constants are the first variant
-of each list. Prints one line per variant (B9's also with its registers,
-spills and resident warps an SM); needs nvcc and a CUDA device. "rates"
-measures the int32 instructions B9's cell is made of (DPX included), in
-lanes an SM completes a clock. With nothing named, runs all four.
+queries, and the schedule's block-path threshold), built with the flags
+of kernels/build.py into the build directory, held against the plain
+PyTorch version (exact) and timed with CUDA events on seeded data of the
+main paths' sizes: 25,165,824-element scans; 317,648 hits on 100,000
+reads of 150 nt, 426,248 hits on 217,020 ORFs of 20-89 aa, and 681,312
+hits on 100,000 contigs of up to 19,997 nt; B9 on seeded pairs with the
+length profiles of linclust's contigs and families, search's candidates
+and long edge pairs (B9_PROFILES). The sources' own constants are the
+first variant of each list. Prints one line per variant (B9's also with
+its registers, spills and resident warps an SM); needs nvcc and a CUDA
+device. "b12" and "b10" hold this tree's B12 and B10 on the same hits
+(B12 on 50,000 of the contigs' and on rows over 32,768 nt whose best
+diagonal is another than their own) and time them. "rates" measures the
+int32 instructions B9's cell is made of (DPX included), in lanes an SM
+completes a clock. With nothing named, runs them all but "floor", which
+times the rescore kernels (K2, B10, B12) on one hit and on hits without
+a window, and "compare", which times them against those of another
+checkout of the repository, in turns on the same inputs.
 """
 import ctypes
 import os
@@ -81,8 +88,20 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def differs(got, want):
-    return sum(int(not torch.equal(g, w)) for g, w in zip(got, want))
+def differs(got, want, name=None):
+    """The outputs of got that differ from want's; with a name, prints the
+    first differing element of each."""
+    bad = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if torch.equal(g, w):
+            continue
+        bad += 1
+        if name is not None:
+            at = torch.nonzero(g != w)[:, 0]
+            print(f"  {name}: output {i} differs at {at.numel()} of "
+                  f"{g.numel()}, first {int(at[0])}: {int(g[at[0]])} "
+                  f"against {int(w[at[0]])}", flush=True)
+    return bad
 
 
 def build_variants(name, constants_, variants):
@@ -170,6 +189,26 @@ def synthetic_hits(rng, lens, n_hits, mat, letters, max_diag, device):
 
 
 def tune_k2(device, reps):
+    calls = rescore_calls(device)
+    wants = [rescore_e2e_plain(*args, **{k: v for k, v in kw.items()
+                                         if k != "uniform"})
+             for _, args, kw in calls]
+    for v, lib in build_variants("rescore", K2_CONSTANTS, K2_VARIANTS).items():
+        build._LIBS["rescore"] = lib
+        bad, times = 0, []
+        for (name, args, kw), want in zip(calls, wants):
+            run = lambda: rescore_e2e(*args, **kw)
+            bad += differs(run(), want)
+            times.append(f"{name} {cuda_ms(run, reps):.4f}")
+        print(f"K2 lanes per hit {v[0]} long window {v[1]}: {bad} outputs "
+              f"differ; ms: " + ", ".join(times), flush=True)
+    del build._LIBS["rescore"]
+
+
+def rescore_calls(device, contigs=681312):
+    """The rescore's seeded calls: (name, operands, keyword operands) of
+    the nucleotide reads' hits with both matrix forms, the ORFs' protein
+    hits, and `contigs` hits on contigs of up to 19,997 nt."""
     rng = np.random.default_rng(0)
     nucl, prot = constants.nucleotide(), constants.blosum62()
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -185,29 +224,176 @@ def tune_k2(device, reps):
         "orfs": synthetic_hits(
             rng, rng.integers(20, 90, 217020), 426248, prot,
             np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8), 25, device),
-        "contigs": synthetic_hits(rng, late_lens, 681312, nucl, acgt, 400,
+        "contigs": synthetic_hits(rng, late_lens, contigs, nucl, acgt, 400,
                                   device)}
     rev = {k: torch.from_numpy(rng.random(v[4].numel()) < 0.5).to(device)
            for k, v in data.items() if k != "orfs"}
-    calls = [("reads uniform", data["reads"],
-              dict(qrev=rev["reads"], uniform=uni, **rkw)),
-             ("reads generic", data["reads"], dict(qrev=rev["reads"], **rkw)),
-             ("orfs", data["orfs"], {}),
-             ("contigs uniform", data["contigs"],
-              dict(qrev=rev["contigs"], uniform=uni, **rkw))]
-    wants = [rescore_e2e_plain(*args, **{k: v for k, v in kw.items()
-                                         if k != "uniform"})
-             for _, args, kw in calls]
-    for v, lib in build_variants("rescore", K2_CONSTANTS, K2_VARIANTS).items():
+    return [("reads uniform", data["reads"],
+             dict(qrev=rev["reads"], uniform=uni, **rkw)),
+            ("reads generic", data["reads"], dict(qrev=rev["reads"], **rkw)),
+            ("orfs", data["orfs"], {}),
+            ("contigs uniform", data["contigs"],
+             dict(qrev=rev["contigs"], uniform=uni, **rkw))]
+
+
+def wide_rows_call(device):
+    """B12's operands for rows over 32,768 nt: 64 pairs of 40,000 and
+    70,000 by 5,000 nt, each hit on 16 diagonals of both strands, one
+    planted run of equal bases a pair on a diagonal 65,536 from the
+    hit's."""
+    rng = np.random.default_rng(5)
+    nucl = constants.nucleotide()
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    lens = np.array([40000, 40000, 70000, 5000] * 16)
+    rows, offsets, lengths, lut, _, _, _, sub = synthetic_hits(
+        rng, lens, 1, nucl, acgt, 1, device)
+    rows = rows.cpu().numpy()
+    offs = offsets.cpu().numpy()
+    q = np.repeat(np.arange(0, len(lens), 2), 16)
+    t = q + 1
+    d = rng.integers(-39000, 39000, len(q))
+    d[::16] = np.where(lens[q[::16]] == 40000, 30000, 1000)
+    for i in range(0, len(lens), 2):   # q[0:2000] = t[35536:37536]
+        if lens[i] == 40000:
+            rows[offs[i]:offs[i] + 2000] = rows[offs[i + 1] + 35536:
+                                                offs[i + 1] + 37536]
+        else:                          # q[66536:69000] = t[0:2464]
+            rows[offs[i] + 66536:offs[i] + 69000] = rows[offs[i + 1]:
+                                                         offs[i + 1] + 2464]
+    i32 = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(device)
+    rkw = dict(qrev=torch.from_numpy(rng.random(len(q)) < 0.5).to(device),
+               comp=torch.from_numpy(nucl.reverse.astype(np.int32)).to(device),
+               code2char=torch.from_numpy(nucl.num2aa.astype(np.uint8))
+               .to(device), uniform=uniform_pattern(nucl.sub))
+    return ((torch.from_numpy(rows).to(device), offsets, lengths, lut,
+             i32(q), i32(t), i32(d), sub), rkw)
+
+
+def check_b12(device, reps):
+    """B12 against its plain version on rescore_calls' inputs and on rows
+    over 32,768 nt, and its times there."""
+    from ..ops.rescore_kernel import rescore_align, rescore_align_plain
+    calls = rescore_calls(device, contigs=50000)
+    calls.append(("wide rows", *wide_rows_call(device)))
+    bad, times = 0, []
+    for name, args, kw in calls:
+        want = rescore_align_plain(*args, **kw)
+        run = lambda: rescore_align(*args, **kw)
+        bad += differs(run(), want, name)
+        times.append(f"{name} {cuda_ms(run, reps):.4f}")
+    won = int((want[4] != args[6]).sum())
+    print(f"B12: {bad} outputs differ ({won} wide-row hits won by another "
+          f"diagonal); ms: " + ", ".join(times), flush=True)
+
+
+def check_b10(device, reps):
+    """B10 against its plain version on rescore_calls' inputs, and its
+    times there."""
+    from ..ops.rescore_kernel import rescore_hamming, rescore_hamming_plain
+    bad, times = 0, []
+    for name, args, kw in rescore_calls(device):
+        if name == "reads generic":
+            continue
+        kw = {k: v for k, v in kw.items() if k != "uniform"}
+        run = lambda: rescore_hamming(*args[:7], **kw)
+        bad += differs(run(), rescore_hamming_plain(*args[:7], **kw), name)
+        times.append(f"{name} {cuda_ms(run, reps):.4f}")
+    print(f"B10: {bad} outputs differ; ms: " + ", ".join(times), flush=True)
+
+
+def rescore_entries(calls, parent=False):
+    """{(kernel, input): launch} for the rescore library that
+    build._LIBS["rescore"] holds: K2's three forms, B10's two and B12's
+    three on rescore_calls' reads and ORFs; parent: the library is the
+    parent tree's, whose B10 and B12 take K2's queue and whose
+    rescore_align writes four outputs."""
+    from ..ops import rescore_kernel as rk
+    by = {name: (args, kw) for name, args, kw in calls}
+    out = {}
+    for kernel, entry, name, form in (
+            ("K2", "rescore_e2e", "orfs", None),
+            ("K2-rev", "rescore_e2e_rev", "reads generic", "rev"),
+            ("K2-fast", "rescore_e2e_rev", "reads uniform", "rev"),
+            ("B10", "rescore_hamming", "orfs", "ham"),
+            ("B10-rev", "rescore_hamming", "reads uniform", "ham"),
+            ("B12", "rescore_align", "orfs", "rev"),
+            ("B12-rev", "rescore_align", "reads generic", "rev"),
+            ("B12-fast", "rescore_align", "reads uniform", "rev")):
+        args, kw = by[name]
+        qrev, comp, code2char = (kw.get(k) for k in ("qrev", "comp",
+                                                     "code2char"))
+        sub = args[7]
+        tensors = [x for x in (*args, qrev, comp, code2char)
+                   if x is not None]
+        if form is None:
+            middle = (build.ptr(sub), sub.shape[0])
+        elif form == "ham":
+            middle = (build.ptr(qrev), build.ptr(comp), build.ptr(code2char),
+                      comp.numel() if comp is not None else 32)
+        else:
+            middle = rk._rev_middle(qrev, sub, comp, code2char,
+                                    kw.get("uniform"))
+        n_out = 5 if entry == "rescore_align" and not parent else 4
+        out[kernel, name] = (lambda e=entry, a=args, t=tensors, m=middle,
+                             n=n_out: rk._launch(e, *a[:7], t, m, n))
+    return out
+
+
+def floors(device, reps):
+    """K2's, B10's and B12's forms on rescore_calls' ORF and read hits, on
+    one hit, and on all hits moved off their rows (no window: the launch
+    and the hit -> row chain alone)."""
+    calls = rescore_calls(device, contigs=100)
+    variants = {"all": calls,
+                "one hit": [(n, (*a[:4], *(x[:1] for x in a[4:7]), a[7]),
+                             {k: v[:1] if k == "qrev" else v
+                              for k, v in kw.items()})
+                            for n, a, kw in calls],
+                "no window": [(n, (*a[:6], torch.full_like(a[6], 1 << 30),
+                                   a[7]), kw) for n, a, kw in calls]}
+    for what, cs in variants.items():
+        entries = rescore_entries(cs)
+        print(f"floor ({what}): " + ", ".join(
+            f"{k} on {n} {cuda_ms(run, reps):.4f}"
+            for (k, n), run in entries.items()) + " ms", flush=True)
+
+
+def compare(device, parent, reps, rounds=2):
+    """K2's, B10's and B12's forms of this tree against those of the tree
+    at `parent` (its plass_tpu_torch/csrc/rescore.cu, whose rescore_align
+    writes four outputs), on rescore_calls' inputs, in turns: parent,
+    this, this, parent, `rounds` times; prints each kernel's times."""
+    src = os.path.join(parent, "plass_tpu_torch", "csrc", "rescore.cu")
+    out_dir = os.path.join(BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "rescore_parent.so")
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, src, "-o", so],
+                   check=True, capture_output=True)
+    libs = {"parent": ctypes.CDLL(so), "this": build.load("rescore")}
+    for fn, (argtypes, restype) in build.SIGNATURES["rescore"].items():
+        if fn == "rescore_align":   # the parent's has no diag_out
+            argtypes = argtypes[:-1]
+        getattr(libs["parent"], fn).argtypes = argtypes
+        getattr(libs["parent"], fn).restype = restype
+    calls = rescore_calls(device)
+    entries = {}
+    for who, lib in libs.items():
         build._LIBS["rescore"] = lib
-        bad, times = 0, []
-        for (name, args, kw), want in zip(calls, wants):
-            run = lambda: rescore_e2e(*args, **kw)
-            bad += differs(run(), want)
-            times.append(f"{name} {cuda_ms(run, reps):.4f}")
-        print(f"K2 lanes per hit {v[0]} long window {v[1]}: {bad} outputs "
-              f"differ; ms: " + ", ".join(times), flush=True)
-    del build._LIBS["rescore"]
+        entries[who] = rescore_entries(calls, parent=who == "parent")
+    times = {key: {"parent": [], "this": []} for key in entries["this"]}
+    for _ in range(rounds):
+        for who in ("parent", "this", "this", "parent"):
+            build._LIBS["rescore"] = libs[who]
+            for key, run in entries[who].items():
+                times[key][who].append(cuda_ms(run, reps))
+    build._LIBS["rescore"] = libs["this"]
+    for (kernel, name), t in times.items():
+        p, c = np.median(t["parent"]), np.median(t["this"])
+        print(f"compare {kernel} on {name}: parent "
+              + " ".join(f"{x:.4f}" for x in t["parent"]) + " ms, this "
+              + " ".join(f"{x:.4f}" for x in t["this"])
+              + f" ms; medians {p:.4f} / {c:.4f} ({100 * (c / p - 1):+.1f}%)",
+              flush=True)
 
 
 def sw_pairs(rng, n_pairs, median, lo_hi, ratio, device, wide_bias=False):
@@ -384,8 +570,11 @@ def int_rates(device):
 
 
 def main(argv=None):
-    which = set(argv if argv is not None else sys.argv[1:]) \
-        or {"k1", "k2", "b9", "rates"}
+    argv = list(argv if argv is not None else sys.argv[1:])
+    # a directory: the tree to compare this one's rescore kernels with
+    parents = [a for a in argv if os.path.isdir(a)]
+    which = set(argv) - set(parents) \
+        or {"k1", "k2", "b12", "b10", "b9", "rates"}
     if not torch.cuda.is_available():
         print("tune: no CUDA device available", file=sys.stderr)
         return 1
@@ -398,6 +587,15 @@ def main(argv=None):
         tune_k1(device, 50)
     if "k2" in which:
         tune_k2(device, 50)
+    if "b12" in which:
+        check_b12(device, 50)
+    if "b10" in which:
+        check_b10(device, 50)
+    if "floor" in which:
+        floors(device, 50)
+    if "compare" in which:
+        for parent in parents:
+            compare(device, parent, 50)
     if "rates" in which:
         rates, body = int_rates(device)
         print("int32 lanes an SM a clock (8 chains a thread, 8 warps a "

@@ -453,14 +453,21 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
                 comp=torch.from_numpy(mat.reverse.astype(np.int32)).to(device),
                 code2char=torch.from_numpy(
                     mat.num2aa.astype(np.uint8)).to(device))
+        won = ()
         if hamming:
             sc, f, la, idn = rescore_hamming(*rows, q, t, d, **rev_kw)
         else:
             if is_nucl:
                 rev_kw["uniform"] = uniform_pattern(mat.sub)
             rescore = rescore_align if align else rescore_e2e
-            sc, f, la, idn = rescore(*rows, q, t, d, sub, **rev_kw)
+            sc, f, la, idn, *won = rescore(*rows, q, t, d, sub, **rev_kw)
         at = np.concatenate([idxs, self_idx])
+        if won:
+            # ALIGNMENT reports the diagonal that won among the hit's
+            # candidates 65,536 apart (rows over 32,768 only)
+            dg = dg.copy()
+            dg[at] = won[0].cpu().numpy()
+            dist = np.abs(dg).astype(np.int64)
         score[at] = sc.cpu().numpy()
         first[at] = f.cpu().numpy()
         last[at] = la.cpu().numpy()

@@ -42,14 +42,19 @@ and idents, first = last = -1. It takes no matrix.
 
 `rescore_align(...)`, on rescore_e2e's operands, is the ALIGNMENT
 rescore of --rescore-mode 2 (kernel B12; the JAX package computes it on
-the host only, ops/rescore.py:ungapped_by_diagonal, mode 2): the best
-local ungapped segment of each window, scored through the matrix on every
-residue ('*' included). With c[p] the running sum of the window's scores
-and c[-1] = 0, score = max over p of c[p] - min c[-1..p], the minimum at
-its latest index on ties; last = the first p that reaches the maximum,
-first = that p's minimum index + 1, and idents counts the case-folded
-equal chars over [first, last]. A window with no positive score gives (0,
-0, 0, 0), one with no overlap (0, -1, -1, 0).
+the host only, ops/rescore.py:ungapped_best with ungapped_by_diagonal,
+mode 2): the best local ungapped segment of each window, scored through
+the matrix on every residue ('*' included). With c[p] the running sum of
+the window's scores and c[-1] = 0, score = max over p of c[p] - min
+c[-1..p], the minimum at its latest index on ties; last = the first p
+that reaches the maximum, first = that p's minimum index + 1, and idents
+counts the case-folded equal chars over [first, last]. A window with no
+positive score gives (0, 0, 0, 0), one with no overlap (0, -1, -1, 0).
+As the host, a hit whose rows have qlen + tlen > WRAP also scores the
+other diagonals WRAP apart that share its low 16 bits (wrap_candidates,
+in the host's order) and keeps the first strictly greater score; a fifth
+output, int32[H], is the winning diagonal (the hit's own where none
+scores above 0, with that diagonal's outputs).
 
 On a CUDA tensor each call launches the CUDA kernel (csrc/rescore.cu) or
 raises; on a CPU tensor it runs `rescore_e2e_plain`,
@@ -199,22 +204,21 @@ def rescore_hamming_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
     return idents, ends, ends.clone(), idents.clone()
 
 
-def rescore_align_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
-                        sub, qrev=None, comp=None, code2char=None,
-                        uniform=None, budget=1 << 24):
-    """Plain PyTorch version of the ALIGNMENT rescore (the JAX package's
-    ops/rescore.py:ungapped_by_diagonal, mode 2, per hit) as [hits, window]
-    gathers from the flat rows, in chunks of at most `budget` window cells:
-    a cumulative sum and a running minimum at its latest index. It scores
-    through `sub` for both matrix variants (`uniform` only picks the
-    kernel's variant)."""
-    _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub, qrev,
-           comp, code2char, uniform)
+# the host's hits keep a diagonal's low 16 bits: its ungapped_best scores
+# every diagonal that many apart from the hit's (plass_tpu's
+# ops/rescore.py:155-176)
+WRAP = 1 << 16
+
+
+def _align_windows(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
+                   qrev, comp, code2char, budget):
+    """(score, first, last, idents) of each hit's own diagonal: the host
+    loop as a cumulative sum and a running minimum at its latest index."""
     h = qrow.numel()
     outs = [torch.empty(h, dtype=torch.int32, device=rows.device)
             for _ in range(4)]
     if h == 0:
-        return tuple(outs)
+        return outs
     alpha = sub.shape[0]
     sub_flat = sub.reshape(-1).to(torch.int64)
     for lo, hi, ov, j, qch, tch, qc, tc in _windows(
@@ -241,6 +245,67 @@ def rescore_align_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
         idents = (((qch & FOLD) == (tch & FOLD)) & in_seg).sum(dim=1)
         for out, val in zip(outs, (best, start, end, idents)):
             out[lo:hi] = val
+    return outs
+
+
+def wrap_candidates(qlen, tlen, diag):
+    """The diagonals the host's ungapped_best scores for a hit, in its
+    order, those that overlap the rows only: -k * WRAP + u16 for k = 1, 2,
+    ..., then k * WRAP + u16 for k = 0, 1, ..., u16 the diagonal's low 16
+    bits. The hit's own diagonal is one of them; it is the only one unless
+    qlen + tlen > WRAP."""
+    u16 = int(diag) & (WRAP - 1)
+    neg = [-k * WRAP + u16 for k in range(1, 2 + tlen // (WRAP // 2))]
+    pos = [k * WRAP + u16 for k in range(0, 1 + qlen // WRAP)]
+    return [c for c in neg if -c < tlen] + [c for c in pos if c < qlen]
+
+
+def rescore_align_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
+                        sub, qrev=None, comp=None, code2char=None,
+                        uniform=None, budget=1 << 24):
+    """Plain PyTorch version of the ALIGNMENT rescore (the JAX package's
+    ops/rescore.py:ungapped_best, mode 2, per hit) as [hits, window]
+    gathers from the flat rows, in chunks of at most `budget` window cells.
+    It scores through `sub` for both matrix variants (`uniform` only picks
+    the kernel's variant). A hit with qlen + tlen > WRAP also scores its
+    other wrap_candidates and keeps the first strictly greater score;
+    returns (score, first, last, idents, diag) with the winning diagonal,
+    the hit's own where no candidate scores above 0."""
+    _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub, qrev,
+           comp, code2char, uniform)
+    outs = _align_windows(rows, offsets, lengths, code_lut, qrow, trow, diag,
+                          sub, qrev, comp, code2char, budget)
+    outs.append(diag.clone())
+    qlen = lengths[qrow.long()].long()
+    tlen = lengths[trow.long()].long()
+    wide = torch.nonzero(qlen + tlen > WRAP)[:, 0].cpu().numpy()
+    if not len(wide):
+        return tuple(outs)
+    ql, tl, dg = (x[wide].cpu().numpy() for x in (qlen, tlen, diag))
+    cands = [wrap_candidates(int(a), int(b), int(d))
+             for a, b, d in zip(ql, tl, dg)]
+    hit = np.repeat(wide, [len(c) for c in cands])
+    cand = np.concatenate(cands).astype(np.int32)
+    dev = rows.device
+    at = torch.from_numpy(hit).to(dev)
+    got = _align_windows(rows, offsets, lengths, code_lut, qrow[at],
+                         trow[at], torch.from_numpy(cand).to(dev), sub,
+                         None if qrev is None else qrev[at], comp, code2char,
+                         budget)
+    score = got[0].cpu().numpy()
+    # per hit, the first candidate with the greatest score, if above 0
+    win, lo = [], 0
+    for c in cands:
+        top = lo + int(np.argmax(score[lo:lo + len(c)]))
+        if score[top] > 0:
+            win.append(top)
+        lo += len(c)
+    win = np.array(win, dtype=np.int64)
+    keep = torch.from_numpy(hit[win]).to(dev)
+    sel = torch.from_numpy(win).to(dev)
+    for out, val in zip(outs, got):
+        out[keep] = val[sel]
+    outs[4][keep] = torch.from_numpy(cand[win]).to(dev)
     return tuple(outs)
 
 
@@ -286,17 +351,18 @@ def _check(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
 
 
 def _launch(name, rows, offsets, lengths, code_lut, qrow, trow, diag,
-            tensors, middle):
+            tensors, middle, n_out=4):
     """Launch the entry `name` of the rescore library on the flat rows and
     hits, with `middle` (the variant's operands between diag and h, as
-    ctypes takes them): returns the four outputs."""
+    ctypes takes them): returns the n_out outputs."""
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
     if rows.data_ptr() % 4:
         raise ValueError(f"{name}: rows must be 4-byte aligned")
     h = qrow.numel()
     dev = rows.device
-    outs = [torch.empty(h, dtype=torch.int32, device=dev) for _ in range(4)]
+    outs = [torch.empty(h, dtype=torch.int32, device=dev)
+            for _ in range(n_out)]
     # the kernel's queue of long-window hits: a count, then up to h indices
     queue = torch.empty(h + 1, dtype=torch.int32, device=dev)
     lib = build.load("rescore")
@@ -390,7 +456,7 @@ def rescore_align(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
     global LAUNCHES_ALIGN, LAUNCHES_ALIGN_REV
     outs = _launch("rescore_align", rows, offsets, lengths, code_lut, qrow,
                    trow, diag, tensors, _rev_middle(
-                       qrev, sub, comp, code2char, uniform))
+                       qrev, sub, comp, code2char, uniform), n_out=5)
     if qrow.numel() == 0:
         return outs
     if qrev is None:

@@ -14,12 +14,14 @@ import os
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from plass_tpu import constants
 from plass_tpu.data import seqdb
 from plass_tpu.ops.evalue import EvalueComputer
 from plass_tpu.ops.rescore import (RescoreParams, rescore_diagonal,
-                                   ungapped_by_diagonal)
+                                   ungapped_best, ungapped_by_diagonal)
 from plass_tpu.workflow.assemble import AssembleParams as JaxParams
 from plass_tpu.workflow.assemble import run_assemble as jax_run_assemble
 from plass_tpu.workflow.nuclassemble import NuclAssembleParams as JaxNuclParams
@@ -138,7 +140,9 @@ def test_align_plain_matches_host_loop(nucl):
     # a small budget: many chunks, each as wide as the longest window
     got = np.stack([x.numpy() for x in rescore_align_plain(
         *args, budget=4096, **kw)], 1)
-    want = _host_align(seqs, q, t, d, rv, mat)
+    # no row passes 32,768: each hit's own diagonal is its only candidate
+    want = np.concatenate([_host_align(seqs, q, t, d, rv, mat), d[:, None]],
+                          1)
     np.testing.assert_array_equal(got, want)
     # the wrapper takes the plain version for CPU tensors
     np.testing.assert_array_equal(
@@ -356,3 +360,296 @@ def test_native_extender_failure_raises(monkeypatch):
     _, pdb = _protein_dbs(n=40)
     with pytest.raises(RuntimeError, match="native extender failed"):
         extend.assemble(pdb, {int(k): [] for k in pdb.keys})
+
+
+# ---------------------------------------------------------------------------
+# Rows over 32,768 residues: the host's ungapped_best scores every diagonal
+# 65,536 apart that shares the hit's 16 low bits (negative ones first, the
+# first strictly greater score wins) and reports the winner's diagonal
+
+NT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _revcomp(seq):
+    mat = constants.nucleotide()
+    return mat.num2aa[mat.reverse[mat.aa2num[seq]]][::-1].copy()
+
+
+def _wrap_rows(rng, qlen, tlen, runs):
+    """A query and a target row of random bases where, for each (diagonal,
+    run length, run offset) of `runs`, the diagonal's window mismatches on
+    every residue but a run of equal bases at the offset: that window's
+    best segment is the run, its score twice the run's length."""
+    q = NT[rng.integers(0, 4, qlen)]
+    t = NT[rng.integers(0, 4, tlen)]
+    taken = np.zeros(qlen, bool)
+    for d, n, off in runs:
+        qo, to = (d, 0) if d >= 0 else (0, -d)
+        ov = min(qlen - qo, tlen - to)
+        assert ov > off + n and not taken[qo:qo + ov].any()
+        taken[qo:qo + ov] = True
+        tw = t[to:to + ov]
+        qw = NT[(np.searchsorted(NT, tw) + 1) % 4]
+        qw[off:off + n] = tw[off:off + n]
+        q[qo:qo + ov] = qw
+    return q, t
+
+
+# (query length, target length, hit diagonal, runs, reverse): the runs'
+# diagonals are the candidates the case plants segments on
+C12_CASES = {
+    # the wrapped diagonal r - 65,536 outscores the hit's own
+    "wrapped": (40000, 40000, 30000, ((30000, 300, 4000),
+                                      (-35536, 900, 1000)), False),
+    # equal scores: the negative candidate, scored first, keeps the tie
+    "tie": (40000, 40000, 30000, ((30000, 500, 7000),
+                                  (-35536, 500, 2000)), False),
+    # the hit's own diagonal wins: a later candidate needs a greater score
+    "own": (40000, 40000, 30000, ((30000, 800, 100),
+                                  (-35536, 799, 3000)), False),
+    # a reverse-strand hit: the planted rows are the query's reverse
+    # complement, as the rescore reads it
+    "reverse": (40000, 40000, 30000, ((30000, 200, 9000),
+                                      (-35536, 400, 10)), True),
+    # a query over 65,536: the positive candidate 65,536 + u16 wins, also
+    # for a hit whose own diagonal is that candidate's twin
+    "long_row": (70000, 5000, 1000, ((1000, 100, 50),
+                                     (66536, 700, 2000)), False),
+}
+
+
+def _c12_hits(nucl_rows, cases):
+    """A nucleotide DB of each case's query and target rows, and the
+    port's KmerHits of one hit a case (self rows included)."""
+    from plass_tpu_torch.ops.backend import _insert_self_hits
+
+    keys = np.arange(len(nucl_rows), dtype=np.uint32)
+    recs = [r.tobytes() for r in nucl_rows]
+    jdb = seqdb.SeqDB.from_records(recs, dbtype=seqdb.NUCLEOTIDES)
+    pdb = port_seqdb.SeqDB.from_records(recs, dbtype=port_seqdb.NUCLEOTIDES)
+    rep, tgt, score, diag = (np.array(x) for x in zip(*cases))
+    hits = _insert_self_hits(pdb, rep.astype(np.uint32),
+                             tgt.astype(np.uint32), score, diag)
+    dev = lambda x, dt: torch.from_numpy(np.asarray(x).astype(dt))
+    hits.dev = (dev(rep, np.int32), dev(tgt, np.int32),
+                dev(diag, np.int32), dev(score < 0, bool))
+    assert np.array_equal(pdb.keys, keys)
+    return jdb, pdb, hits
+
+
+def _c12_inputs(names):
+    rng = np.random.default_rng(23)
+    rows, cases = [], []
+    for name in names:
+        qlen, tlen, d, runs, rv = C12_CASES[name]
+        q, t = _wrap_rows(rng, qlen, tlen, runs)
+        if rv:
+            q = _revcomp(q)
+        cases.append((len(rows), len(rows) + 1, -30 if rv else 30, d))
+        rows += [q, t]
+    # a second hit on "long_row"'s rows whose own diagonal is 66,536
+    if "long_row" in names:
+        i = names.index("long_row")
+        cases.append((2 * i, 2 * i + 1, 30, 66536))
+    return _c12_hits(rows, cases)
+
+
+@pytest.mark.parametrize("name", list(C12_CASES))
+def test_align_long_rows_match_host_rescore(name):
+    """rescore_diagonal_torch at mode 2 on rows over 32,768 residues: the
+    records of plass_tpu's host rescore_diagonal (ungapped_best), field
+    for field; the planted winner is the one reported."""
+    jdb, pdb, hits = _c12_inputs([name])
+    rp = dict(rescore_mode=2, eval_thr=1e-5)
+    ev = EvalueComputer.for_matrix("nucleotide_ungapped",
+                                   jdb.total_residues())
+    want = rescore_diagonal(jdb, _hits_dict(hits), RescoreParams(**rp), ev)
+    got = rescore_diagonal_torch(pdb, hits, PortRescoreParams(**rp))
+    assert got.keys() == want.keys()
+    for key in want:
+        g, w = got[key], want[key]
+        assert len(g) == len(w), key
+        for field in w.dtype.names:
+            if field == "eval":
+                np.testing.assert_allclose(g[field], w[field], rtol=1e-12,
+                                           err_msg=str(key))
+            else:
+                np.testing.assert_array_equal(g[field], w[field],
+                                              err_msg=f"{key} {field}")
+    # the winner: alnLength is the planted run's, and the target start
+    # gives the winning diagonal
+    n, d = {"wrapped": (900, -35536), "tie": (500, -35536),
+            "own": (800, 30000), "reverse": (400, -35536),
+            "long_row": (700, 66536)}[name]
+    runs = C12_CASES[name][3]
+    off = runs[[x[0] for x in runs].index(d)][2]
+    recs = [r for r in got[0] if r["dbKey"] == 1]
+    assert [r["alnLength"] for r in recs] == [n] * len(recs)
+    assert [r["dbStartPos"] for r in recs] == [off + max(-d, 0)] * len(recs)
+    assert len(recs) == (2 if name == "long_row" else 1)
+
+
+def test_align_plain_wrap_candidates_match_ungapped_best():
+    """rescore_align_plain's five outputs on rows over 32,768 against
+    plass_tpu's ungapped_best hit by hit: every C12 case, each on a spread
+    of diagonals, both strands, and rows with no positive window (the
+    port keeps the hit's own diagonal and its (0, 0, 0, 0) or (0, -1, -1,
+    0) there, where the host reports (0, -1, -1) on diagonal 0; the
+    rescore drops those hits either way)."""
+    mat = constants.nucleotide()
+    rng = np.random.default_rng(29)
+    rows = []
+    for name in C12_CASES:
+        qlen, tlen, _, runs, _ = C12_CASES[name]
+        rows += list(_wrap_rows(rng, qlen, tlen, runs))
+    # rows that mismatch on every diagonal of both strands: no candidate
+    # scores above 0
+    rows += [np.full(34000, ord("A"), np.uint8),
+             np.full(34000, ord("C"), np.uint8)]
+    n = len(rows)
+    q = np.repeat(np.arange(0, n, 2), 8)
+    t = q + 1
+    d = rng.integers(-39000, 39000, len(q))
+    d[::8] = [C12_CASES[x][2] for x in C12_CASES] + [0]
+    d[1::8] = 66536
+    rv = rng.random(len(q)) < 0.5
+    rv[::8] = False
+    rows_t, offsets, lengths = _flat(rows)
+    i32 = lambda x: torch.from_numpy(np.asarray(x, dtype=np.int32))
+    got = np.stack([x.numpy() for x in rescore_align_plain(
+        rows_t, offsets, lengths,
+        torch.from_numpy(mat.aa2num.astype(np.uint8)), i32(q), i32(t), i32(d),
+        torch.from_numpy(mat.sub.astype(np.int32)),
+        qrev=torch.from_numpy(rv),
+        comp=torch.from_numpy(mat.reverse.astype(np.int32)),
+        code2char=torch.from_numpy(mat.num2aa.astype(np.uint8)),
+        uniform=uniform_pattern(mat.sub))], 1)
+    won = 0
+    for i in range(len(q)):
+        qs = _revcomp(rows[q[i]]) if rv[i] else rows[q[i]]
+        sc, st, en, dl, dist, dg = ungapped_best(qs, rows[t[i]], int(d[i]),
+                                                 mat.ascii_mat, 2)
+        if sc == 0:
+            assert got[i, 0] == 0 and got[i, 4] == d[i], i
+            continue
+        assert tuple(got[i, [0, 1, 2, 4]]) == (sc, st, en, dg), i
+        won += dg != d[i]
+    assert won >= 5 and (got[:, 0] == 0).sum() >= 8
+
+
+# ---------------------------------------------------------------------------
+# B12's scans and fold (csrc/rescore.cu: align_scan, combine_align,
+# align_short), as Python: summaries of contiguous pieces of a window, each
+# with its identity counts, folded into the host loop's (score, start,
+# end, idents)
+
+NEG_INF = -(1 << 30)
+
+
+def _scan_piece(s, e, lo, hi):
+    """align_scan over [lo, hi): s the window's scores, e its case-folded
+    identities (0/1)."""
+    r = dict(sum=0, isum=0, mn=0, mn_at=lo - 1, imn=0, mx=NEG_INF, mx_at=lo,
+             imx=0, best=0, start=0, end=0, bid=0)
+    score = ic = 0
+    for p in range(lo, hi):
+        ic += e[p]
+        r["sum"] += s[p]
+        if r["sum"] > r["mx"]:
+            r.update(mx=r["sum"], mx_at=p, imx=ic)
+        reset = score + s[p] <= 0
+        score = max(0, score + s[p])
+        if reset:
+            r.update(mn_at=p, imn=ic)
+        if score > r["best"]:
+            r.update(best=score, start=r["mn_at"] + 1, end=p,
+                     bid=ic - r["imn"])
+    r.update(isum=ic, mn=r["sum"] - score)
+    return r
+
+
+def _combine(lt, rt):
+    """combine_align: the summary of lt's piece followed by rt's."""
+    c = dict(sum=lt["sum"] + rt["sum"], isum=lt["isum"] + rt["isum"])
+    if lt["sum"] + rt["mn"] <= lt["mn"]:
+        c.update(mn=lt["sum"] + rt["mn"], mn_at=rt["mn_at"],
+                 imn=lt["isum"] + rt["imn"])
+    else:
+        c.update(mn=lt["mn"], mn_at=lt["mn_at"], imn=lt["imn"])
+    if rt["mx"] != NEG_INF and lt["sum"] + rt["mx"] > lt["mx"]:
+        c.update(mx=lt["sum"] + rt["mx"], mx_at=rt["mx_at"],
+                 imx=lt["isum"] + rt["imx"])
+    else:
+        c.update(mx=lt["mx"], mx_at=lt["mx_at"], imx=lt["imx"])
+    across = (NEG_INF if rt["mx"] == NEG_INF
+              else lt["sum"] + rt["mx"] - lt["mn"])
+    if across > rt["best"] or (across == rt["best"]
+                               and rt["mx_at"] < rt["end"]):
+        seg = (across, lt["mn_at"] + 1, rt["mx_at"],
+               lt["isum"] + rt["imx"] - lt["imn"])
+    else:
+        seg = (rt["best"], rt["start"], rt["end"], rt["bid"])
+    if lt["best"] >= seg[0]:
+        seg = (lt["best"], lt["start"], lt["end"], lt["bid"])
+    c.update(best=seg[0], start=seg[1], end=seg[2], bid=seg[3])
+    return c
+
+
+def _scan_short(s, e, n):
+    """align_short: the first pass's scan of a whole window, positions and
+    identity counts packed as (position << 16) | identities."""
+    score = ic = best = 0
+    at_min = at_start = at_end = 0
+    for p in range(n):
+        ic += e[p]
+        reset = score + s[p] <= 0
+        score = max(0, score + s[p])
+        if reset:
+            at_min = ((p + 1) << 16) + ic
+        if score > best:
+            best, at_start, at_end = score, at_min, (p << 16) + ic
+    return dict(best=best, start=at_start >> 16, end=at_end >> 16,
+                bid=(at_end & 0xFFFF) - (at_start & 0xFFFF))
+
+
+def _tree_fold(parts):
+    """The fold of fold_align: at step o, piece i takes in piece i + o."""
+    parts = list(parts)
+    o = 1
+    while o < len(parts):
+        parts = [_combine(p, parts[i + o]) if i + o < len(parts) else p
+                 for i, p in enumerate(parts)]
+        o *= 2
+    return parts[0]
+
+
+@settings(max_examples=400, deadline=None)
+@given(st.data())
+def test_align_fold_matches_host_loop(data):
+    """For random windows, of an alphabet that makes ties common, split at
+    random points into pieces (some empty): both folds of the pieces'
+    summaries, and the first pass's packed scan of the whole window, give
+    plass_tpu's host loop (ungapped_by_diagonal, mode 2) and the
+    case-folded identities over its segment."""
+    nucl = data.draw(st.booleans())
+    mat = _matrix(nucl)
+    letters = np.frombuffer(b"ACGTNacg" if nucl else b"AWIVawX*", np.uint8)
+    n = data.draw(st.integers(0, 70))
+    draw = lambda: np.array(data.draw(st.lists(
+        st.integers(0, len(letters) - 1), min_size=n, max_size=n)), int)
+    q, t = letters[draw()], letters[draw()]
+    cuts = sorted(data.draw(st.lists(st.integers(0, n), max_size=9)))
+    s = mat.ascii_mat[q, t].astype(int).tolist()
+    e = ((q & 0xDF) == (t & 0xDF)).astype(int).tolist()
+    bounds = [0] + cuts + [n]
+    parts = [_scan_piece(s, e, lo, hi) for lo, hi in zip(bounds, bounds[1:])]
+    sc, st_, en, _, _ = ungapped_by_diagonal(q, t, 0, mat.ascii_mat, 2)
+    want = (sc, st_, en, int(sum(e[st_:en + 1])) if sc > 0 else 0)
+    if n == 0:
+        want = (0, 0, 0, 0)
+    left = parts[0]
+    for p in parts[1:]:
+        left = _combine(left, p)
+    for got in (left, _tree_fold(parts), _scan_piece(s, e, 0, n),
+                _scan_short(s, e, n)):
+        assert (got["best"], got["start"], got["end"], got["bid"]) == want
