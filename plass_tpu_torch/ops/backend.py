@@ -20,6 +20,7 @@ import torch
 
 from .. import constants, native
 from ..data import seqdb
+from ..utils.trace import span
 from . import device_kmer
 from .device_kmer import KmerParams, ksel_capacity
 from .kmermatch import ENTRY_BYTES, estimate_kmer_count, parse_memory_limit
@@ -59,16 +60,17 @@ def flat_rows(db, device, alphabet="score"):
     either side; code_lut maps a byte to its code in `alphabet` ('kmer':
     reduced-13 or nucleotide, 'score': blosum62 or nucleotide)."""
     mat = _matrix(db, alphabet)
-    with warnings.catch_warnings():
-        # a DB opened from disk is a read-only map; it is only read here
-        warnings.filterwarnings("ignore", message=".*not writable.*")
-        rows = torch.from_numpy(np.asarray(db.data))
-    return (rows.to(device),
-            torch.from_numpy(np.ascontiguousarray(
-                db.offsets, dtype=np.int64)).to(device),
-            torch.from_numpy(db.seq_lens().astype(np.int32)).to(device),
-            torch.from_numpy(np.ascontiguousarray(
-                mat.aa2num.astype(np.uint8))).to(device))
+    with span("upload.rows"):
+        with warnings.catch_warnings():
+            # a DB opened from disk is a read-only map; it is only read here
+            warnings.filterwarnings("ignore", message=".*not writable.*")
+            rows = torch.from_numpy(np.asarray(db.data))
+        return (rows.to(device),
+                torch.from_numpy(np.ascontiguousarray(
+                    db.offsets, dtype=np.int64)).to(device),
+                torch.from_numpy(db.seq_lens().astype(np.int32)).to(device),
+                torch.from_numpy(np.ascontiguousarray(
+                    mat.aa2num.astype(np.uint8))).to(device))
 
 
 def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
@@ -92,14 +94,18 @@ def kmermatcher_torch(db, k, device, kmers_per_sequence=21,
         include_only_extendable=include_only_extendable, cov_thr=cov_thr,
         cov_mode=cov_mode)
     rows = flat_rows(db, device, "kmer")
-    budget = split_budget(db, params, device, split_memory_limit)
+    with span("kmermatch.budget"):
+        budget = split_budget(db, params, device, split_memory_limit)
     rep, tgt, score, diag, table_entries, ranges = \
         device_kmer.kmermatch_device(
             *rows, torch.from_numpy(db.keys.astype(np.int32)).to(device),
             hash_shift, params, budget)
-    out = _insert_self_hits(db, rep.cpu().numpy().astype(np.uint32),
-                            tgt.cpu().numpy().astype(np.uint32),
-                            score.cpu().numpy(), diag.cpu().numpy())
+    with span("kmermatch.fetch"):
+        host = (rep.cpu().numpy().astype(np.uint32),
+                tgt.cpu().numpy().astype(np.uint32),
+                score.cpu().numpy(), diag.cpu().numpy())
+    with span("kmermatch.self_hits"):
+        out = _insert_self_hits(db, *host)
     out.dev = (rep, tgt, diag, score < 0)
     out.table_entries = table_entries
     out.ranges = ranges
@@ -399,31 +405,34 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
     m = len(qk)
     if m == 0:
         return {int(k): np.zeros(0, dtype=RESULT_DTYPE) for k in db.keys}
-    lut = db.id_lookup_array()
-    lengths = db.seq_lens().astype(np.int32)
-    qrow = lut[qk].astype(np.int32)
-    trow = lut[tk].astype(np.int32)
-    qrev = is_nucl & (pref < 0)
+    with span("rescore.index"):
+        lut = db.id_lookup_array()
+        lengths = db.seq_lens().astype(np.int32)
+        qrow = lut[qk].astype(np.int32)
+        trow = lut[tk].astype(np.int32)
+        qrev = is_nucl & (pref < 0)
 
-    dist = np.abs(dg).astype(np.int64)
-    score = np.zeros(m, dtype=np.int64)
-    first = np.zeros(m, dtype=np.int32)
-    last = np.zeros(m, dtype=np.int32)
-    idents = np.zeros(m, dtype=np.float64)
+        dist = np.abs(dg).astype(np.int64)
+        score = np.zeros(m, dtype=np.int64)
+        first = np.zeros(m, dtype=np.int32)
+        last = np.zeros(m, dtype=np.int32)
+        idents = np.zeros(m, dtype=np.float64)
 
-    self_mask = (qk == tk) & (dg == 0) & (pref == 0)
-    # the self rows B12 scores with the hits: ALIGNMENT's self row is the
-    # maximum segment of the row's diagonal scores
-    self_idx = np.nonzero(self_mask)[0] if align else np.zeros(0, np.int64)
+        self_mask = (qk == tk) & (dg == 0) & (pref == 0)
+        # the self rows B12 scores with the hits: ALIGNMENT's self row is
+        # the maximum segment of the row's diagonal scores
+        self_idx = (np.nonzero(self_mask)[0] if align
+                    else np.zeros(0, np.int64))
+        idxs = np.nonzero(~self_mask)[0]
     if self_mask.any() and not align:
-        s_sc, s_f, s_l, s_id = _self_rescore_host(db, hamming)
-        rows = qrow[self_mask]
-        score[self_mask] = s_sc[rows]
-        first[self_mask] = s_f[rows]
-        last[self_mask] = s_l[rows]
-        idents[self_mask] = s_id[rows]
+        with span("rescore.self_rows"):
+            s_sc, s_f, s_l, s_id = _self_rescore_host(db, hamming)
+            rows = qrow[self_mask]
+            score[self_mask] = s_sc[rows]
+            first[self_mask] = s_f[rows]
+            last[self_mask] = s_l[rows]
+            idents[self_mask] = s_id[rows]
 
-    idxs = np.nonzero(~self_mask)[0]
     if len(idxs) and hits.pre is not None \
             and params.rescore_mode == hits.pre_mode:
         # the sharded matcher's hits carry their rescore columns
@@ -431,60 +440,68 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
         score[idxs], first[idxs], last[idxs], idents[idxs] = (
             c[didx] for c in hits.pre)
     elif len(idxs) or len(self_idx):
-        dev_rep, dev_tgt, dev_diag, dev_rev = hits.dev
-        device = dev_rep.device
-        rows = flat_rows(db, device)
-        dlut = torch.from_numpy(lut.astype(np.int64)).to(device)
-        sub = torch.from_numpy(mat.sub.astype(np.int32)).to(device)
-        didx = torch.from_numpy(
-            np.searchsorted(hits.hit_slots, idxs)).to(device)
-        # the matcher's hits, then the self rows
-        srow = torch.from_numpy(qrow[self_idx]).to(device)
-        q = torch.cat([dlut[dev_rep[didx].long()].to(torch.int32), srow])
-        t = torch.cat([dlut[dev_tgt[didx].long()].to(torch.int32), srow])
-        d = torch.cat([dev_diag[didx], torch.zeros_like(srow)])
-        rev_kw = {}
-        if is_nucl:
-            # reverse hits: the query is read back to front through the
-            # complement (mat.reverse), its chars from the codes (num2aa)
-            rev_kw = dict(
-                qrev=torch.cat([dev_rev[didx],
-                                torch.zeros_like(srow, dtype=torch.bool)]),
-                comp=torch.from_numpy(mat.reverse.astype(np.int32)).to(device),
-                code2char=torch.from_numpy(
-                    mat.num2aa.astype(np.uint8)).to(device))
-        won = ()
-        if hamming:
-            sc, f, la, idn = rescore_hamming(*rows, q, t, d, **rev_kw)
-        else:
+        with span("rescore.launch"):
+            dev_rep, dev_tgt, dev_diag, dev_rev = hits.dev
+            device = dev_rep.device
+            rows = flat_rows(db, device)
+            dlut = torch.from_numpy(lut.astype(np.int64)).to(device)
+            sub = torch.from_numpy(mat.sub.astype(np.int32)).to(device)
+            didx = torch.from_numpy(
+                np.searchsorted(hits.hit_slots, idxs)).to(device)
+            # the matcher's hits, then the self rows
+            srow = torch.from_numpy(qrow[self_idx]).to(device)
+            q = torch.cat([dlut[dev_rep[didx].long()].to(torch.int32), srow])
+            t = torch.cat([dlut[dev_tgt[didx].long()].to(torch.int32), srow])
+            d = torch.cat([dev_diag[didx], torch.zeros_like(srow)])
+            rev_kw = {}
             if is_nucl:
-                rev_kw["uniform"] = uniform_pattern(mat.sub)
-            rescore = rescore_align if align else rescore_e2e
-            sc, f, la, idn, *won = rescore(*rows, q, t, d, sub, **rev_kw)
-        at = np.concatenate([idxs, self_idx])
-        if won:
-            # ALIGNMENT reports the diagonal that won among the hit's
-            # candidates 65,536 apart (rows over 32,768 only)
-            dg = dg.copy()
-            dg[at] = won[0].cpu().numpy()
-            dist = np.abs(dg).astype(np.int64)
-        score[at] = sc.cpu().numpy()
-        first[at] = f.cpu().numpy()
-        last[at] = la.cpu().numpy()
-        idents[at] = idn.cpu().numpy()
-    # the overlap is host-derivable from the lengths and the diagonal
-    qlen = lengths[qrow].astype(np.int64)
-    tlen = lengths[trow].astype(np.int64)
-    ov = np.maximum(np.where(dg >= 0, np.minimum(tlen, qlen - dist),
-                             np.minimum(tlen - dist, qlen)), 0).astype(np.int32)
-    if align:
-        # the host's ungapped_best keeps a diagonal only for a score above
-        # 0 and skips the hit otherwise (its diagonal length stays 0)
-        ov[score == 0] = 0
-    rec, keep = _rescore_finish(params, evaluer, tk, dg, m, lengths, qrow,
-                                trow, qrev, score, first, last, ov, dist,
-                                idents)
-    return _rescore_group(db, qk, m, rec, keep, return_flat)
+                # reverse hits: the query is read back to front through the
+                # complement (mat.reverse), its chars from the codes
+                # (num2aa)
+                rev_kw = dict(
+                    qrev=torch.cat([dev_rev[didx],
+                                    torch.zeros_like(srow, dtype=torch.bool)]),
+                    comp=torch.from_numpy(
+                        mat.reverse.astype(np.int32)).to(device),
+                    code2char=torch.from_numpy(
+                        mat.num2aa.astype(np.uint8)).to(device))
+            won = ()
+            if hamming:
+                sc, f, la, idn = rescore_hamming(*rows, q, t, d, **rev_kw)
+            else:
+                if is_nucl:
+                    rev_kw["uniform"] = uniform_pattern(mat.sub)
+                rescore = rescore_align if align else rescore_e2e
+                sc, f, la, idn, *won = rescore(*rows, q, t, d, sub, **rev_kw)
+        with span("rescore.fetch"):
+            at = np.concatenate([idxs, self_idx])
+            if won:
+                # ALIGNMENT reports the diagonal that won among the hit's
+                # candidates 65,536 apart (rows over 32,768 only)
+                dg = dg.copy()
+                dg[at] = won[0].cpu().numpy()
+                dist = np.abs(dg).astype(np.int64)
+            score[at] = sc.cpu().numpy()
+            first[at] = f.cpu().numpy()
+            last[at] = la.cpu().numpy()
+            idents[at] = idn.cpu().numpy()
+    with span("rescore.finish"):
+        # the overlap is host-derivable from the lengths and the diagonal
+        qlen = lengths[qrow].astype(np.int64)
+        tlen = lengths[trow].astype(np.int64)
+        ov = np.maximum(np.where(dg >= 0, np.minimum(tlen, qlen - dist),
+                                 np.minimum(tlen - dist, qlen)),
+                        0).astype(np.int32)
+        if align:
+            # the host's ungapped_best keeps a diagonal only for a score
+            # above 0 and skips the hit otherwise (its diagonal length
+            # stays 0)
+            ov[score == 0] = 0
+        rec, keep = _rescore_finish(params, evaluer, tk, dg, m, lengths,
+                                    qrow, trow, qrev, score, first, last, ov,
+                                    dist, idents)
+    with span("rescore.group"):
+        return _rescore_group(db, qk, m, rec, keep, return_flat)
 
 
 def _rescore_finish(params, evaluer, tk, dg, m, lengths, qrow, trow, qrev,

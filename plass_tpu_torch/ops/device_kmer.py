@@ -46,6 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from .hashes import seq_hash_torch, xxh64_u64_torch
 from .seg_scan import seg_scan
 
@@ -588,17 +589,22 @@ def kmermatch_device(rows, offsets, lengths, code_lut, keys, hash_shift,
     Returns (rep, tgt, score, diag) int32[H] — hits grouped by ascending
     rep key —, the number of table entries and the hash ranges (inclusive
     (lo, hi) range-key pairs)."""
-    kmer, sid, pos, slen, rkey = build_table(rows, offsets, lengths, code_lut,
-                                             keys, params, hash_shift)
-    n = kmer.numel()
-    ranges = [(0, RANGE_BINS - 1)]
-    if budget is not None and n > budget:
-        ranges = table_ranges(rkey, budget)
+    with span("kmermatch.table"):
+        kmer, sid, pos, slen, rkey = build_table(
+            rows, offsets, lengths, code_lut, keys, params, hash_shift)
+        n = kmer.numel()
+        ranges = [(0, RANGE_BINS - 1)]
+        if budget is not None and n > budget:
+            ranges = table_ranges(rkey, budget)
     if len(ranges) == 1:
         del rkey
-        pairs = sort_pairs(*pairs_from_table(kmer, sid, pos, slen, params))
+        with span("kmermatch.pairs"):
+            pairs = sort_pairs(*pairs_from_table(kmer, sid, pos, slen,
+                                                 params))
         del kmer, sid, pos, slen
-        return (*_hits(*pairs), n, ranges)
-    parts = pairs_by_range(kmer, sid, pos, slen, rkey, ranges, params)
-    del kmer, sid, pos, slen, rkey
-    return (*merge_parts(parts, keys, budget), n, ranges)
+        with span("kmermatch.hits"):
+            return (*_hits(*pairs), n, ranges)
+    with span("kmermatch.pairs"):
+        parts = pairs_by_range(kmer, sid, pos, slen, rkey, ranges, params)
+        del kmer, sid, pos, slen, rkey
+        return (*merge_parts(parts, keys, budget), n, ranges)
