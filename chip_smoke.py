@@ -22,7 +22,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      x400 with 1.5% seeded substitutions), with per-stage seconds;
   5. K1 and K2 at the shapes of phase 4's iteration 0: the matcher with K1
      equals the matcher with K1's plain version, and K2 equals its plain
-     version on the real hits and on synthetic edge cases (flat rows at
+     version on the operands rescore_diagonal_torch launches it with (the
+     real hits, then a diagonal-0 self row a sequence; caught by a spy on
+     the backend's kernel entry points) and on synthetic edge cases (flat
+     rows at
      every alignment mod 16, windows on both sides of the kernel's
      long-window threshold; exact); the table's first-carry scan and the
      real rescore are timed beside their bounds, K1 also beside a device
@@ -39,8 +42,9 @@ Phases, each printing its own lines; any failure exits non-zero:
   8. nucl-main: at phase 7's iteration-0 shapes, the nucleotide matcher
      with K1 equals it with K1's plain version, and K2's reverse-strand
      variants (uniform matrix and generic matrix) equal the plain version
-     on the real hits and on synthetic edge cases (exact); both timed.
-     Both variants also equal it on the hits of phase 7's last iteration,
+     on the launch's operands (real hits and self rows, as in phase 5) and
+     on synthetic edge cases (exact); both timed. Both variants also equal
+     it on the launch of phase 7's last iteration,
      whose rows hold contigs of up to 20,000 nt;
   9. guided-fixture: `penguin guided_nuclassemble` on the fixture through
      the CLI with default parameters (5 + 5 iterations) and min-contig-len
@@ -53,7 +57,8 @@ Phases, each printing its own lines; any failure exits non-zero:
  11. guided-main: at phase 10's shapes, the amino-acid matcher (k 14, the
      nucleotide k-mer scale, only extendable hits) with K1 equals it with
      K1's plain version at iteration 0, and K2 equals its plain version on
-     the hits of the last amino-acid iteration, whose rows are the longest
+     the launch of the last amino-acid iteration (real hits and self rows,
+     as in phase 5), whose rows are the longest
      and begin and end with the '*' of --add-orf-stop (exact; timed beside
      its bound); each of the matcher's six scans timed alone;
  12. split-main: the hash-range split matcher on the iteration-0 DBs of
@@ -118,8 +123,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      spares a host ssw), and the kernel's registers and resident warps;
  20. hamming: `plass assemble` and `penguin nuclassemble` with
      --rescore-mode 0 on the fixture, on the card and with --device cpu,
-     byte for byte; K2's HAMMING forms against their plain version on the
-     iteration-0 hits of phases 4 and 7 (reverse hits included) and on
+     byte for byte; K2's HAMMING forms (B10) against their plain version on
+     the iteration-0 launches of phases 4 and 7 at --rescore-mode 0 (real
+     hits, reverse hits included, and self rows, as in phase 5) and on
      edge rows (exact), timed beside their bound;
  21. nucl-large: the nucleotide matcher at iteration 0 on the fewest
      seeded 150-nt reads whose table the monolithic matcher would need more
@@ -198,7 +204,8 @@ and times it there beside its bound, as sw-main does ([sw-side]):
      --device cpu, byte for byte, and both byte-identical to the committed
      goldens (which plass_tpu's host path also gives at mode 2); B12, the
      ALIGNMENT form of the rescore kernel, against its plain version on
-     the iteration-0 hits of phases 4 and 7 (the reverse variant with the
+     the iteration-0 launches of phases 4 and 7 at --rescore-mode 2 (real
+     hits and self rows, as in phase 5; the reverse variant with the
      uniform and the generic matrix) and on edge rows (exact), timed
      beside its bound;
  29. align-scale, in a process of its own at a lower priority beside
@@ -214,7 +221,9 @@ every kernel of each path must have run there. Before phase 26's runs
 they are set to 0 too, and none may have run after them. The last lines
 are the script's seconds, a JSON summary of the kernels (times, launches
 by path, bytes or operations counted and the bound they give at 3.35 TB/s
-or the card's integer rate), the card's name and power limit, and {"ok":
+or the card's integer rate; for the rescore's forms the launch's hits, the
+self rows among them and their share of its window residues), the card's
+name and power limit, and {"ok":
 true, "device": {...}}.
 
 --cpu-rehearsal runs every phase on the CPU at a tiny size (the kernels'
@@ -416,6 +425,55 @@ def recorded_scans(fn, keep=False):
         return fn(), calls
     finally:
         device_kmer.seg_scan = seg_scan
+
+
+def launched_rescore(db, hits, mode=3):
+    """The operands that rescore_diagonal_torch hands its kernel for `hits`
+    at --rescore-mode `mode` (3: K2, 0: B10, 2: B12), the matcher's hits
+    followed by the self rows, from a spy on the backend's kernel entry
+    points: (args, keyword arguments but `uniform`, {"hits": the launch's
+    hits, "self_rows": the self rows among them, "self_row_share": their
+    share of its window residues})."""
+    from plass_tpu_torch.ops import backend
+    from plass_tpu_torch.ops.rescore import RescoreParams
+    from plass_tpu_torch.ops.rescore_kernel import _overlap
+    real = {name: getattr(backend, name)
+            for name in ("rescore_e2e", "rescore_hamming", "rescore_align")}
+    calls = []
+
+    def spy(fn):
+        def call(*args, **kw):
+            calls.append((args, kw))
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in real.items():
+        setattr(backend, name, spy(fn))
+    before = backend.SELF_ROWS
+    try:
+        backend.rescore_diagonal_torch(db, hits,
+                                       RescoreParams(rescore_mode=mode))
+    finally:
+        for name, fn in real.items():
+            setattr(backend, name, fn)
+    n_self = backend.SELF_ROWS - before
+    if len(calls) != 1 or n_self != db.size:
+        raise AssertionError(f"rescore_diagonal_torch: {len(calls)} kernel "
+                             f"launches, {n_self} self rows of {db.size}")
+    args, kw = calls[0]
+    lengths, q, t, d = args[2], args[4], args[5], args[6]
+    ov = _overlap(lengths, q.long(), t.long(), d)[0].clamp(min=0)
+    share = float(ov[q.numel() - n_self:].sum()) / max(float(ov.sum()), 1.0)
+    return (args, {k: v for k, v in kw.items() if k != "uniform"},
+            {"hits": q.numel(), "self_rows": n_self,
+             "self_row_share": share})
+
+
+def launch_text(shape):
+    """The launch's hits and self rows, for a log line."""
+    return (f"{shape['hits']} launched hits ({shape['self_rows']} of them "
+            f"self rows, {100 * shape['self_row_share']:.1f}% of the window "
+            f"residues)")
 
 
 def scans_text(calls):
@@ -868,8 +926,9 @@ def phase_main_shapes(device, db_path, reps):
     """K1 and K2 at the shapes of phase 4's iteration 0 (its first match
     and rescore): the matcher with every scan in the kernel equals the
     matcher with every scan in the plain version; the table's first-carry
-    scan and the rescore of the real hits are timed against their plain
-    versions and their bounds; K2 also runs on synthetic edge cases."""
+    scan and K2 on the operands of rescore_diagonal_torch's launch (the
+    real hits and the self rows) are timed against their plain versions
+    and their bounds; K2 also runs on synthetic edge cases."""
     import torch
     from plass_tpu_torch import constants
     from plass_tpu_torch.data import seqdb
@@ -920,23 +979,22 @@ def phase_main_shapes(device, db_path, reps):
 
     sub = torch.from_numpy(constants.blosum62().sub.astype(np.int32)) \
         .to(device)
-    rep, tgt, diag, _ = hits.dev
-    lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
-    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
-            lut[tgt.long()].to(torch.int32), diag.contiguous(), sub)
+    args, _, shape = launched_rescore(db, hits)
     err = max_abs_err(rescore_e2e(*args), rescore_e2e_plain(*args))
     if err:
         raise AssertionError(f"K2 on real hits: max |err| {err}")
     n_hits = args[4].numel()
     flat, padded = upload_bytes(db, device)
-    say(f"[main] K2 on {n_hits} iteration-0 hits ({db.size} flat rows, "
+    say(f"[main] K2 on iteration 0's {launch_text(shape)}, as "
+        f"rescore_diagonal_torch launches them ({db.size} flat rows, "
         f"{args[0].numel()} bytes): equal to the plain version")
     say(f"[main] rescore upload per call at iteration 0: {flat} bytes (flat "
         f"rows, offsets, lengths, code table); the padded codes and chars "
         f"took {padded} bytes")
     k2 = {"ms": cuda_ms(lambda: rescore_e2e(*args), KERNEL_REPS * reps,
                         device, queued=True),
-          "plain_ms": cuda_ms(lambda: rescore_e2e_plain(*args), reps, device)}
+          "plain_ms": cuda_ms(lambda: rescore_e2e_plain(*args), reps, device),
+          **shape}
     k2["bytes"], n_ops, residues = rescore_traffic(args)
     k2["bound_ms"], k2["bound_by"] = bound(k2["bytes"], n_ops)
     say(f"[main] K2 {n_hits} hits, {residues} window residues: kernel "
@@ -1128,40 +1186,32 @@ NUCL_MATCH = dict(kmers_per_sequence=60, kmers_per_sequence_scale=0.1,
 NUCL_K2 = ("rescore_e2e_rev_uniform", "rescore_e2e_rev")
 
 
-def _nucl_rescore_inputs(db, device):
-    """The nucleotide matcher's hits on `db` (default parameters), K2's
-    operands for them and the matcher's scans: (hits, args, reverse
-    operands, uniform pattern, scans)."""
-    import torch
+def _nucl_rescore_inputs(db, device, mode=3):
+    """The nucleotide matcher's hits on `db` (default parameters), the
+    operands rescore_diagonal_torch hands the kernel of --rescore-mode
+    `mode` for them (self rows included) and the matcher's scans: (hits,
+    args, reverse operands, uniform pattern, scans, launch_text's
+    shape)."""
     from plass_tpu_torch import constants
-    from plass_tpu_torch.ops.backend import flat_rows as db_rows
     from plass_tpu_torch.ops.backend import kmermatcher_torch
     from plass_tpu_torch.ops.rescore_kernel import uniform_pattern
 
     hits, scans = recorded_scans(lambda: kmermatcher_torch(db, 22, device,
                                                            **NUCL_MATCH))
-    mat = constants.nucleotide()
-    uniform = uniform_pattern(mat.sub)
+    uniform = uniform_pattern(constants.nucleotide().sub)
     if uniform is None:
         raise AssertionError("the nucleotide matrix is not uniform")
-    rep, tgt, diag, rev = hits.dev
-    lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
-    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
-            lut[tgt.long()].to(torch.int32), diag.contiguous(),
-            torch.from_numpy(mat.sub.astype(np.int32)).to(device))
-    rkw = dict(qrev=rev.contiguous(),
-               comp=torch.from_numpy(mat.reverse.astype(np.int32)).to(device),
-               code2char=torch.from_numpy(mat.num2aa.astype(np.uint8))
-               .to(device))
-    return hits, args, rkw, uniform, scans
+    args, rkw, shape = launched_rescore(db, hits, mode)
+    return hits, args, rkw, uniform, scans, shape
 
 
 def phase_nucl_main(device, first_db, last_db, reps):
     """K1 and K2's reverse-strand variants at the shapes of phase 7: the
     nucleotide matcher with every scan in the kernel equals it with every
     scan in the plain version (iteration 0); the uniform and the generic
-    matrix variants of K2 equal the plain version on the real hits of the
-    first and of the last iteration and on edge cases, and are timed
+    matrix variants of K2 equal the plain version on the operands of
+    rescore_diagonal_torch's launch (hits and self rows) at the first and
+    at the last iteration and on edge cases, and are timed
     against it and their bound at iteration 0 and, the kernel alone, at the
     last iteration."""
     import torch
@@ -1173,7 +1223,7 @@ def phase_nucl_main(device, first_db, last_db, reps):
     from plass_tpu_torch.ops.seg_scan import seg_scan, seg_scan_plain
 
     db = seqdb.SeqDB.open(first_db)
-    hits, args, rkw, uniform, scans = _nucl_rescore_inputs(db, device)
+    hits, args, rkw, uniform, scans, shape = _nucl_rescore_inputs(db, device)
     device_kmer.seg_scan = seg_scan_plain
     try:
         plain_hits = kmermatcher_torch(db, 22, device, **NUCL_MATCH)
@@ -1217,8 +1267,9 @@ def phase_nucl_main(device, first_db, last_db, reps):
                      KERNEL_REPS * reps, device, queued=True)
         pms = cuda_ms(lambda: rescore_e2e_plain(*args, **rkw), reps, device)
         out[name] = {"max_abs_err": max(err, e2), "ms": ms, "plain_ms": pms,
-                     "bytes": n_bytes, "bound_ms": bms, "bound_by": bby}
-        say(f"[nucl-main] K2 {name} on {args[4].numel()} iteration-0 hits "
+                     "bytes": n_bytes, "bound_ms": bms, "bound_by": bby,
+                     **shape}
+        say(f"[nucl-main] K2 {name} on iteration 0's {launch_text(shape)} "
             f"({db.size} flat rows, {args[0].numel()} bytes, {residues} "
             f"window residues) and {edge_text}: equal to the plain version; "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms by "
@@ -1227,7 +1278,7 @@ def phase_nucl_main(device, first_db, last_db, reps):
     # the last iteration: contigs up to max_seq_len beside the reads, so
     # reverse hits index far into long rows and most windows are long
     db = seqdb.SeqDB.open(last_db)
-    hits, args, rkw, uniform, scans = _nucl_rescore_inputs(db, device)
+    hits, args, rkw, uniform, scans, shape = _nucl_rescore_inputs(db, device)
     del hits
     say(f"[nucl-main] the matcher's scans at the last iteration: "
         f"{scans_text(scans)}")
@@ -1250,8 +1301,8 @@ def phase_nucl_main(device, first_db, last_db, reps):
             lambda: rescore_e2e(*args, uniform=uni, **rkw),
             KERNEL_REPS * reps, device, queued=True)
     flat, padded = upload_bytes(db, device)
-    say(f"[nucl-main] K2 {' and '.join(NUCL_K2)} on {args[4].numel()} "
-        f"last-iteration hits ({n_rev} reverse; {db.size} rows, longest "
+    say(f"[nucl-main] K2 {' and '.join(NUCL_K2)} on the last iteration's "
+        f"{launch_text(shape)} ({n_rev} reverse; {db.size} rows, longest "
         f"{int(args[2].max())} nt, {residues} window residues): equal to the "
         f"plain version; kernel "
         + ", ".join(f"{last_ms[k]:.4f} ms" for k in NUCL_K2)
@@ -1443,14 +1494,11 @@ def phase_guided_main(device, first_db, last_db, reps):
     """K1 and K2 at the shapes of phase 10's amino-acid loop: the matcher
     (k 14 with the nucleotide k-mer scale, only extendable hits) with every
     scan in the kernel equals it with every scan in the plain version at
-    iteration 0; K2 equals its plain version on the hits of the last
-    iteration, whose rows are the longest, and is timed against it and its
-    bound."""
-    import torch
-    from plass_tpu_torch import constants
+    iteration 0; K2 equals its plain version on the launch of the last
+    iteration (its hits and self rows), whose rows are the longest, and is
+    timed against it and its bound."""
     from plass_tpu_torch.data import seqdb
     from plass_tpu_torch.ops import device_kmer
-    from plass_tpu_torch.ops.backend import flat_rows as db_rows
     from plass_tpu_torch.ops.backend import kmermatcher_torch
     from plass_tpu_torch.ops.rescore_kernel import (rescore_e2e,
                                                     rescore_e2e_plain)
@@ -1497,14 +1545,9 @@ def phase_guided_main(device, first_db, last_db, reps):
 
     db = seqdb.SeqDB.open(last_db)
     hits = kmermatcher_torch(db, 14, device, **AA_MATCH)
-    rep, tgt, diag, _ = hits.dev
-    if not rep.numel():
+    if not hits.dev[0].numel():
         raise AssertionError("guided-main: the last aa iteration has no hits")
-    sub = torch.from_numpy(constants.blosum62().sub.astype(np.int32)) \
-        .to(device)
-    lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
-    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
-            lut[tgt.long()].to(torch.int32), diag.contiguous(), sub)
+    args, _, shape = launched_rescore(db, hits)
     err = max_abs_err(rescore_e2e(*args), rescore_e2e_plain(*args))
     if err:
         raise AssertionError(f"K2 on the last aa iteration's hits: max |err| "
@@ -1521,8 +1564,9 @@ def phase_guided_main(device, first_db, last_db, reps):
     n_bytes, n_ops, residues = rescore_traffic(args)
     bms, bby = bound(n_bytes, n_ops)
     flat, padded = upload_bytes(db, device)
-    say(f"[guided-main] K2 rescore_e2e on {args[4].numel()} hits of the last "
-        f"aa iteration ({db.size} flat rows, longest {int(lens.max())} "
+    say(f"[guided-main] K2 rescore_e2e on the last aa iteration's "
+        f"{launch_text(shape)} ({db.size} flat rows, longest "
+        f"{int(lens.max())} "
         f"residues, {star_first} begin and {star_last} end with '*'; "
         f"{residues} window residues): equal to the plain version; kernel "
         f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms by {bby} "
@@ -3502,8 +3546,10 @@ HAMMING_NUCL = ("--rescore-mode", "0", "--num-iterations", "2",
                 "--min-contig-len", "1", "--contig-output-mode", "0")
 
 
-def _check_hamming(name, args, kw, edge, edge_kw, what, reps, device):
-    """A HAMMING form against its plain version on real hits and edge
+def _check_hamming(name, args, kw, edge, edge_kw, shape, what, reps,
+                   device):
+    """A HAMMING form against its plain version on the operands of a
+    launch of rescore_diagonal_torch (launch_text's `shape`) and on edge
     rows (exact); timed beside its bound, one operation (an identity) a
     window residue."""
     from plass_tpu_torch.ops.rescore_kernel import (rescore_hamming,
@@ -3520,22 +3566,21 @@ def _check_hamming(name, args, kw, edge, edge_kw, what, reps, device):
     pms = cuda_ms(lambda: rescore_hamming_plain(*args, **kw), reps, device)
     n_bytes, n_ops, residues = rescore_traffic(args, kw.get("qrev"), 1)
     bms, bby = bound(n_bytes, n_ops)
-    say(f"[hamming] {name} on {args[4].numel()} {what} ({residues} window "
-        f"residues) and {edge[4].numel()} edge-case hits: equal to the plain "
-        f"version; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} "
-        f"ms by {bby} ({n_bytes} bytes)")
+    say(f"[hamming] {name} on {what} ({residues} window residues) and "
+        f"{edge[4].numel()} edge-case hits: equal to the plain version; "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms by "
+        f"{bby} ({n_bytes} bytes)")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": pms, "bytes": n_bytes,
-            "bound_ms": bms, "bound_by": bby}
+            "bound_ms": bms, "bound_by": bby, **shape}
 
 
 def phase_hamming(device, work, protein_db, nucl_db, reps):
     """--rescore-mode 0 through both CLIs on the fixture, the device's
-    output byte for byte the CPU's; the HAMMING forms at the iteration-0
-    hits of phases 4 and 7 and on edge rows. Returns (launches of the
+    output byte for byte the CPU's; the HAMMING forms on the operands of
+    rescore_diagonal_torch's iteration-0 launches (hits and self rows) of
+    phases 4 and 7 and on edge rows. Returns (launches of the
     device runs, measurements by kernel)."""
-    import torch
     from plass_tpu_torch.data import seqdb
-    from plass_tpu_torch.ops.backend import flat_rows as db_rows
     from plass_tpu_torch.ops.backend import kmermatcher_torch
 
     _reset_launches()
@@ -3568,21 +3613,18 @@ def phase_hamming(device, work, protein_db, nucl_db, reps):
                              f"launched: {launches}")
     out = {}
     db = seqdb.SeqDB.open(protein_db)
-    rep, tgt, diag, _ = kmermatcher_torch(db, 14, device, **PROTEIN_MATCH).dev
-    lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
-    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
-            lut[tgt.long()].to(torch.int32), diag.contiguous())
+    args, _, shape = launched_rescore(
+        db, kmermatcher_torch(db, 14, device, **PROTEIN_MATCH), 0)
     out["rescore_hamming"] = _check_hamming(
-        "rescore_hamming", args, {}, _edge_case_rows(device), {},
-        "iteration-0 hits of phase 4", reps, device)
+        "rescore_hamming", args, {}, _edge_case_rows(device), {}, shape,
+        f"phase 4's iteration 0's {launch_text(shape)}", reps, device)
     db = seqdb.SeqDB.open(nucl_db)
-    _, args, rkw, _, _ = _nucl_rescore_inputs(db, device)
+    _, args, rkw, _, _, shape = _nucl_rescore_inputs(db, device, 0)
     edge = _nucl_edge_case_rows(device)
     out["rescore_hamming_rev"] = _check_hamming(
-        "rescore_hamming_rev", args[:7], rkw, edge[:7],
-        dict(rkw, qrev=edge[7]),
-        f"iteration-0 hits of phase 7 ({int(rkw['qrev'].sum())} reverse)",
-        reps, device)
+        "rescore_hamming_rev", args, rkw, edge[:7], dict(rkw, qrev=edge[7]),
+        shape, f"phase 7's iteration 0's {launch_text(shape)} "
+        f"({int(rkw['qrev'].sum())} reverse)", reps, device)
     return launches, out
 
 
@@ -3707,8 +3749,8 @@ def _wide_edge_rows(device, nucl):
 
 def _check_align(name, args, kw, edge, edge_kw, wide, wide_kw, what, reps,
                  device):
-    """A B12 form against its plain version on real hits, edge rows and
-    C12's rows over 32,768 (exact, all five outputs); timed beside its
+    """A B12 form against its plain version on a launch's operands (`what`
+    says which), edge rows and C12's rows over 32,768 (exact, all five outputs); timed beside its
     bound, ALIGN_OPS_PER_RESIDUE int32 operations a window residue at the
     card's integer rate. The edge rows must give segments in windows over
     LONG_WINDOW (the kernel's long-window pass), windows with no positive
@@ -3743,7 +3785,7 @@ def _check_align(name, args, kw, edge, edge_kw, wide, wide_kw, what, reps,
     n_bytes, n_ops, residues = rescore_traffic(args, kw.get("qrev"),
                                                ALIGN_OPS_PER_RESIDUE, 5)
     bms, bby = bound(n_bytes, n_ops, int32_ops_per_s(device)[0])
-    say(f"[align] {name} on {args[4].numel()} {what} ({residues} window "
+    say(f"[align] {name} on {what} ({residues} window "
         f"residues), {edge[4].numel()} edge-case hits ({cases['long']} "
         f"segments in windows over {LONG_WINDOW}, {cases['none']} windows "
         f"with no positive score, {cases['inner']} segments inside their "
@@ -3759,13 +3801,11 @@ def _check_align(name, args, kw, edge, edge_kw, wide, wide_kw, what, reps,
 
 def phase_align(device, work, protein_db, nucl_db, reps):
     """--rescore-mode 2 through both CLIs on the fixture: the device's
-    output byte for byte the CPU's and the golden; B12 at the iteration-0
-    hits of phases 4 and 7 and on edge rows. Returns (launches of the
+    output byte for byte the CPU's and the golden; B12 on the operands of
+    rescore_diagonal_torch's iteration-0 launches (hits and self rows) of
+    phases 4 and 7 and on edge rows. Returns (launches of the
     device runs, measurements by kernel)."""
-    import torch
-    from plass_tpu_torch import constants
     from plass_tpu_torch.data import seqdb
-    from plass_tpu_torch.ops.backend import flat_rows as db_rows
     from plass_tpu_torch.ops.backend import kmermatcher_torch
     from plass_tpu_torch.ops.rescore_kernel import rescore_e2e_plain
 
@@ -3803,12 +3843,9 @@ def phase_align(device, work, protein_db, nucl_db, reps):
                              f"both B12 forms and no K2: {launches}")
     out = {}
     db = seqdb.SeqDB.open(protein_db)
-    rep, tgt, diag, _ = kmermatcher_torch(db, 14, device, **PROTEIN_MATCH).dev
-    lut = torch.from_numpy(db.id_lookup_array().astype(np.int64)).to(device)
-    sub = torch.from_numpy(constants.blosum62().sub.astype(np.int32)) \
-        .to(device)
-    args = (*db_rows(db, device), lut[rep.long()].to(torch.int32),
-            lut[tgt.long()].to(torch.int32), diag.contiguous(), sub)
+    args, _, shape = launched_rescore(
+        db, kmermatcher_torch(db, 14, device, **PROTEIN_MATCH), 2)
+    sub = args[7]
     edge = _edge_case_rows(device) + (sub,)
     say(f"[align] the protein edge rows hold "
         f"{_check_star_windows(edge, rescore_e2e_plain(*edge))} windows that "
@@ -3816,14 +3853,16 @@ def phase_align(device, work, protein_db, nucl_db, reps):
     out["rescore_align"] = _check_align(
         "rescore_align", args, {}, edge, {},
         _wide_edge_rows(device, False) + (sub,), {},
-        "iteration-0 hits of phase 4", reps, device)
+        f"phase 4's iteration 0's {launch_text(shape)}", reps, device)
+    out["rescore_align"].update(shape)
     db = seqdb.SeqDB.open(nucl_db)
-    _, args, rkw, uniform, _ = _nucl_rescore_inputs(db, device)
+    _, args, rkw, uniform, _, shape = _nucl_rescore_inputs(db, device, 2)
     edge = _nucl_edge_case_rows(device)
     edge_args, edge_kw = edge[:7] + (args[7],), dict(rkw, qrev=edge[7])
     wide = _wide_edge_rows(device, True)
     wide_args, wide_kw = wide[:7] + (args[7],), dict(rkw, qrev=wide[7])
-    what = f"iteration-0 hits of phase 7 ({int(rkw['qrev'].sum())} reverse)"
+    what = (f"phase 7's iteration 0's {launch_text(shape)} "
+            f"({int(rkw['qrev'].sum())} reverse)")
     generic = _check_align("rescore_align_rev (generic matrix)", args, rkw,
                            edge_args, edge_kw, wide_args, wide_kw, what, reps,
                            device)
@@ -3831,7 +3870,7 @@ def phase_align(device, work, protein_db, nucl_db, reps):
         "rescore_align_rev (uniform matrix)", args,
         dict(rkw, uniform=uniform), edge_args, dict(edge_kw, uniform=uniform),
         wide_args, dict(wide_kw, uniform=uniform), what, reps, device)
-    out["rescore_align_rev"]["generic_ms"] = generic["ms"]
+    out["rescore_align_rev"].update(shape, generic_ms=generic["ms"])
     return launches, out
 
 
@@ -4188,7 +4227,9 @@ def kernels_summary(k1, k2, rev, launches, sw=None, hamming=None,
                 "launches_by_path": paths, "max_abs_err": m["max_abs_err"],
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": None, "bytes": m["bytes"], **extra}
+                "library_ms": None, "bytes": m["bytes"],
+                **{k: m[k] for k in ("hits", "self_rows", "self_row_share")
+                   if k in m}, **extra}
 
     k2_src = ("plass_tpu_torch/csrc/rescore.cu",
               "plass_tpu/ops/pallas_rescore.py:449")

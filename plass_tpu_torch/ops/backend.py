@@ -5,8 +5,9 @@ nucleotide) and return host-format results.
 
 The hits stay on the device between the two steps: the matcher keeps
 (rep, tgt, diag, reverse) as tensors, and the rescore addresses them by
-index (the JAX package's _rescore_from_dev_pallas). Only (qk, tk, score,
-diag) go to the host, for the self rows and the native finish.
+index (the JAX package's _rescore_from_dev_pallas). The self rows join
+the hits in the rescore's launch, as hits at diagonal 0. Only (qk, tk,
+score, diag) go to the host, for the native finish.
 
 Across ranks (kmermatcher_sharded_torch, parallel/mesh.py) each rank
 rescores its own hits as part of the matcher, and the hits carry those
@@ -41,6 +42,10 @@ RESIDENT_BYTES = 36
 # covers the selection stage's fixed block (device_kmer.SELECT_CELLS) and
 # the allocator's fragmentation
 AUTO_SHARE = 0.75
+
+# the self rows rescore_diagonal_torch has handed to its rescore's launch,
+# summed over calls: one a sequence a call
+SELF_ROWS = 0
 
 
 def _matrix(db, alphabet):
@@ -321,45 +326,6 @@ def _insert_self_hits(db, rep, tgt, score, diag):
     return out
 
 
-def _self_rescore_host(db, hamming=False):
-    """Rescoring of the (k, k, diag 0) self rows, analytic on the host:
-    (score, first, last, idents) per row. END_TO_END: first/last from the
-    '*'-skip on the raw chars, score = clipped sum of diagonal
-    substitution scores over the window (the DB's own matrix), idents =
-    window size. HAMMING: score = idents = the sequence's length, first =
-    last = -1."""
-    lens = db.seq_lens().astype(np.int64)
-    ov = lens.astype(np.int32)
-    if hamming:
-        ends = np.full(db.size, -1, dtype=np.int32)
-        return lens, ends, ends, lens
-    mat = _matrix(db, "score")
-    sub = mat.sub.astype(np.int64)
-    offsets = db.offsets.astype(np.int64)
-    data = db.data
-    nonempty = lens > 0
-    safe_off = np.minimum(offsets, max(len(data) - 1, 0))
-    first_char = np.where(nonempty, data[safe_off], 0)
-    last_char = np.where(nonempty,
-                         data[np.minimum(offsets + np.maximum(lens, 1) - 1,
-                                         max(len(data) - 1, 0))], 0)
-    star = np.uint8(ord("*"))
-    first = (first_char == star).astype(np.int32)
-    last_idx = np.maximum(ov - 1, 0)
-    strip = (last_idx > 0) & (last_char == star)
-    last = (last_idx - strip).astype(np.int32)
-    codes = mat.aa2num[data].astype(np.int64)
-    cs = np.concatenate([[0], np.cumsum(sub[codes, codes])])
-    lo = offsets + first
-    hi = offsets + np.minimum(last.astype(np.int64), lens - 1) + 1
-    hi = np.maximum(hi, lo)
-    score = np.maximum(cs[hi] - cs[lo], 0)
-    idents = np.maximum(0, np.minimum(last, ov - 1) - first + 1)
-    score[~nonempty] = 0
-    idents[~nonempty] = 0
-    return score, first, last, idents.astype(np.int64)
-
-
 def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
                            return_flat=False):
     """END_TO_END (--rescore-mode 3), ALIGNMENT (2) or HAMMING (0)
@@ -371,9 +337,9 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
     matcher's device-resident arrays, or, where the hits carry the columns
     of this rescore mode (`pre`, the sharded matcher's), taken from them,
     as the JAX package's rescore_diagonal_jax takes its sharded hits'
-    columns. The self rows are analytic on the host for END_TO_END and
-    HAMMING; for ALIGNMENT, whose self row is a maximum segment of the
-    diagonal scores, they join B12's launch. On a nucleotide DB a
+    columns. The self rows, one a sequence, are hits at diagonal 0 of the
+    same kernel, in the same launch as the hits (with the sharded
+    matcher's columns, in a launch of their own). On a nucleotide DB a
     reverse-strand hit reads the query reverse-complemented, and the
     nucleotide matrix's uniform match/mismatch form selects the kernel's
     uniform variant. Modes 1 and 4 raise: the JAX package fails on both.
@@ -383,6 +349,7 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
     from .evalue import EvalueComputer
     from .rescore import (RESCORE_ALIGNMENT, RESCORE_END_TO_END,
                           RESCORE_HAMMING, RESULT_DTYPE, RescoreParams)
+    global SELF_ROWS
 
     params = params or RescoreParams()
     if params.rescore_mode not in (RESCORE_END_TO_END, RESCORE_HAMMING,
@@ -419,37 +386,30 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
         idents = np.zeros(m, dtype=np.float64)
 
         self_mask = (qk == tk) & (dg == 0) & (pref == 0)
-        # the self rows B12 scores with the hits: ALIGNMENT's self row is
-        # the maximum segment of the row's diagonal scores
-        self_idx = (np.nonzero(self_mask)[0] if align
-                    else np.zeros(0, np.int64))
         idxs = np.nonzero(~self_mask)[0]
-    if self_mask.any() and not align:
-        with span("rescore.self_rows"):
-            s_sc, s_f, s_l, s_id = _self_rescore_host(db, hamming)
-            rows = qrow[self_mask]
-            score[self_mask] = s_sc[rows]
-            first[self_mask] = s_f[rows]
-            last[self_mask] = s_l[rows]
-            idents[self_mask] = s_id[rows]
+    dev_rep, dev_tgt, dev_diag, dev_rev = hits.dev
+    device = dev_rep.device
+    with span("rescore.self_rows"):
+        # the inserted (k, k, diag 0) self rows, scored in the launch below
+        self_idx = np.nonzero(self_mask)[0]
+        srow = torch.from_numpy(qrow[self_idx]).to(device)
 
-    if len(idxs) and hits.pre is not None \
-            and params.rescore_mode == hits.pre_mode:
-        # the sharded matcher's hits carry their rescore columns
+    if hits.pre is not None and params.rescore_mode == hits.pre_mode:
+        # the sharded matcher's hits carry their rescore columns; only the
+        # self rows are launched
         didx = np.searchsorted(hits.hit_slots, idxs)
         score[idxs], first[idxs], last[idxs], idents[idxs] = (
             c[didx] for c in hits.pre)
-    elif len(idxs) or len(self_idx):
+        idxs = idxs[:0]
+    if len(idxs) or len(self_idx):
+        SELF_ROWS += len(self_idx)
         with span("rescore.launch"):
-            dev_rep, dev_tgt, dev_diag, dev_rev = hits.dev
-            device = dev_rep.device
             rows = flat_rows(db, device)
             dlut = torch.from_numpy(lut.astype(np.int64)).to(device)
             sub = torch.from_numpy(mat.sub.astype(np.int32)).to(device)
             didx = torch.from_numpy(
                 np.searchsorted(hits.hit_slots, idxs)).to(device)
             # the matcher's hits, then the self rows
-            srow = torch.from_numpy(qrow[self_idx]).to(device)
             q = torch.cat([dlut[dev_rep[didx].long()].to(torch.int32), srow])
             t = torch.cat([dlut[dev_tgt[didx].long()].to(torch.int32), srow])
             d = torch.cat([dev_diag[didx], torch.zeros_like(srow)])

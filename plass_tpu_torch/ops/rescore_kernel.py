@@ -61,6 +61,8 @@ raises; on a CPU tensor it runs `rescore_e2e_plain`,
 `rescore_hamming_plain` or `rescore_align_plain`, the oracles of the
 kernel's variants.
 """
+import bisect
+
 import numpy as np
 import torch
 
@@ -115,26 +117,36 @@ def _overlap(lengths, qrow, trow, diag):
 def _windows(rows, offsets, lengths, code_lut, qrow, trow, diag, qrev,
              comp, code2char, budget):
     """The hits' overlap windows as [hits, width] gathers from the flat
-    rows, in chunks of at most `budget` window cells: yields (lo, hi, ov,
-    j, qch, tch, qc, tc) per chunk of hits [lo, hi) — the query's and the
-    target's chars and codes, a reverse hit's query read back to front and
-    complemented, its chars from code2char."""
+    rows, in chunks of at most `budget` window cells, the hits taken in
+    the order of their window length so that each chunk is padded to its
+    own widest window: yields (at, ov, j, qch, tch, qc, tc) per chunk, `at`
+    the chunk's hit indices, with the query's and the target's chars and
+    codes, a reverse hit's query read back to front and complemented, its
+    chars from code2char."""
     h = qrow.numel()
     dev = rows.device
     top = max(rows.numel() - 1, 0)
     lut = code_lut.long()
     ov_all = _overlap(lengths, qrow.long(), trow.long(), diag)[0]
-    width = max(int(ov_all.max()), 1)
-    chunk = max(budget // width, 1)
-    j = torch.arange(width, device=dev)
-    for lo in range(0, h, chunk):
-        hi = min(lo + chunk, h)
-        q = qrow[lo:hi].long()
-        t = trow[lo:hi].long()
-        ov, qoff, toff, qlen = _overlap(lengths, q, t, diag[lo:hi])
+    order = torch.argsort(ov_all, stable=True)
+    widths = ov_all[order].clamp(min=1).tolist()
+    lo = 0
+    while lo < h:
+        # the most hits from lo whose count times the widest of them (the
+        # last, the widths being sorted) fits the budget; at least one
+        hi = lo + max(bisect.bisect_right(
+            range(lo + 1, h + 1), budget,
+            key=lambda n: (n - lo) * widths[n - 1]), 1)
+        width = widths[hi - 1]
+        at = order[lo:hi]
+        lo = hi
+        j = torch.arange(width, device=dev)
+        q = qrow[at].long()
+        t = trow[at].long()
+        ov, qoff, toff, qlen = _overlap(lengths, q, t, diag[at])
         qpos = qoff[:, None] + j
         if qrev is not None:
-            rv = qrev[lo:hi, None]
+            rv = qrev[at][:, None]
             qpos = torch.where(rv, qlen[:, None] - 1 - qpos, qpos)
         # cells past the window are masked by the callers; their index
         # only has to stay inside the array
@@ -145,7 +157,7 @@ def _windows(rows, offsets, lengths, code_lut, qrow, trow, diag, qrev,
         if qrev is not None:
             qc = torch.where(rv, comp.long()[qc], qc)
             qch = torch.where(rv, code2char[qc], qch)
-        yield lo, hi, ov, j, qch, tch, qc, tc
+        yield at, ov, j, qch, tch, qc, tc
 
 
 def rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
@@ -165,7 +177,7 @@ def rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
         return tuple(outs)
     alpha = sub.shape[0]
     sub_flat = sub.reshape(-1).to(torch.int64)
-    for lo, hi, ov, j, qch, tch, qc, tc in _windows(
+    for at, ov, j, qch, tch, qc, tc in _windows(
             rows, offsets, lengths, code_lut, qrow, trow, diag, qrev, comp,
             code2char, budget):
         width = j.numel()
@@ -182,7 +194,7 @@ def rescore_e2e_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
         score = torch.where(in_range, s, 0).sum(dim=1).clamp(min=0)
         idents = (((qch & FOLD) == (tch & FOLD)) & in_range).sum(dim=1)
         for out, val in zip(outs, (score, first, last, idents)):
-            out[lo:hi] = val
+            out[at] = val.to(out.dtype)
     return tuple(outs)
 
 
@@ -196,10 +208,11 @@ def rescore_hamming_plain(rows, offsets, lengths, code_lut, qrow, trow, diag,
     h = qrow.numel()
     dev = rows.device
     idents = torch.empty(h, dtype=torch.int32, device=dev)
-    for lo, hi, ov, j, qch, tch, _, _ in _windows(
+    for at, ov, j, qch, tch, _, _ in _windows(
             rows, offsets, lengths, code_lut, qrow, trow, diag, qrev, comp,
             code2char, budget):
-        idents[lo:hi] = ((qch == tch) & (j < ov[:, None])).sum(dim=1)
+        idents[at] = ((qch == tch) & (j < ov[:, None])).sum(dim=1).to(
+            idents.dtype)
     ends = torch.full((h,), -1, dtype=torch.int32, device=dev)
     return idents, ends, ends.clone(), idents.clone()
 
@@ -221,7 +234,7 @@ def _align_windows(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
         return outs
     alpha = sub.shape[0]
     sub_flat = sub.reshape(-1).to(torch.int64)
-    for lo, hi, ov, j, qch, tch, qc, tc in _windows(
+    for at, ov, j, qch, tch, qc, tc in _windows(
             rows, offsets, lengths, code_lut, qrow, trow, diag, qrev, comp,
             code2char, budget):
         width = j.numel()
@@ -244,7 +257,7 @@ def _align_windows(rows, offsets, lengths, code_lut, qrow, trow, diag, sub,
         in_seg = found[:, None] & (j >= start[:, None]) & (j <= end[:, None])
         idents = (((qch & FOLD) == (tch & FOLD)) & in_seg).sum(dim=1)
         for out, val in zip(outs, (best, start, end, idents)):
-            out[lo:hi] = val
+            out[at] = val.to(out.dtype)
     return outs
 
 

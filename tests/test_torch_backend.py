@@ -173,6 +173,70 @@ def test_gathered_rows_equal_padded_codes(kind, alphabet):
     assert (got[:, width:] == x_code).all()
 
 
+def _self_row_edges_db():
+    """Synthetic proteins with rows whose self rows are the edges of the
+    END_TO_END and HAMMING forms: no residue, a lone '*', '**', '*' at
+    both ends, and lower-case residues (identity is case-folded)."""
+    rng = np.random.default_rng(43)
+    base = _synthetic_db(seed=43, n=300)
+    recs = [bytes(base.get_data(i)[:-1]) for i in range(base.size)]
+    for i in range(0, len(recs), 9):
+        recs[i] = recs[i].lower()
+    body = LETTERS[rng.integers(0, 20, 60)].tobytes()
+    edges = [b"", b"*", b"**", b"*" + body + b"*", b"*" + body[:30].lower(),
+             body[10:50] + b"*", b"", b"*", b"Ab*"]
+    for j, rec in enumerate(edges):
+        recs.insert(17 * j + 3, rec)
+    keys = np.sort(rng.choice(4 * len(recs), len(recs), replace=False))
+    return seqdb.SeqDB.from_records(recs, keys=keys,
+                                    dbtype=seqdb.AMINO_ACIDS)
+
+
+def _bytes(rec):
+    """The records' bytes, a row a record."""
+    return np.frombuffer(rec.tobytes(), np.uint8).reshape(
+        len(rec), rec.dtype.itemsize)
+
+
+@pytest.mark.parametrize("flat", [True, False])
+@pytest.mark.parametrize("mode", [3, 0])
+def test_self_rows_in_the_launch_match_jax(mode, flat):
+    """The self rows are scored in the rescore's launch, one a sequence a
+    call (SELF_ROWS), and the records of END_TO_END and HAMMING equal
+    rescore_diagonal_jax's, whose self rows are analytic on its host, on
+    rows of no residue, of '*' alone, with '*' at either end and in lower
+    case; the port has no host pass of its own for them."""
+    db = _self_row_edges_db()
+    pdb = PortSeqDB(db.data, db.keys, db.offsets, db.lengths, db.dbtype)
+    kw = dict(kmers_per_sequence=60, hash_shift=67, ignore_multi_kmer=True,
+              include_only_extendable=False)
+    rp = dict(rescore_mode=mode, seq_id_thr=0.9, eval_thr=1e-5)
+    ev = EvalueComputer.for_matrix("blosum62_ungapped", db.total_residues())
+    want = rescore_diagonal_jax(
+        db, kmermatcher_jax(db, 14, return_arrays=True, **kw),
+        RescoreParams(**rp), ev, return_flat=flat)
+    hits = kmermatcher_torch(pdb, 14, torch.device("cpu"), **kw)
+    before = port_backend.SELF_ROWS
+    got = rescore_diagonal_torch(pdb, hits, PortRescoreParams(**rp),
+                                 return_flat=flat)
+    assert port_backend.SELF_ROWS - before == pdb.size
+    # byte for byte: at END_TO_END a '*' row's self record has a seqId of
+    # 0 / 0
+    if flat:
+        np.testing.assert_array_equal(got["qk"], want["qk"])
+        np.testing.assert_array_equal(_bytes(got["rec"]), _bytes(want["rec"]))
+        recs = got["rec"]
+    else:
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(_bytes(got[k]), _bytes(want[k]),
+                                          err_msg=str(k))
+        recs = np.concatenate(list(got.values()))
+    assert np.isnan(recs["seqId"]).any() == (mode == 3)
+    assert len(recs) > pdb.size
+    assert not hasattr(port_backend, "_self_rescore_host")
+
+
 def test_rescore_takes_only_device_hits():
     db = _synthetic_db(n=20)
     pdb = PortSeqDB(db.data, db.keys, db.offsets, db.lengths, db.dbtype)

@@ -27,6 +27,7 @@ from plass_tpu.ops.pallas_rescore import rescore_pairs_pallas
 from plass_tpu.ops.rescore import RescoreParams
 from plass_tpu_torch.data import seqdb as port_seqdb
 from plass_tpu_torch.data.createdb import merge_reads as port_merge_reads
+from plass_tpu_torch.ops import backend as port_backend
 from plass_tpu_torch.ops.backend import (kmermatcher_torch,
                                          rescore_diagonal_torch)
 from plass_tpu_torch.ops.rescore import RescoreParams as PortRescoreParams
@@ -302,7 +303,28 @@ def test_streamed_and_per_hit_pallas_variants_equal_plain(monkeypatch, env):
         jax.clear_caches()
 
 
-DBS = {"mini_reads": _mini_reads, "synthetic": _synthetic}
+def _self_row_edges():
+    """Reads with N bases (one in ten with an N run) and lower case, and
+    rows whose self rows are edges: no base, a lone N, NN, N at both ends."""
+    rng = np.random.default_rng(29)
+    genome = ACGT[rng.integers(0, 4, 3000)]
+    recs = sample_reads(genome, 300, rng, sub_rate=0.01)
+    for i in range(0, len(recs), 10):
+        recs[i] = recs[i][:20] + b"NNNN" + recs[i][24:]
+    recs = [r.lower() if i % 6 == 0 else r for i, r in enumerate(recs)]
+    body = ACGT[rng.integers(0, 4, 70)].tobytes()
+    for j, rec in enumerate([b"", b"N", b"NN", b"N" + body + b"N",
+                             body[:40].lower() + b"N", b""]):
+        recs.insert(23 * j + 5, rec)
+    keys = np.sort(rng.choice(3 * len(recs), len(recs), replace=False))
+    return (seqdb.SeqDB.from_records(recs, keys=keys,
+                                     dbtype=seqdb.NUCLEOTIDES),
+            port_seqdb.SeqDB.from_records(recs, keys=keys,
+                                          dbtype=port_seqdb.NUCLEOTIDES))
+
+
+DBS = {"mini_reads": _mini_reads, "synthetic": _synthetic,
+       "self_row_edges": _self_row_edges}
 
 
 @pytest.mark.parametrize("flat", [True, False])
@@ -310,7 +332,9 @@ DBS = {"mini_reads": _mini_reads, "synthetic": _synthetic}
 def test_nucl_rescore_records_match_jax(which, flat):
     """rescore_diagonal_torch on the port's hits against
     rescore_diagonal_jax on the JAX package's hits: the same records, in
-    the flat format the extender reads and per query."""
+    the flat format the extender reads and per query. The self rows, one
+    a sequence, are scored in K2's launch with the forward and reverse
+    hits (SELF_ROWS)."""
     jdb, pdb = DBS[which]()
     rp = dict(rescore_mode=3, seq_id_thr=0.99, eval_thr=1e-5)
     ev = EvalueComputer.for_matrix("nucleotide_ungapped",
@@ -319,8 +343,10 @@ def test_nucl_rescore_records_match_jax(which, flat):
         jdb, kmermatcher_jax(jdb, 22, return_arrays=True, **KW),
         RescoreParams(**rp), ev, return_flat=flat)
     hits = kmermatcher_torch(pdb, 22, torch.device("cpu"), **KW)
+    before = port_backend.SELF_ROWS
     got = rescore_diagonal_torch(pdb, hits, PortRescoreParams(**rp),
                                  return_flat=flat)
+    assert port_backend.SELF_ROWS - before == pdb.size
     if flat:
         np.testing.assert_array_equal(got["qk"], want["qk"])
         np.testing.assert_array_equal(got["rec"], want["rec"])
@@ -381,8 +407,8 @@ def test_hamming_rev_plain_matches_xla(which):
 
 @pytest.mark.parametrize("which", list(DBS))
 def test_nucl_hamming_records_match_jax(which):
-    """rescore_diagonal_torch at --rescore-mode 0 (self rows analytic,
-    the rest through the HAMMING rescore) against rescore_diagonal_jax."""
+    """rescore_diagonal_torch at --rescore-mode 0 (the hits and the self
+    rows through the HAMMING rescore) against rescore_diagonal_jax."""
     jdb, pdb = DBS[which]()
     rp = dict(rescore_mode=0, seq_id_thr=0.99, eval_thr=1e-5)
     ev = EvalueComputer.for_matrix("nucleotide_ungapped",
@@ -391,8 +417,10 @@ def test_nucl_hamming_records_match_jax(which):
         jdb, kmermatcher_jax(jdb, 22, return_arrays=True, **KW),
         RescoreParams(**rp), ev, return_flat=True)
     hits = kmermatcher_torch(pdb, 22, torch.device("cpu"), **KW)
+    before = port_backend.SELF_ROWS
     got = rescore_diagonal_torch(pdb, hits, PortRescoreParams(**rp),
                                  return_flat=True)
+    assert port_backend.SELF_ROWS - before == pdb.size
     np.testing.assert_array_equal(got["qk"], want["qk"])
     np.testing.assert_array_equal(got["rec"], want["rec"])
     assert len(got["rec"]) > pdb.size

@@ -22,8 +22,10 @@ from plass_tpu.ops.backend import db_to_padded
 from plass_tpu.ops.device_rescore import rescore_pairs
 from plass_tpu.ops.kmermatch import kmermatcher
 from plass_tpu.ops.pallas_rescore import rescore_pairs_pallas
-from plass_tpu_torch.ops.rescore_kernel import (rescore_e2e, rescore_e2e_plain,
-                                                rescore_hamming)
+from plass_tpu_torch.ops.rescore_kernel import (_overlap, rescore_align_plain,
+                                                rescore_e2e, rescore_e2e_plain,
+                                                rescore_hamming,
+                                                rescore_hamming_plain)
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 READS = [os.path.join(FIX, "mini_1.fastq.gz"),
@@ -260,3 +262,53 @@ def test_hamming_plain_matches_xla(which):
                           (xla[0], xla[1], xla[2], xla[5])):
         np.testing.assert_array_equal(g, np.asarray(x), err_msg=name)
     assert (got[0] > 10).any() and (got[1] == -1).all()
+
+
+def _mixed_widths(nucl, seed=5, n_hits=500, top=600):
+    """Rows of 0 to `top` residues ('*' or N at some ends, some in lower
+    case) and hits on them whose windows run from none to `top` residues
+    in no order of width; on nucleotides, about half of them reverse.
+    Returns the plain versions' operands and their keyword arguments."""
+    rng = np.random.default_rng(seed)
+    mat = constants.nucleotide() if nucl else constants.blosum62()
+    letters = (np.frombuffer(b"ACGTNacgt", np.uint8) if nucl
+               else np.concatenate([LETTERS, LETTERS + 32]))
+    lens = np.concatenate([[0, 1, top], rng.integers(1, top, 37)])
+    chars = np.zeros((len(lens), top), dtype=np.uint8)
+    for i, n in enumerate(lens):
+        chars[i, :n] = letters[rng.integers(0, len(letters), n)]
+        if i % 3 == 1:
+            chars[i, 0] = ord("N" if nucl else "*")
+    q = rng.integers(0, len(lens), n_hits)
+    t = rng.integers(0, len(lens), n_hits)
+    d = rng.integers(-top, top, n_hits)
+    i32 = lambda x: np.asarray(x, dtype=np.int32)
+    rows, offsets = flat_rows(chars, lens, shift=5)
+    args = port_args(rows, offsets, i32(lens), i32(q), i32(t), i32(d), mat)
+    kw = {}
+    if nucl:
+        kw = dict(qrev=torch.from_numpy(rng.random(n_hits) < 0.5),
+                  comp=torch.from_numpy(mat.reverse.astype(np.int32)),
+                  code2char=torch.from_numpy(mat.num2aa.astype(np.uint8)))
+    return args, kw
+
+
+@pytest.mark.parametrize("budget", [1, 600, 5000, 1 << 16])
+@pytest.mark.parametrize("nucl", [False, True])
+def test_plain_chunks_equal_one_chunk(nucl, budget):
+    """The plain versions take the hits in chunks of at most `budget`
+    window cells, in the order of their window length: every chunking
+    gives what one chunk of every hit, padded to the widest window,
+    gives."""
+    args, kw = _mixed_widths(nucl)
+    whole = args[4].numel() * int(args[2].max())
+    for name, fn, n_args in (("e2e", rescore_e2e_plain, 8),
+                             ("hamming", rescore_hamming_plain, 7),
+                             ("align", rescore_align_plain, 8)):
+        want = fn(*args[:n_args], budget=whole, **kw)
+        got = fn(*args[:n_args], budget=budget, **kw)
+        for i, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g.numpy(), w.numpy(),
+                                          err_msg=f"{name} output {i}")
+    ov = _overlap(args[2], args[4].long(), args[5].long(), args[6])[0]
+    assert (ov <= 0).sum() > 10 and (ov > 300).sum() > 10

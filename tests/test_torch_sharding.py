@@ -103,7 +103,35 @@ def _matcher_job(job, out):
     fn = (backend.kmermatcher_sharded_torch if job["kind"] == "driver"
           else backend.kmermatcher_torch)
     hits = fn(db, job["k"], torch.device("cpu"), **job["kw"])
-    np.savez(out, **_hits_arrays(hits))
+    arrs = _hits_arrays(hits)
+    if job.get("rescore"):
+        arrs.update(_rescore_arrays(db, hits))
+    np.savez(out, **arrs)
+
+
+def _rescore_arrays(db, hits):
+    """The END_TO_END flat records of the hits, the self rows handed to
+    the rescore's launch (backend.SELF_ROWS) and the hits of each K2 call."""
+    from plass_tpu_torch.ops import backend
+    from plass_tpu_torch.ops.rescore import RescoreParams
+
+    real, launched = backend.rescore_e2e, []
+
+    def spy(*args, **kw):
+        launched.append(args[4].numel())
+        return real(*args, **kw)
+
+    backend.rescore_e2e = spy
+    before = backend.SELF_ROWS
+    try:
+        got = backend.rescore_diagonal_torch(
+            db, hits, RescoreParams(rescore_mode=3, seq_id_thr=0.9,
+                                    eval_thr=1e-5), return_flat=True)
+    finally:
+        backend.rescore_e2e = real
+    return {"rec_qk": got["qk"], "rec": got["rec"],
+            "self_rows": np.int64(backend.SELF_ROWS - before),
+            "launched": np.array(launched, dtype=np.int64)}
 
 
 def _cli_job(job, rank):
@@ -378,7 +406,12 @@ def _world_jobs(data, world):
                      "db": data["paths"]["edge"], "k": 14, "kw": EDGE_KW})
     jobs.append({"id": "step", "kind": "step", "batch": data["batch"],
                  "rows_per_shard": STEP_ROWS // world})
-    return jobs + _driver_jobs(data, WORLD_JOBS[world])
+    jobs += _driver_jobs(data, WORLD_JOBS[world])
+    for job in jobs:
+        # world 1 also rescores the protein hits of both matchers
+        if world == 1 and job["id"] in ("driver_protein", "single_protein"):
+            job["rescore"] = True
+    return jobs
 
 
 @pytest.fixture(scope="module")
@@ -501,6 +534,23 @@ def test_world_1_equals_the_single_device_matcher(data, ranks):
     with pytest.raises(TypeError, match="cov_mode"):
         kmermatcher_sharded(data["jax"]["protein"], 14, cov_mode=1,
                             **DRIVER_KW)
+
+
+def test_world_1_records_equal_the_single_device_path(data, ranks):
+    """At world 1 rescore_diagonal_torch gives the same END_TO_END records
+    on the sharded driver's hits as on kmermatcher_torch's: the driver's
+    hits keep their K2 columns and the self rows, one a sequence, go to
+    one launch of their own, while the single-device path launches the
+    hits and the self rows together."""
+    r = ranks(1)
+    got, want = r.npz("driver_protein"), r.npz("single_protein")
+    np.testing.assert_array_equal(got["rec_qk"], want["rec_qk"])
+    np.testing.assert_array_equal(got["rec"], want["rec"])
+    n = data["jax"]["protein"].size
+    assert int(got["self_rows"]) == int(want["self_rows"]) == n
+    assert got["launched"].tolist() == [n]
+    assert want["launched"].tolist() == [len(want["flat0"])]
+    assert len(got["rec"]) > n
 
 
 def test_segment_edge_cuts_a_run_as_the_jax_package_does(data, ranks):
