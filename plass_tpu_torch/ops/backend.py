@@ -203,18 +203,21 @@ def kmermatcher_sharded_torch(db, k, device, kmers_per_sequence=21,
         lambda: (distributed.gather(local), distributed.gather(counts)),
         local.numel() * local.element_size() + 4)
     rep, tgt, score, diag, r_score, first, last, idents = gathered.unbind(1)
-    keys = torch.from_numpy(db.keys.astype(np.int64)).to(device)
-    rep_k = keys[rep.long()]
-    order = torch.sort(rep_k, stable=True).indices
-    rep_k, tgt_k = rep_k[order], keys[tgt.long()[order]]
-    score, diag = score[order], diag[order].contiguous()
-    host = [x.cpu().numpy() for x in (rep_k, tgt_k, score, diag)]
-    out = _insert_self_hits(db, host[0].astype(np.uint32),
-                            host[1].astype(np.uint32), *host[2:])
+    with span("kmermatch.order"):
+        keys = torch.from_numpy(db.keys.astype(np.int64)).to(device)
+        rep_k = keys[rep.long()]
+        order = torch.sort(rep_k, stable=True).indices
+        rep_k, tgt_k = rep_k[order], keys[tgt.long()[order]]
+        score, diag = score[order], diag[order].contiguous()
+        host = [x.cpu().numpy() for x in (rep_k, tgt_k, score, diag)]
+        pre = tuple(c[order].cpu().numpy().astype(t) for c, t in (
+            (r_score, np.int64), (first, np.int32), (last, np.int32),
+            (idents, np.float64)))
+    with span("kmermatch.self_hits"):
+        out = _insert_self_hits(db, host[0].astype(np.uint32),
+                                host[1].astype(np.uint32), *host[2:])
     out.dev = (rep_k.to(torch.int32), tgt_k.to(torch.int32), diag, score < 0)
-    out.pre = tuple(c[order].cpu().numpy().astype(t) for c, t in (
-        (r_score, np.int64), (first, np.int32), (last, np.int32),
-        (idents, np.float64)))
+    out.pre = pre
     out.pre_mode = 3
     out.table_entries = int(counts.sum())
     out.ranges = ((0, device_kmer.RANGE_BINS - 1),)
@@ -397,9 +400,10 @@ def rescore_diagonal_torch(db, hits, params=None, evaluer=None,
     if hits.pre is not None and params.rescore_mode == hits.pre_mode:
         # the sharded matcher's hits carry their rescore columns; only the
         # self rows are launched
-        didx = np.searchsorted(hits.hit_slots, idxs)
-        score[idxs], first[idxs], last[idxs], idents[idxs] = (
-            c[didx] for c in hits.pre)
+        with span("rescore.pre"):
+            didx = np.searchsorted(hits.hit_slots, idxs)
+            score[idxs], first[idxs], last[idxs], idents[idxs] = (
+                c[didx] for c in hits.pre)
         idxs = idxs[:0]
     if len(idxs) or len(self_idx):
         SELF_ROWS += len(self_idx)

@@ -577,15 +577,39 @@ def merge_parts(parts, keys, budget):
     return tuple(torch.cat(c) for c in zip(*out))
 
 
+class Local:
+    """kmermatch_device's route on one device: every table entry and pair
+    stays where it is made, and the pairs are sorted."""
+
+    @staticmethod
+    def table(kmer, sid, pos, slen, rkey):
+        return kmer, sid, pos, slen
+
+    @staticmethod
+    def pairs(rep, tgt, diag, rev):
+        return sort_pairs(rep, tgt, diag, rev)
+
+
+def _no_pairs(device):
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    return empty, empty, empty, empty
+
+
 def kmermatch_device(rows, offsets, lengths, code_lut, keys, hash_shift,
-                     params: KmerParams, budget=None):
-    """Full device k-mer matcher on one device.
+                     params: KmerParams, budget=None, route=Local):
+    """Full device k-mer matcher on one device, or one rank's part of it.
 
     rows uint8[T], offsets int64[N], lengths int32[N] (< MAX_LEN), code_lut
     uint8[256] (the flat sequences of build_table), keys int32[N]
     (ascending, < MAX_KEY). budget: None for the monolithic path, else the
     split path's entries per hash range (and pairs per merge bucket); a
     table of at most `budget` entries runs as one range, monolithic.
+    route: where the table's entries and the pairs go between the stages
+    (Local: nowhere). Its table(kmer, sid, pos, slen, rkey) returns the
+    entries to build pairs from, its pairs(rep, tgt, diag, rev) the pairs
+    to take hits from, sorted (sort_pairs); the sharded matcher's route
+    (parallel/mesh.py) sends each to the rank that owns it. The split path
+    takes none.
     Returns (rep, tgt, score, diag) int32[H] — hits grouped by ascending
     rep key —, the number of table entries and the hash ranges (inclusive
     (lo, hi) range-key pairs)."""
@@ -597,11 +621,13 @@ def kmermatch_device(rows, offsets, lengths, code_lut, keys, hash_shift,
         if budget is not None and n > budget:
             ranges = table_ranges(rkey, budget)
     if len(ranges) == 1:
+        kmer, sid, pos, slen = route.table(kmer, sid, pos, slen, rkey)
         del rkey
         with span("kmermatch.pairs"):
-            pairs = sort_pairs(*pairs_from_table(kmer, sid, pos, slen,
-                                                 params))
-        del kmer, sid, pos, slen
+            pairs = (pairs_from_table(kmer, sid, pos, slen, params)
+                     if kmer.numel() else _no_pairs(kmer.device))
+            del kmer, sid, pos, slen
+            pairs = route.pairs(*pairs)
         with span("kmermatch.hits"):
             return (*_hits(*pairs), n, ranges)
     with span("kmermatch.pairs"):

@@ -23,6 +23,13 @@ Exchanges move exact per-destination counts (one all_to_all_single of the
 counts, then one of each field), so nothing overflows and nothing is
 retried: the JAX package's bucket capacities, its overflow retry and its
 selection-demand probe have no counterpart.
+
+Stages 1-4 are ops/device_kmer.kmermatch_device's, whose route here
+(_Route) is the two exchanges; its spans kmermatch.table, .pairs and
+.hits hold them, and stage 5 runs in kmermatch.rank_rescore. Each
+exchange's collectives run in a span of their own,
+kmermatch.exchange.<name> (timed): from a device sync, so the wait for
+the slowest rank falls in it.
 """
 import time
 
@@ -32,6 +39,7 @@ import torch.distributed as dist
 from ..ops import device_kmer
 from ..ops.rescore_kernel import rescore_e2e
 from ..utils.device import synchronize
+from ..utils.trace import span
 from . import distributed
 
 
@@ -49,12 +57,16 @@ class ExchangeStats:
 
 
 def timed(stats, name, device, fn, n_bytes):
-    """fn()'s result; with stats, n_bytes and fn's wall seconds (between
-    device syncs) added under `name`."""
+    """fn()'s result, once the device has run the work queued before it:
+    the span kmermatch.exchange.<name> (utils/trace.span) holds fn() and a
+    second device sync, so the collectives and the wait for the other
+    ranks alone. With stats, n_bytes and the span's wall seconds are added
+    under `name`."""
     synchronize(device)
-    t0 = time.perf_counter()
-    out = fn()
-    synchronize(device)
+    with span(f"kmermatch.exchange.{name}"):
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(device)
     if stats is not None:
         stats.add(name, n_bytes, time.perf_counter() - t0)
     return out
@@ -87,9 +99,28 @@ def exchange(fields, dest, world, stats=None, name="exchange"):
     return timed(stats, name, device, swap, n_bytes)
 
 
-def _no_pairs(device):
-    empty = torch.zeros(0, dtype=torch.int32, device=device)
-    return empty, empty, empty, empty
+class _Route:
+    """kmermatch_device's route across the ranks: table entries to the
+    rank that owns their 16-bit range key (stage 2), pairs to the rank
+    that owns their representative's row range, sorted there (stage 4)."""
+
+    def __init__(self, world, rows_per_shard, stats):
+        self.world, self.rows_per_shard, self.stats = (world, rows_per_shard,
+                                                       stats)
+
+    def table(self, kmer, sid, pos, slen, rkey):
+        dest = (rkey.long() * self.world) // device_kmer.RANGE_BINS
+        kmer, cols = exchange([kmer, torch.stack([sid, pos, slen], 1)],
+                              dest, self.world, self.stats, "table")
+        return (kmer, *cols.unbind(1))
+
+    def pairs(self, rep, tgt, diag, rev):
+        dest = torch.clamp(rep.long() // self.rows_per_shard,
+                           max=self.world - 1)
+        (got,) = exchange([torch.stack([rep, tgt, (diag << 1) | rev], 1)],
+                          dest, self.world, self.stats, "pairs")
+        rep, tgt, dr = got.unbind(1)
+        return device_kmer.sort_pairs(rep, tgt, dr >> 1, dr & 1)
 
 
 def sharded_iteration(kmer_rows, score_rows, sub, params, hash_shift,
@@ -117,41 +148,20 @@ def sharded_iteration(kmer_rows, score_rows, sub, params, hash_shift,
     lo = min(me * rows_per_shard, n)
     hi = n if me == world - 1 else min(lo + rows_per_shard, n)
 
-    # ---- stage 1: selection on this rank's rows
-    kmer, sid, pos, slen, rkey = device_kmer.build_table(
-        rows, offsets[lo:hi], lengths[lo:hi], code_lut,
-        torch.arange(lo, hi, dtype=torch.int32, device=device), params,
-        hash_shift)
-    selected = kmer.numel()
-
-    # ---- stage 2: hash-range exchange (same k-mer -> same rank)
-    dest = (rkey.long() * world) // device_kmer.RANGE_BINS
-    kmer, cols = exchange([kmer, torch.stack([sid, pos, slen], 1)], dest,
-                          world, stats, "table")
-    del sid, pos, slen, rkey, dest
-
-    # ---- stage 3: this rank's table -> kept pairs, in table order
-    if kmer.numel():
-        pairs = device_kmer.pairs_from_table(kmer, *cols.unbind(1), params)
-    else:
-        pairs = _no_pairs(device)
-    del kmer, cols
-
-    # ---- stage 4: route pairs by contiguous representative range, then
-    # the hits of this rank's segment of the sorted pair stream
-    rep, tgt, diag, rev = pairs
-    pair_dest = torch.clamp(rep.long() // rows_per_shard, max=world - 1)
-    (got,) = exchange([torch.stack([rep, tgt, (diag << 1) | rev], 1)],
-                      pair_dest, world, stats, "pairs")
-    rep, tgt, dr = got.unbind(1)
-    h_rep, h_tgt, h_score, h_diag = device_kmer._hits(
-        *device_kmer.sort_pairs(rep, tgt, dr >> 1, dr & 1))
+    # ---- stages 1-4: the matcher on this rank's rows, its table and
+    # pairs routed to the ranks that own them
+    h_rep, h_tgt, h_score, h_diag, selected, _ = \
+        device_kmer.kmermatch_device(
+            rows, offsets[lo:hi], lengths[lo:hi], code_lut,
+            torch.arange(lo, hi, dtype=torch.int32, device=device),
+            hash_shift, params, route=_Route(world, rows_per_shard, stats))
 
     # ---- stage 5: K2 on this rank's hits
     kw = dict(rescore_kw or {})
     if "comp" in kw:
         kw["qrev"] = h_score < 0
-    r_score, first, last, idents = rescore_e2e(
-        *score_rows, h_rep, h_tgt, h_diag.contiguous(), sub, **kw)
+    with span("kmermatch.rank_rescore"):
+        r_score, first, last, idents = rescore_e2e(
+            *score_rows, h_rep, h_tgt, h_diag.contiguous(), sub, **kw)
     return (h_rep, h_tgt, h_score, h_diag, r_score, first, last, idents,
             selected)

@@ -13,7 +13,17 @@ device (a fetch), the wait falls in the span that blocks.
 
 Names are dotted, `<layer>.<sub-step>`: kmermatch.{budget, table, pairs,
 hits, fetch, self_hits}, rescore.{index, self_rows, launch, fetch,
-finish, group}, and upload.rows for each upload of a DB's rows.
+finish, group}, and upload.rows for each upload of a DB's rows. The
+sharded matcher (parallel/mesh.py, ops/backend.kmermatcher_sharded_torch)
+has kmermatch.{table, pairs, hits} on each rank's part too, with
+kmermatch.exchange.table between .table and .pairs, .exchange.pairs
+inside .pairs (where the pairs are routed, then sorted) and
+kmermatch.rank_rescore, then kmermatch.exchange.gather (the
+all-gather of every rank's hits), kmermatch.order (the sort by
+representative key, the fetches and the `pre` columns) and
+kmermatch.self_hits, and its hits' rescore columns are scattered into the
+rescore's in rescore.pre; each exchange's span starts after a device
+sync, so it holds the collectives and the wait for the other ranks.
 """
 import contextlib
 

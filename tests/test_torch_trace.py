@@ -3,7 +3,8 @@ timeline. Under torch.profiler every sub-step of the k-mer matcher and of
 the rescore appears by name inside its own call, the DB's rows are
 uploaded twice a step (once per alphabet), and the hits and records are
 the same as without a profiler; outside a profiler span() is the one
-shared null context and enters no record_function."""
+shared null context and enters no record_function. The sharded matcher's
+spans, at world 1 (a process group of this process alone), likewise."""
 import os
 
 import numpy as np
@@ -23,6 +24,12 @@ MATCHER_SPANS = ("kmermatch.budget", "kmermatch.table", "kmermatch.pairs",
                  "kmermatch.hits", "kmermatch.fetch", "kmermatch.self_hits")
 RESCORE_SPANS = ("rescore.index", "rescore.self_rows", "rescore.launch",
                  "rescore.fetch", "rescore.finish", "rescore.group")
+# the sharded matcher's (parallel/mesh.py, kmermatcher_sharded_torch)
+SHARDED_SPANS = ("kmermatch.table", "kmermatch.exchange.table",
+                 "kmermatch.pairs", "kmermatch.exchange.pairs",
+                 "kmermatch.hits", "kmermatch.rank_rescore",
+                 "kmermatch.exchange.gather", "kmermatch.order",
+                 "kmermatch.self_hits")
 
 
 def _proteins():
@@ -52,13 +59,13 @@ CASES = {
 }
 
 
-def _step(db, case):
+def _step(db, case, matcher="single"):
     """The assembly iteration's device step on the CPU, each call inside a
     span of its layer's name; the hits and flat records on the host."""
     _, k, kw, rp, matrix = case
     ev = EvalueComputer.for_matrix(matrix, db.total_residues())
     with trace.span("kmermatch"):
-        hits = backend.match_kmers(db, k, torch.device("cpu"), "single",
+        hits = backend.match_kmers(db, k, torch.device("cpu"), matcher,
                                    **kw)
     with trace.span("rescore"):
         recs = backend.rescore_diagonal_torch(db, hits, RescoreParams(**rp),
@@ -66,19 +73,41 @@ def _step(db, case):
     return hits, recs
 
 
-@pytest.fixture(scope="module", params=list(CASES))
-def traced(request):
+def _traced(case, matcher="single"):
     """(plain hits and records, traced hits and records, the profiler's
     events as (name, start, end)) of one case."""
-    case = CASES[request.param]
     db = case[0]()
-    plain = _step(db, case)
+    plain = _step(db, case, matcher)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        out = _step(db, case)
+        out = _step(db, case, matcher)
     events = [(e.name, e.time_range.start, e.time_range.end)
               for e in prof.events()]
     return plain, out, events
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def traced(request):
+    return _traced(CASES[request.param])
+
+
+@pytest.fixture(scope="module")
+def one_rank():
+    """A process group of this process alone, the sharded matcher's world
+    1 (as `--backend sharded` without a coordinator); left as found."""
+    import torch.distributed as dist
+    from plass_tpu_torch.parallel import distributed
+
+    made = not dist.is_initialized()
+    distributed.maybe_initialize(torch.device("cpu"), one_rank=True)
+    yield
+    if made and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def sharded_traced(request, one_rank):
+    return _traced(CASES[request.param], "sharded")
 
 
 def _spans(events, name):
@@ -128,3 +157,32 @@ def test_span_is_null_outside_a_profiler(monkeypatch):
     with ctx:
         pass
 
+
+def test_sharded_spans_lie_inside_the_matcher(sharded_traced):
+    (hits, recs), (t_hits, t_recs), events = sharded_traced
+    (outer,) = _spans(events, "kmermatch")
+    for name in SHARDED_SPANS:
+        spans = _spans(events, name)
+        assert len(spans) == 1, name
+        for t0, t1 in spans:
+            assert outer[0] <= t0 <= t1 <= outer[1], name
+    for name in RESCORE_SPANS + ("rescore.pre",):
+        assert _spans(events, name), name
+    for a, b in zip(hits, t_hits):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(hits.pre, t_hits.pre):
+        np.testing.assert_array_equal(a, b)
+    for key in ("qk", "rec"):
+        np.testing.assert_array_equal(recs[key], t_recs[key])
+
+
+def test_sharded_path_records_nothing_outside_a_profiler(one_rank,
+                                                         monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("record_function entered without a profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    case = CASES["protein"]
+    hits, recs = _step(case[0](), case, "sharded")
+    assert hits.pre is not None and len(recs["rec"]) > 0
